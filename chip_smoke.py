@@ -6,16 +6,23 @@
 Phases, each raising on failure:
   1. device  -- require CUDA; print the card's name and power limit; set
                 fp32 matmuls to full precision (no TF32).
-  2. build   -- compile every CUDA kernel from ``src/repro_torch/csrc``.
+  2. build   -- compile every CUDA kernel from ``src/repro_torch/csrc``, one
+                nvcc per source, all at once; print ptxas registers/spills.
   3. kernels -- each kernel against its plain PyTorch version on the card at
-                the main path's shapes (granite_8b), with its time, the plain
-                version's time, a library yardstick's time and its bound.
-  4. numerics-- granite_8b at full width and 2 layers: the card's bf16 kernel
-                path (prefill logits, then one decode step) against the port's
-                plain path on the CPU in fp32, on the same weights.
-  5. serve   -- a full-width, full-depth granite_8b Engine serves 4 requests
-                of 512 prompt tokens, 32 greedy new tokens each; the kernels'
-                launch counters must show that the path went through them.
+                the main paths' shapes (flash_attention and fused_mlp at
+                granite_8b's, ssd_scan at mamba2_780m's), with its time, the
+                plain version's time, a library yardstick's time and its
+                bound.
+  4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
+                then one decode step) against the port's plain path on the
+                CPU in fp32, on the same weights: granite_8b and mamba2_780m
+                at 2 layers, zamba2_1_2b at 6 (its shared block fires once);
+                each kernel's launches per step are checked.
+  5. serve   -- full-width, full-depth Engines: granite_8b serves 4 requests
+                of 512 prompt tokens and mamba2_780m 4 of 2048, 32 greedy new
+                tokens each; each path's launch counters, zeroed just before
+                it, must show that it went through its kernels; then each is
+                profiled over one prefill and 3 decode steps.
 The last two lines of output are a JSON ``kernels`` line and the JSON result
 line. Exits non-zero, printing no result, without a GPU or without the repo.
 """
@@ -38,8 +45,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
+                                          ssd_scan, to_pallas_layout)
 from repro_torch.models import model_zoo  # noqa: E402
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import keeps_fp32, tree_map  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 # H100 SXM data sheet: dense bf16 tensor rate and HBM3 bandwidth.
@@ -55,6 +65,11 @@ SEED = 0
 # (fused_mlp: fp32 atomics in a run-dependent order). Outputs are O(1), so
 # bf16's 2^-8 relative step bounds the gap: the repo's bf16 tolerance.
 KERNEL_ATOL = KERNEL_RTOL = 2e-2
+# ssd_scan vs ssd_ref (same bf16 x/B/C, fp32 dt/A): both sum in fp32 and
+# round y to bf16 once, in another order, so they differ by about one bf16
+# step (2^-8 relative) of y; the repo's bf16 tolerance above holds, tighter
+# than its bf16 SSD tolerance (5e-2, tests/test_kernels.py:148).
+SSD_ATOL = SSD_RTOL = 2e-2
 # bf16 card path vs fp32 CPU path through 2 full-width layers: ~10 rounded
 # bf16 operations per layer (2^-9 relative each) compound to ~1% of the
 # logits' RMS; 3% leaves room without hiding a wrong kernel (which is O(1)).
@@ -91,16 +106,16 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def compare(name, got, want):
-    """Max abs and relative error; raises beyond the kernel tolerance."""
+def compare(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
+    """Max abs and relative error; raises beyond the tolerance."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp_min(1e-3)).max())
-    bad = int((err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).sum())
+    bad = int((err > atol + rtol * want.abs()).sum())
     ok = bad == 0 and bool(torch.isfinite(got).all())
     print(f"  {name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-          f"outside atol={KERNEL_ATOL} rtol={KERNEL_RTOL}: {bad} "
+          f"outside atol={atol} rtol={rtol}: {bad} "
           f"-> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
@@ -192,59 +207,172 @@ def check_fused_mlp(gen, flush):
             "decode": entries["decode"]}
 
 
+def ssd_inputs(gen, b, s, h, g, n, p):
+    """Model-layout SSD inputs as the model path makes them: bf16 x, B, C;
+    fp32 dt = softplus(.) > 0 and A = -exp(.) < 0."""
+    x = randn(gen, b, s, h, p)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    a = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.2)
+    return x, dt, a, randn(gen, b, s, g, n), randn(gen, b, s, g, n)
+
+
+def check_ssd(gen, flush):
+    """ssd_scan kernel vs ssd_ref (y and final state) at mamba2_780m's
+    prefill shape, a grouped case, the Pallas layout and two chunk sizes;
+    returns the kernel's JSON entry (main shape)."""
+    cfg = get_config("mamba2_780m")
+    b, s, h, p = 4, 2048, cfg.ssm_heads, cfg.ssm_head_dim
+    g, n, chunk = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
+    main = ssd_inputs(gen, b, s, h, g, n, p)
+    cases = [  # (label, inputs, chunk, Pallas layout)
+        (f"mamba2_780m B={b} S={s} H={h} P={p} N={n} G={g} chunk {chunk}",
+         main, chunk, False),
+        ("same inputs, chunk 64", main, 64, False),
+        ("grouped G=2 B=2 S=512 H=8 N=64 chunk 256",
+         ssd_inputs(gen, 2, 512, 8, 2, 64, p), 256, False),
+        ("Pallas layout BH=8 S=512 N=128 chunk 128",
+         to_pallas_layout(*ssd_inputs(gen, 1, 512, 8, 8, 128, p)), 128, True),
+    ]
+    errs, y_main = [], None
+    for label, args, ck, pallas in cases:
+        y, state = ssd_scan(*args, chunk=ck)
+        if pallas:
+            want_y, want_state = ssd_ref(*args)
+        else:
+            want_y, want_state = from_pallas_layout(
+                *ssd_ref(*to_pallas_layout(*args)), args[0].shape[0])
+        torch.cuda.synchronize()
+        errs.append(compare(f"ssd_scan y [{label}]", y, want_y,
+                            SSD_ATOL, SSD_RTOL))
+        compare(f"ssd_scan state [{label}]", state, want_state, SSD_ATOL,
+                SSD_RTOL)
+        if y_main is None:
+            y_main = y
+        elif ck == 64:
+            compare("ssd_scan y chunk 64 vs chunk 256", y, y_main, SSD_ATOL,
+                    SSD_RTOL)
+        del y, state, want_y, want_state
+    ms = cuda_ms(lambda: ssd_scan(*main, chunk=chunk), 10, flush)
+    ref_in = to_pallas_layout(*main)
+    plain = cuda_ms(lambda: ssd_ref(*ref_in), 2, flush)
+    lib = cuda_ms(lambda: ssd_chunked(*main, chunk), 5, flush)
+    flops = 2.0 * b * h * s * ((chunk + 1) / 2 * (n + p) + 2 * n * p)
+    nbytes = (2 * 2 * b * s * h * p + 2 * 2 * b * s * g * n + 4 * b * s * h
+              + 4 * h + 4 * b * h * n * p)
+    bms, by = bound_ms(flops, nbytes)
+    print(f"  ssd_scan B={b} S={s} H={h} P={p} N={n} chunk {chunk}: kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, torch chain (ssd_chunked) "
+          f"{lib:.4f} ms, bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)", flush=True)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:63",
+            "launches": None, "max_abs_err": max(errs), "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib,
+            "library": "torch chain, not one call: "
+                       "repro_torch.models.ssm.ssd_chunked (einsums and a "
+                       "loop over chunks); no single PyTorch call computes "
+                       "the SSD scan",
+            "shape": f"B={b} S={s} H={h} P={p} N={n} G={g} chunk {chunk}, "
+                     "bf16 x/B/C, fp32 dt/A"}
+
+
 def rel_rms(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def check_numerics():
-    """granite_8b at full width, 2 layers: card bf16 kernel path vs the
-    port's plain path on the CPU in fp32, on the same weights."""
-    cfg = get_config("granite_8b").with_(n_layers=2)
+def launch_counts():
+    return {"flash_attention": flash_attention.launches,
+            "fused_mlp": fused_mlp.launches, "ssd_scan": ssd_scan.launches}
+
+
+def reset_launch_counts():
+    for fn in (flash_attention, fused_mlp, ssd_scan):
+        fn.launches = 0
+
+
+def expected_launches(cfg, prefills: int, decode_steps: int):
+    """Kernel launches for ``prefills`` prefills and ``decode_steps`` decode
+    steps: flash once per attention block in prefill, fused_mlp once per
+    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill."""
+    L = cfg.n_layers
+    if cfg.is_ssm_family:
+        shared = L // cfg.attn_every if cfg.family == "hybrid" else 0
+        return {"flash_attention": shared * prefills,
+                "fused_mlp": shared * (prefills + decode_steps),
+                "ssd_scan": L * prefills}
+    return {"flash_attention": L * prefills,
+            "fused_mlp": L * (prefills + decode_steps), "ssd_scan": 0}
+
+
+def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
+    """``arch`` at full width and ``n_layers`` layers: card bf16 kernel
+    path vs the port's plain path on the CPU in fp32, on the same
+    weights; each step's kernel launches checked."""
+    cfg = get_config(arch).with_(n_layers=n_layers)
     params = model_zoo.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
     cpu_params = tree_map(lambda _, t: t.cpu(), params)
     cpu_cfg = cfg.with_(compute_dtype="float32")
-    card = tree_map(lambda p, t: t if "norm" in p else t.to(BF16), params)
+    card = tree_map(lambda p, t: t if keeps_fp32(p) else t.to(BF16), params)
     toks = torch.from_numpy(np.random.RandomState(SEED).randint(
-        0, cfg.vocab, (2, 64)).astype(np.int32))
-    launches = (flash_attention.launches, fused_mlp.launches)
+        0, cfg.vocab, (batch, seq)).astype(np.int32))
     with torch.inference_mode():
-        want, cpu_cache = model_zoo.prefill(cpu_cfg, cpu_params, toks, 80)
-        got, cache = model_zoo.prefill(cfg, card, toks.cuda(), 80)
+        want, cpu_cache = model_zoo.prefill(cpu_cfg, cpu_params, toks,
+                                            seq + 16)
+        reset_launch_counts()
+        got, cache = model_zoo.prefill(cfg, card, toks.cuda(), seq + 16)
+        torch.cuda.synchronize()
+        step_counts = [launch_counts()]
         nxt = torch.argmax(want, dim=-1).to(torch.int32)
         want_d, _ = model_zoo.decode_step(cpu_cfg, cpu_params, cpu_cache, nxt)
+        reset_launch_counts()
         got_d, _ = model_zoo.decode_step(cfg, card, cache, nxt.cuda())
     torch.cuda.synchronize()
-    if (flash_attention.launches - launches[0] != cfg.n_layers
-            or fused_mlp.launches - launches[1] != 2 * cfg.n_layers):
-        raise RuntimeError("the card path did not run the kernels")
-    for label, g, w in (("prefill", got, want), ("decode", got_d, want_d)):
+    step_counts.append(launch_counts())
+    for counts, want_counts in zip(step_counts, (
+            expected_launches(cfg, 1, 0), expected_launches(cfg, 0, 1))):
+        if counts != want_counts:
+            raise RuntimeError(f"{arch}: launch counts {counts}, expected "
+                               f"{want_counts}: the card path did not run "
+                               "the kernels")
+    print(f"  {arch} {n_layers} layers, batch {batch} x {seq}: launches "
+          f"prefill {step_counts[0]}, decode step {step_counts[1]} (as "
+          "expected)", flush=True)
+    # real vocab only: the padded logits are -1e9 on both sides and would
+    # swamp the RMS
+    v = cfg.vocab
+    for label, g, w in (("prefill", got[:, :v], want[:, :v]),
+                        ("decode", got_d[:, :v], want_d[:, :v])):
         r = rel_rms(g.cpu(), w)
         ok = r <= NUMERICS_REL_RMS and bool(torch.isfinite(g).all())
-        print(f"  granite_8b 2 layers {label} logits {tuple(g.shape)}: "
+        print(f"  {arch} {n_layers} layers {label} logits {tuple(g.shape)}: "
               f"rel RMS {r:.3e} (limit {NUMERICS_REL_RMS}), max abs "
               f"{float((g.cpu().float() - w).abs().max()):.3e}, argmax "
               f"agree {int((g.argmax(-1).cpu() == w.argmax(-1)).sum())}/"
               f"{g.shape[0]} -> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise RuntimeError(f"{label} logits disagree with the fp32 path")
+            raise RuntimeError(f"{arch} {label} logits disagree with the "
+                               "fp32 path")
     del params, card
 
 
-def serve(n_layers: int):
-    """Full-width granite_8b Engine on the card: 4 x 512-token prompts, 32
-    greedy new tokens. Returns the kernels' launch counts of that run."""
-    cfg = get_config("granite_8b").with_(n_layers=n_layers,
-                                         param_dtype="bfloat16")
-    batch, prompt_len, new = 4, 512, 32
+def serve(arch: str, batch: int, prompt_len: int, new: int):
+    """Full-width, full-depth ``arch`` Engine on the card: ``batch``
+    prompts of ``prompt_len`` tokens, ``new`` greedy new tokens. Returns
+    the kernels' launch counts of that run."""
+    cfg = get_config(arch).with_(param_dtype="bfloat16")
+    n_layers = cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model_zoo.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
     scfg = ServeConfig(max_seq=prompt_len + new, max_new_tokens=new)
     eng = Engine(cfg, params, scfg=scfg, device="cuda")
+    del params
     torch.cuda.synchronize()
-    print(f"  granite_8b {n_layers} layers, d_model {cfg.d_model}, "
+    print(f"  {arch} {n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.params_count(eng.params) / 1e9:.3f} B params, "
           f"weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB, set up "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -253,17 +381,15 @@ def serve(n_layers: int):
     Engine(cfg, eng.params, ServeConfig(max_seq=prompt_len + 2,
                                         max_new_tokens=2)).generate(prompts)
 
-    flash_attention.launches = 0
-    fused_mlp.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = eng.generate(prompts)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "fused_mlp": fused_mlp.launches}
+    launches = launch_counts()
 
-    want = {"flash_attention": n_layers, "fused_mlp": n_layers * (1 + new)}
+    want = expected_launches(cfg, 1, new)
     if launches != want:
         raise RuntimeError(f"launch counts {launches}, expected {want}")
     if out.shape != (batch, new) or not ((out >= 0) & (out < cfg.vocab)).all():
@@ -284,9 +410,12 @@ def serve(n_layers: int):
           f"{t_decode:.4f} s ({batch * new / t_decode:.1f} tok/s, "
           f"{t_decode / new * 1e3:.2f} ms/step); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"  launches {launches} (expected {want})", flush=True)
+    print(f"  launches {launches} (expected {want}: per prefill "
+          f"{expected_launches(cfg, 1, 0)}, per decode step "
+          f"{expected_launches(cfg, 0, 1)})", flush=True)
     print(f"  first tokens: {out[:, :8].tolist()}", flush=True)
     profile(eng, prompts)
+    del eng, logits
     return launches
 
 
@@ -354,18 +483,27 @@ def main():
     phase("kernels")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    entries = [check_flash(gen, flush), check_fused_mlp(gen, flush)]
+    entries = [check_flash(gen, flush), check_fused_mlp(gen, flush),
+               check_ssd(gen, flush)]
     del flush
     torch.cuda.empty_cache()
 
     phase("numerics")
-    check_numerics()
+    check_numerics("granite_8b", 2, 2, 64)
+    check_numerics("mamba2_780m", 2, 2, 512)
+    check_numerics("zamba2_1_2b", 6, 2, 512)
     torch.cuda.empty_cache()
 
     phase("serve")
-    launches = serve(get_config("granite_8b").n_layers)
+    # each kernel's launches come from the path that runs it
+    path_of = {"flash_attention": "granite_8b", "fused_mlp": "granite_8b",
+               "ssd_scan": "mamba2_780m"}
+    launches = {"granite_8b": serve("granite_8b", 4, 512, 32)}
+    torch.cuda.empty_cache()
+    launches["mamba2_780m"] = serve("mamba2_780m", 4, 2048, 32)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches"] = launches[path_of[e["name"]]][e["name"]]
+        e["launches_path"] = path_of[e["name"]]
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attn", "fused_mlp")
+SOURCES = ("flash_attn", "fused_mlp", "ssd_scan")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

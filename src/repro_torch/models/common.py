@@ -101,6 +101,21 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+# Mamba-2 leaves the reference creates in fp32 whatever ``param_dtype`` is
+# (``repro/models/ssm.py::init_mamba2``).
+SSM_FP32_LEAVES = ("dt_bias", "A_log", "D", "gn_scale")
+
+
+def keeps_fp32(path: str) -> bool:
+    """True for the leaves that stay fp32 when the weights are cast: the
+    norm scales and the SSM's ``dt_bias``, ``A_log``, ``D`` and
+    ``gn_scale``, as the reference creates them in fp32 regardless of
+    ``param_dtype``. ``path`` is a '/'-joined ``tree_map`` path."""
+    keys = path.split("/")
+    return "norm" in keys[-1] or ("ssm" in keys[:-1]
+                                  and keys[-1] in SSM_FP32_LEAVES)
+
+
 def tree_leaves(tree: PyTree):
     """Tensors of a nested dict, in key order."""
     if isinstance(tree, dict):

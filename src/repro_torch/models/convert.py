@@ -4,7 +4,8 @@ jax.random and torch generators draw different numbers from one seed,
 so parity tests build weights once with the reference ``init_params``
 and convert them here. The reference tree (nested dicts, per-layer
 leaves stacked on a leading layer axis, weights ``[d_in, d_out]``, norm
-scales fp32) keeps its layout; only the leaf type changes.
+scales and the SSM's ``dt_bias``/``A_log``/``D``/``gn_scale`` fp32)
+keeps its layout; only the leaf type changes.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .common import ModelConfig, tree_map
+from .common import ModelConfig, keeps_fp32, tree_map
 
 PyTree = Any
 
@@ -30,8 +31,9 @@ def params_from_numpy(cfg: ModelConfig, tree: PyTree, device,
                       dtype: Optional[torch.dtype] = None) -> PyTree:
     """The reference parameter tree (numpy leaves, bfloat16 as ml_dtypes)
     as torch tensors on ``device``. Lossless when ``dtype`` is None;
-    otherwise weight leaves are cast to ``dtype`` and norm scales stay
-    fp32. Raises if the tree's shapes are not ``cfg``'s."""
+    otherwise leaves are cast to ``dtype``, except those ``keeps_fp32``
+    names (norm scales, the SSM's fp32 leaves). Raises if the tree's
+    shapes are not ``cfg``'s."""
     want = (cfg.padded_vocab, cfg.d_model)
     if tuple(np.shape(tree["embed"])) != want:
         raise ValueError(f"embed is {np.shape(tree['embed'])}, {cfg.arch_id} "
@@ -42,7 +44,7 @@ def params_from_numpy(cfg: ModelConfig, tree: PyTree, device,
             raise ValueError(f"{path} stacks {np.shape(arr)[0]} layers, "
                              f"{cfg.arch_id} has {cfg.n_layers}")
         t = _tensor(arr)
-        if dtype is not None and "norm" not in path.rsplit("/", 1)[-1]:
+        if dtype is not None and not keeps_fp32(path):
             t = t.to(dtype)
         return t.to(device)
 

@@ -1,11 +1,14 @@
-"""Decoder-only language model, dense family.
+"""Decoder-only language models: dense, ssm and hybrid families.
 
-PyTorch counterpart of ``repro.models.lm`` for ``family == "dense"``
-(GQA attention with RoPE, RMSNorm or non-parametric LayerNorm, SwiGLU or
-GELU). Per-layer parameters are stacked on a leading layer axis, as in
-the reference, and applied by a Python loop over the layers. The other
-families raise ``NotImplementedError`` naming the ROADMAP slice that
-ports them.
+PyTorch counterpart of ``repro.models.lm`` for ``family`` in ("dense",
+"ssm", "hybrid"): dense is GQA attention with RoPE, RMSNorm or
+non-parametric LayerNorm, SwiGLU or GELU; ssm is Mamba-2 (``ssm``); the
+hybrid (Zamba-2) adds ONE shared attention+MLP block (shared weights)
+applied after every ``attn_every``-th Mamba-2 layer, with one KV-cache
+slot per invocation. Per-layer parameters are stacked on a leading
+layer axis, as in the reference, and applied by a Python loop over the
+layers. The other families raise ``NotImplementedError`` naming the
+ROADMAP slice that ports them.
 """
 from __future__ import annotations
 
@@ -18,19 +21,21 @@ from .attention import (attention, decode_attention, init_attn,
 from .common import (ModelConfig, apply_norm, dense_init, torch_dtype,
                      tree_map)
 from .mlp import init_mlp, mlp
+from .ssm import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode, \
+    mamba2_prefill
 
 PyTree = Any
 
+PORTED = ("dense", "ssm", "hybrid")
 _LATER_SLICE = {
-    "ssm": "Slice C (SSM)", "hybrid": "Slice C (hybrid)",
     "moe": "Slice D (MoE)", "audio": "Slice D (encoder-decoder)",
     "vlm": "Slice D (VLM)",
 }
 
 
-def require_dense(cfg: ModelConfig) -> None:
+def require_ported(cfg: ModelConfig) -> None:
     """Raise for a family the port does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         where = _LATER_SLICE.get(cfg.family, "no slice")
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family!r} family is not ported to "
@@ -42,21 +47,38 @@ def layer_params(layers: PyTree, i: int) -> PyTree:
     return tree_map(lambda _, t: t[i], layers)
 
 
+def _stacked(tree: PyTree, n: int, batch: int) -> PyTree:
+    """A tree allocated with batch ``n * batch`` viewed as [n, batch, ...]
+    (one allocation for all layers)."""
+    return tree_map(lambda _, t: t.view(n, batch, *t.shape[1:]), tree)
+
+
+def _shared_fires(cfg: ModelConfig, shared, idx: int) -> bool:
+    """Whether the hybrid's shared block runs after layer ``idx``."""
+    return (shared is not None and cfg.attn_every > 0
+            and idx % cfg.attn_every == cfg.attn_every - 1)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Dict:
-    ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=gen.device)
-    return {"attn_norm": ones, "attn": init_attn(cfg, gen, dtype=dtype),
-            "ffn_norm": ones.clone(), "mlp": init_mlp(cfg, gen, dtype=dtype)}
+    def ones():
+        return torch.ones((cfg.d_model,), dtype=torch.float32,
+                          device=gen.device)
+
+    if cfg.is_ssm_family:
+        return {"ssm_norm": ones(), "ssm": init_mamba2(cfg, gen, dtype=dtype)}
+    return {"attn_norm": ones(), "attn": init_attn(cfg, gen, dtype=dtype),
+            "ffn_norm": ones(), "mlp": init_mlp(cfg, gen, dtype=dtype)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
     """Random parameters on the generator's device. Layers are drawn one
     at a time into the stacked tensors, so the float32 draws stay one
     layer in size."""
-    require_dense(cfg)
+    require_ported(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     params = {
         "embed": dense_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
@@ -73,6 +95,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
                                                         *t.shape)), lp)
         tree_map(lambda path, t: _leaf(layers, path)[i].copy_(t), lp)
     params["layers"] = layers
+    if cfg.family == "hybrid" and cfg.attn_every:
+        ones = torch.ones((cfg.d_model,), dtype=torch.float32,
+                          device=gen.device)
+        params["shared_attn"] = {
+            "norm": ones, "attn": init_attn(cfg, gen, dtype=dtype),
+            "mlp_norm": ones.clone(), "mlp": init_mlp(cfg, gen, dtype=dtype)}
     return params
 
 
@@ -103,13 +131,31 @@ def _unembed(cfg: ModelConfig, params: PyTree, x):
     return _vocab_mask(cfg, logits)
 
 
+def _shared_attn_apply(cfg: ModelConfig, shared: Dict, x, attend):
+    """The hybrid's shared block: x + attend(norm(x)), then its MLP.
+    ``attend`` is the pass's attention on the shared weights (full,
+    prefill into a KV slot, or one decode step)."""
+    h = apply_norm(cfg, x, shared["norm"])
+    x = x + attend(h)
+    h = apply_norm(cfg, x, shared["mlp_norm"])
+    return x + mlp(cfg, shared["mlp"], h)
+
+
 def forward(cfg: ModelConfig, params: PyTree,
             tokens) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,S] -> (logits [B,S,Vp], aux_loss scalar)."""
-    require_dense(cfg)
+    require_ported(cfg)
     x = _embed(cfg, params, tokens)
+    shared = params.get("shared_attn")
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
+        if cfg.is_ssm_family:
+            h = apply_norm(cfg, x, lp["ssm_norm"])
+            x = x + mamba2_block(cfg, lp["ssm"], h)
+            if _shared_fires(cfg, shared, i):
+                x = _shared_attn_apply(cfg, shared, x, lambda h: attention(
+                    cfg, shared["attn"], h, causal=True))
+            continue
         h = apply_norm(cfg, x, lp["attn_norm"])
         x = x + attention(cfg, lp["attn"], h, causal=True)
         h = apply_norm(cfg, x, lp["ffn_norm"])
@@ -119,31 +165,54 @@ def forward(cfg: ModelConfig, params: PyTree,
 
 
 # ---------------------------------------------------------------------------
-# KV cache + prefill / decode
+# KV/SSM caches + prefill / decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> PyTree:
-    """Layer-stacked KV cache [L, B, max_seq, KV, hd] in compute dtype."""
-    require_dense(cfg)
-    # one allocation for all layers, viewed as [L, B, ...]
-    kv = init_kv_cache(cfg.n_layers * batch, max_seq, cfg.n_kv_heads,
-                       cfg.hd, torch_dtype(cfg.compute_dtype), device)
-    return {"layers": tree_map(lambda _, t: t.view(cfg.n_layers, batch,
-                                                   *t.shape[1:]), kv),
-            "pos": 0}
+    """Layer-stacked caches in compute dtype (the SSM state in fp32):
+    dense: KV [L, B, max_seq, KV, hd]; ssm: the Mamba-2 cache [L, B, ...];
+    hybrid: the Mamba-2 cache per layer plus the shared block's KV with
+    ONE slot per invocation, ceil(L / attn_every) slots, as the
+    reference lays it out."""
+    require_ported(cfg)
+    cdt = torch_dtype(cfg.compute_dtype)
+    L = cfg.n_layers
+    if not cfg.is_ssm_family:
+        kv = init_kv_cache(L * batch, max_seq, cfg.n_kv_heads, cfg.hd, cdt,
+                           device)
+        return {"layers": _stacked(kv, L, batch), "pos": 0}
+    ssm = init_ssm_cache(cfg, L * batch, cdt, device)
+    cache = {"layers": _stacked(ssm, L, batch), "pos": 0}
+    if cfg.family == "hybrid":
+        n_slots = max(1, (L + cfg.attn_every - 1) // cfg.attn_every)
+        kv = init_kv_cache(n_slots * batch, max_seq, cfg.n_kv_heads, cfg.hd,
+                           cdt, device)
+        cache["attn"] = _stacked(kv, n_slots, batch)
+    return cache
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens,
             max_seq: int) -> Tuple[torch.Tensor, PyTree]:
     """Prefill a prompt into a fresh cache; returns (last logits, cache)."""
-    require_dense(cfg)
+    require_ported(cfg)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_seq, device=params["embed"].device)
     x = _embed(cfg, params, tokens)
+    shared = params.get("shared_attn")
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         lc = layer_params(cache["layers"], i)
+        if cfg.is_ssm_family:
+            h = apply_norm(cfg, x, lp["ssm_norm"])
+            # one scan gives the output and the decode cache
+            y, _ = mamba2_prefill(cfg, lp["ssm"], h, lc)
+            x = x + y
+            if _shared_fires(cfg, shared, i):
+                ac = layer_params(cache["attn"], i // cfg.attn_every)
+                x = _shared_attn_apply(cfg, shared, x, lambda h: (
+                    prefill_into_cache(cfg, shared["attn"], h, ac)[0]))
+            continue
         h = apply_norm(cfg, x, lp["attn_norm"])
         y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
         x = x + y
@@ -157,16 +226,26 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
                 tokens) -> Tuple[torch.Tensor, PyTree]:
     """tokens [B] -> (logits [B,Vp], cache advanced by one position). One
     token for the whole batch; the cache tensors are written in place."""
-    require_dense(cfg)
+    require_ported(cfg)
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)[:, None, :]
+    shared = params.get("shared_attn")
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         lc = layer_params(cache["layers"], i)
+        if cfg.is_ssm_family:
+            h = apply_norm(cfg, x, lp["ssm_norm"])
+            y, _ = mamba2_decode(cfg, lp["ssm"], h, lc)
+            x = x + y
+            if _shared_fires(cfg, shared, i):
+                ac = layer_params(cache["attn"], i // cfg.attn_every)
+                x = _shared_attn_apply(cfg, shared, x, lambda h: (
+                    decode_attention(cfg, shared["attn"], h, ac, pos)[0]))
+            continue
         h = apply_norm(cfg, x, lp["attn_norm"])
         y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
         x = x + y
         h = apply_norm(cfg, x, lp["ffn_norm"])
         x = x + mlp(cfg, lp["mlp"], h)
     logits = _unembed(cfg, params, x)[:, 0, :]
-    return logits, {"layers": cache["layers"], "pos": pos + 1}
+    return logits, {**cache, "pos": pos + 1}

@@ -1,7 +1,8 @@
 """Family dispatch: the reference's one API across architectures.
 
 PyTorch counterpart of ``repro.models.model_zoo``. The port runs the
-dense family (``lm``); ``lm.require_dense`` raises for the others.
+dense, ssm and hybrid families (all in ``lm``); ``lm.require_ported``
+raises for the others.
 """
 from __future__ import annotations
 

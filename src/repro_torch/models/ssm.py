@@ -1,0 +1,233 @@
+"""Mamba-2 (SSD -- state-space duality, arXiv:2405.21060) block.
+
+PyTorch counterpart of ``repro.models.ssm``. Prefill runs the chunked
+SSD scan: on CUDA tensors the hand-written kernel (``kernels.ssd_scan``),
+on CPU tensors ``ssd_chunked`` below, the reference's chunked dual form
+(intra-chunk quadratic term plus the inter-chunk state recurrence). Both
+return the final state, so prefill fills the decode cache from the same
+scan that gives its output.
+
+Decode is the O(1)-per-token recurrence on the [H, N, P] state, in torch
+(no Pallas kernel stands behind it). Like the KV cache, the SSM cache is
+updated in place: prefill and decode write the state and the conv
+buffers into the cache tensors they are given, and return them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ssd_scan as ssd_kernel
+from .common import ModelConfig, dense_init, rmsnorm
+
+
+def init_mamba2(cfg: ModelConfig, gen: torch.Generator,
+                dtype=torch.float32) -> Dict:
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    gn = cfg.ssm_groups * cfg.ssm_state
+    kw = cfg.ssm_conv
+    dev = gen.device
+
+    def conv(width):
+        w = torch.randn((kw, width), generator=gen, dtype=torch.float32,
+                        device=dev)
+        return (w * (1.0 / kw)).to(dtype)
+
+    def fp32(fill, width):
+        return torch.full((width,), fill, dtype=torch.float32, device=dev)
+
+    return {
+        "wz": dense_init(gen, d, di, dtype),
+        "wx": dense_init(gen, d, di, dtype),
+        "wB": dense_init(gen, d, gn, dtype),
+        "wC": dense_init(gen, d, gn, dtype),
+        "wdt": dense_init(gen, d, h, dtype),
+        "dt_bias": fp32(0.0, h),
+        "conv_x": conv(di),
+        "conv_B": conv(gn),
+        "conv_C": conv(gn),
+        "A_log": fp32(0.0, h),        # A = -exp(A_log) = -1
+        "D": fp32(1.0, h),
+        "gn_scale": fp32(1.0, di),
+        "wo": dense_init(gen, di, d, dtype),
+    }
+
+
+def _causal_dw_conv(x, w):
+    """Depthwise causal 1D conv. x [B,S,W], w [K,W]. The reference's sum
+    of shifted products, so bf16 rounds at the same places."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    return sum(xp[:, i:i + s, :] * w[i] for i in range(k))
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int):
+    """SSD scan. x [B,S,H,P]; dt [B,S,H] (>0); A [H] (<0);
+    B,C [B,S,G,N]. Returns (y [B,S,H,P], final state [B,H,N,P])."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"SSD chunk {chunk}")
+    nc = s // chunk
+
+    xc = x.reshape(b, nc, chunk, h, p).float()
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
+    Cc = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
+
+    dA = dtc * A                                      # [b,nc,L,h] (<0)
+    cum = torch.cumsum(dA, dim=2)                     # inclusive cumsum
+    # intra-chunk: M[i,j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j, i>=j
+    scores = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
+    cum_h = cum.permute(0, 1, 3, 2)                   # [b,nc,h,L]
+    seg = cum_h[..., :, None] - cum_h[..., None, :]   # [b,nc,h,i,j]
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    decay = torch.where(causal, torch.exp(seg), 0.0)
+    M = scores * decay * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", M, xc)
+
+    # chunk summary states: S_c = sum_j exp(cum_L - cum_j) dt_j B_j x_j^T
+    dec_state = torch.exp(cum[:, :, -1:, :] - cum)    # [b,nc,L,h]
+    Sc = torch.einsum("bcjhn,bcjh,bcjhp->bchnp", Bc, dec_state * dtc, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])         # [b,nc,h]
+
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    prev = []                                         # state BEFORE chunk
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + Sc[:, c]
+    prev_states = torch.stack(prev, dim=1)            # [b,nc,h,n,p]
+
+    y_off = torch.einsum("bcihn,bcih,bchnp->bcihp", Cc, torch.exp(cum),
+                         prev_states)
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), state
+
+
+def _ssd(x, dt, A, B, C, chunk: int):
+    """Kernel on CUDA, ``ssd_chunked`` on CPU; (y, final state)."""
+    if x.is_cuda:
+        return ssd_kernel.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    return ssd_chunked(x, dt, A, B, C, chunk)
+
+
+def _block(cfg: ModelConfig, params: Dict, x):
+    """(out [B,S,D], final state, pre-conv (xin, B, C) projections)."""
+    b, s, _ = x.shape
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    chunk = min(cfg.ssm_chunk, s)
+    if s % chunk:
+        raise ValueError(
+            f"{cfg.arch_id}: {s} tokens is not a multiple of the SSD chunk "
+            f"{chunk} (min(ssm_chunk, S)); the reference asserts the same "
+            f"(repro/models/ssm.py:65) and the port does not pad")
+
+    def w(key):
+        return params[key].to(x.dtype)
+
+    z = x @ w("wz")
+    xin = x @ w("wx")
+    Bv = x @ w("wB")
+    Cv = x @ w("wC")
+    dt = x @ w("wdt")
+
+    xc = F.silu(_causal_dw_conv(xin, w("conv_x")))
+    Bc = F.silu(_causal_dw_conv(Bv, w("conv_B")))
+    Cc = F.silu(_causal_dw_conv(Cv, w("conv_C")))
+
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    y, final = _ssd(xc.reshape(b, s, h, p), dt, A, Bc.reshape(b, s, g, n),
+                    Cc.reshape(b, s, g, n), chunk)
+    y = y + params["D"].to(x.dtype)[:, None] * xc.reshape(b, s, h, p)
+    y = y.reshape(b, s, cfg.d_inner)
+    y = rmsnorm(y * F.silu(z), params["gn_scale"])
+    return y @ w("wo"), final, (xin, Bv, Cv)
+
+
+def mamba2_block(cfg: ModelConfig, params: Dict, x):
+    """Training/prefill path. x [B,S,D] -> [B,S,D]."""
+    return _block(cfg, params, x)[0]
+
+
+def mamba2_prefill(cfg: ModelConfig, params: Dict, x, cache: Dict):
+    """``mamba2_block`` that also writes the decode cache in place: the
+    scan's final state, and the last ``ssm_conv - 1`` pre-conv,
+    pre-SiLU projections (left-padded with zeros for a shorter prompt),
+    as the reference's ``lm._ssm_cache_from_prefill``. Returns (y,
+    cache)."""
+    y, final, pre = _block(cfg, params, x)
+    cache["state"].copy_(final)
+    s, kw1 = x.shape[1], cfg.ssm_conv - 1
+    keep = min(s, kw1)
+    for key, v in zip(("conv_x", "conv_B", "conv_C"), pre):
+        cache[key][:, :kw1 - keep] = 0
+        cache[key][:, kw1 - keep:] = v[:, s - keep:]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Decode path: O(1) state update per token.
+# ---------------------------------------------------------------------------
+
+def init_ssm_cache(cfg: ModelConfig, b: int, dtype=torch.float32,
+                   device=None) -> Dict:
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gn = cfg.ssm_groups * cfg.ssm_state
+    kw = cfg.ssm_conv
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return {"state": zeros(b, h, n, p, dt=torch.float32),
+            "conv_x": zeros(b, kw - 1, cfg.d_inner),
+            "conv_B": zeros(b, kw - 1, gn),
+            "conv_C": zeros(b, kw - 1, gn)}
+
+
+def _conv_step(buf, xt, w):
+    """buf [B,K-1,W]; xt [B,W]; w [K,W] -> y [B,W]; buf shifted in
+    place."""
+    full = torch.cat([buf, xt[:, None, :]], dim=1)   # [B,K,W]
+    y = torch.einsum("bkw,kw->bw", full, w)
+    buf.copy_(full[:, 1:, :])
+    return y
+
+
+def mamba2_decode(cfg: ModelConfig, params: Dict, x, cache: Dict):
+    """x [B,1,D] -> (y [B,1,D], cache updated in place)."""
+    b = x.shape[0]
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    xt = x[:, 0, :]
+
+    def w(key):
+        return params[key].to(x.dtype)
+
+    z = xt @ w("wz")
+    xin = _conv_step(cache["conv_x"], xt @ w("wx"), w("conv_x"))
+    Bv = _conv_step(cache["conv_B"], xt @ w("wB"), w("conv_B"))
+    Cv = _conv_step(cache["conv_C"], xt @ w("wC"), w("conv_C"))
+    dt = xt @ w("wdt")
+    xin, Bv, Cv = F.silu(xin), F.silu(Bv), F.silu(Cv)
+
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt * A)                                   # [B,H]
+    xh = xin.reshape(b, h, p).float()
+    Bh = Bv.reshape(b, g, n).repeat_interleave(h // g, dim=1)
+    Ch = Cv.reshape(b, g, n).repeat_interleave(h // g, dim=1)
+    state = cache["state"]
+    state.mul_(dA[..., None, None]).add_(
+        torch.einsum("bhn,bh,bhp->bhnp", Bh.float(), dt, xh))
+    y = torch.einsum("bhn,bhnp->bhp", Ch.float(), state)
+    y = y + params["D"][:, None] * xh          # D stays fp32 here
+    y = y.reshape(b, cfg.d_inner).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), params["gn_scale"])
+    return (y @ w("wo"))[:, None, :], cache

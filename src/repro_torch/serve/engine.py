@@ -1,4 +1,5 @@
-"""Batched serving engine: prefill + decode with a fixed-size KV cache.
+"""Batched serving engine: prefill + decode with a fixed-size cache (KV,
+Mamba-2 state, or both).
 
 PyTorch counterpart of ``repro.serve.engine``: a request batch is
 prefilled (prompt scored, cache primed), then tokens are emitted one
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..launch import steps as steps_lib
-from ..models.common import ModelConfig, torch_dtype, tree_map
+from ..models.common import ModelConfig, keeps_fp32, torch_dtype, tree_map
 
 PyTree = Any
 
@@ -53,11 +54,11 @@ class Engine:
         self.scfg = scfg or ServeConfig()
         self.device = resolve_device(device)
         cdt = torch_dtype(cfg.compute_dtype)
-        # norm scales stay fp32; every weight matrix goes to compute dtype
+        # the reference's fp32 leaves stay fp32 (``keeps_fp32``); every
+        # weight matrix goes to compute dtype
         self.params = tree_map(
-            lambda path, t: t.to(self.device,
-                                 torch.float32 if "norm" in path else cdt),
-            params)
+            lambda path, t: t.to(self.device, torch.float32
+                                 if keeps_fp32(path) else cdt), params)
         self._prefill = steps_lib.make_prefill_step(cfg, self.scfg.max_seq)
         self._decode = steps_lib.make_decode_step(cfg)
 

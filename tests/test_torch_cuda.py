@@ -1,5 +1,6 @@
 """The PyTorch port on a CUDA GPU: each hand-written kernel against its
-plain version, and the dense LM's card path against its CPU path.
+plain version, and the dense and Mamba-2 LMs' card path against their
+CPU path.
 
 Every test here needs a GPU and skips without one; the file imports no
 JAX, so it runs on a machine with only PyTorch:
@@ -14,12 +15,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
+                                          ssd_scan, to_pallas_layout)
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)  # the repo's bf16 kernel tolerance
+SSD_TOL = dict(rtol=5e-2, atol=5e-2)   # the repo's bf16 SSD tolerance
 
 
 @pytest.fixture
@@ -70,6 +74,54 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, k, f):
                                **BF16_TOL)
 
 
+def _ssd_inputs(gen, b, s, h, g, n, p=64):
+    """Model-layout SSD inputs as the model path makes them: bf16 x, B, C;
+    fp32 dt > 0 and A < 0."""
+    dev = gen.device
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.2)
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("b,s,h,g,n,chunk", [
+    (2, 256, 4, 1, 128, 256),   # mamba2_780m head geometry
+    (1, 192, 4, 2, 64, 64),     # grouped, zamba2's state size
+    (2, 100, 2, 1, 16, 100),    # ragged chunk (a 100-token prompt)
+    (1, 320, 2, 2, 24, 64),     # N not a multiple of the 64-row tile
+])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, g, n, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, a, bm, cm = _ssd_inputs(gen, b, s, h, g, n)
+    before = ssd_scan.launches
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_state = from_pallas_layout(
+        *ssd_ref(*to_pallas_layout(x, dt, a, bm, cm)), b)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL)
+    torch.testing.assert_close(state, want_state, **SSD_TOL)
+
+
+def test_ssd_kernel_pallas_layout_and_chunk_invariance(cuda):
+    """The Pallas layout [BH, S, *] runs without a copy and gives the
+    model layout's numbers; chunk 64 and 256 agree up to rounding."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, s, h, n = 2, 512, 3, 128
+    x, dt, a, bm, cm = _ssd_inputs(gen, b, s, h, h, n)
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=256)
+    y64, state64 = ssd_scan(x, dt, a, bm, cm, chunk=64)
+    torch.testing.assert_close(y64.float(), y.float(), **SSD_TOL)
+    torch.testing.assert_close(state64, state, **SSD_TOL)
+    y3, state3 = ssd_scan(*to_pallas_layout(x, dt, a, bm, cm), chunk=256)
+    y3, state3 = from_pallas_layout(y3, state3, b)
+    torch.testing.assert_close(y3, y, rtol=0, atol=0)
+    torch.testing.assert_close(state3, state, rtol=0, atol=0)
+
+
 def test_kernels_raise_for_unsupported_input(cuda):
     x = torch.zeros(4, 128, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -77,6 +129,16 @@ def test_kernels_raise_for_unsupported_input(cuda):
     q = torch.zeros(1, 8, 2, 48, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 1, 16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_scan(x.float(), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan(x[..., :32], dt, a, bm, cm)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan(x, dt, a, bm, cm, chunk=48)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x, dt.cpu(), a, bm, cm)
 
 
 def test_dense_lm_card_path_matches_cpu_path(cuda):
@@ -103,8 +165,41 @@ def test_dense_lm_card_path_matches_cpu_path(cuda):
     assert flash_attention.launches - flash0 == cfg.n_layers
     assert fused_mlp.launches - mlp0 == 2 * cfg.n_layers
     for g, w in ((got, want), (got_d, want_d)):
-        g = g.float().cpu()
+        # real vocab only: padded logits are -1e9 and would swamp the norm
+        g, w = g.float().cpu()[:, :cfg.vocab], w[:, :cfg.vocab]
         assert torch.isfinite(g).all()
         assert float((g - w).norm() / w.norm()) < 3e-2
     out = eng.generate(toks.numpy()[:, :32])
+    assert out.shape == (2, 4) and ((out >= 0) & (out < cfg.vocab)).all()
+
+
+def test_mamba2_card_path_matches_cpu_path(cuda):
+    """Small-width Mamba-2 (head dim 64, as the kernel takes): bf16 kernel
+    path on the card vs fp32 plain path on the CPU, same weights; prefill
+    and one decode step within 3% relative RMS. ssd_scan runs once per
+    layer in prefill and never in decode."""
+    cfg = get_config("mamba2_780m").with_(n_layers=2, d_model=256,
+                                          ssm_state=64, vocab=1000)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    cpu_cfg = cfg.with_(compute_dtype="float32")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 512)).astype(np.int32))
+    eng = Engine(cfg, params, ServeConfig(max_seq=520, max_new_tokens=4),
+                 device=cuda)
+    with torch.inference_mode():
+        want, cpu_cache = model_zoo.prefill(cpu_cfg, params, toks, 520)
+        ssd0 = ssd_scan.launches
+        got, cache = model_zoo.prefill(cfg, eng.params, toks.to(cuda), 520)
+        assert ssd_scan.launches - ssd0 == cfg.n_layers
+        nxt = torch.argmax(want, -1).to(torch.int32)
+        want_d, _ = model_zoo.decode_step(cpu_cfg, params, cpu_cache, nxt)
+        got_d, _ = model_zoo.decode_step(cfg, eng.params, cache,
+                                         nxt.to(cuda))
+        assert ssd_scan.launches - ssd0 == cfg.n_layers
+    for g, w in ((got, want), (got_d, want_d)):
+        # real vocab only: padded logits are -1e9 and would swamp the norm
+        g, w = g.float().cpu()[:, :cfg.vocab], w[:, :cfg.vocab]
+        assert torch.isfinite(g).all()
+        assert float((g - w).norm() / w.norm()) < 3e-2
+    out = eng.generate(toks.numpy()[:, :256])
     assert out.shape == (2, 4) and ((out >= 0) & (out < cfg.vocab)).all()

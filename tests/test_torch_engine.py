@@ -38,7 +38,8 @@ def _prompts(vocab, b=2, s=16):
     return np.random.RandomState(0).randint(0, vocab, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["granite_8b", "olmo_1b"])
+@pytest.mark.parametrize("arch", ["granite_8b", "olmo_1b", "mamba2_780m",
+                                  "zamba2_1_2b"])
 def test_greedy_tokens_match_jax_engine(arch):
     jeng, eng = _engines(arch, max_seq=40, max_new_tokens=8)
     prompts = _prompts(eng.cfg.vocab)
@@ -99,6 +100,50 @@ def test_engine_on_cuda_raises_without_gpu(monkeypatch):
 def test_serve_launcher_on_cpu(capsys):
     serve_launcher.main(["--arch", "granite_8b", "--device", "cpu",
                          "--batch", "2", "--new-tokens", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in lines] == ["seq0", "seq1"]
+
+
+def test_bf16_engine_keeps_reference_fp32_leaves():
+    """A bf16 Engine casts the weights but keeps the leaves the reference
+    keeps in fp32: norm scales and the SSM's dt_bias, A_log, D and
+    gn_scale (A = -exp(A_log), softplus(dt + dt_bias) and the decode's
+    D * x stay fp32, as in the reference)."""
+    cfg = configs.get_config("zamba2_1_2b", smoke=True)
+    assert cfg.compute_dtype == "bfloat16"
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(cfg, params, ServeConfig(max_seq=24, max_new_tokens=2),
+                 device="cpu")
+    ssm = eng.params["layers"]["ssm"]
+    for key in ("dt_bias", "A_log", "D", "gn_scale"):
+        assert ssm[key].dtype == torch.float32, key
+    for key in ("wx", "wB", "conv_x", "wo"):
+        assert ssm[key].dtype == torch.bfloat16, key
+    assert eng.params["layers"]["ssm_norm"].dtype == torch.float32
+    shared = eng.params["shared_attn"]
+    assert shared["norm"].dtype == shared["mlp_norm"].dtype == torch.float32
+    assert shared["attn"]["wq"].dtype == torch.bfloat16
+    out = eng.generate(_prompts(cfg.vocab, s=16))
+    assert out.shape == (2, 2) and ((out >= 0) & (out < cfg.vocab)).all()
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
+def test_ssm_engine_rejects_prompt_off_the_chunk(arch):
+    """S % min(ssm_chunk, S) must be 0, as the reference asserts."""
+    cfg = configs.get_config(arch, smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(cfg, params, ServeConfig(max_seq=40, max_new_tokens=2),
+                 device="cpu")
+    with pytest.raises(ValueError, match="SSD chunk"):
+        eng.generate(_prompts(cfg.vocab, s=cfg.ssm_chunk + 4))
+    assert eng.generate(_prompts(cfg.vocab, s=2 * cfg.ssm_chunk)).shape == \
+        (2, 2)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
+def test_serve_launcher_ssm_on_cpu(arch, capsys):
+    serve_launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                         "--new-tokens", "3"])
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(":")[0] for ln in lines] == ["seq0", "seq1"]
 

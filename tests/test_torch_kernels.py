@@ -1,5 +1,6 @@
 """PyTorch port's kernel ops vs the JAX Pallas kernels (interpret mode)
-and their jnp oracles, in the grid of tests/test_kernels.py.
+and their jnp oracles, in the grid of tests/test_kernels.py; the SSD
+scan also against the models' chunked form (``ssd_chunked``).
 
 On CPU tensors each op runs its plain version; the CUDA kernels are
 checked against the same plain versions in tests/test_torch_cuda.py.
@@ -15,10 +16,16 @@ from repro.kernels.flash_attn import attention_ref as jax_attention_ref  # noqa:
 from repro.kernels.flash_attn import flash_attention_op  # noqa: E402
 from repro.kernels.fused_mlp import fused_mlp_op  # noqa: E402
 from repro.kernels.fused_mlp import fused_mlp_ref as jax_fused_mlp_ref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_ref as jax_ssd_ref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan_op  # noqa: E402
 from repro.models.attention import flash_attention as jax_model_flash  # noqa: E402
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.fused_mlp import fused_mlp  # noqa: E402
+from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
+                                          ssd_scan, to_pallas_layout)
 from repro_torch.models.attention import flash_attention as model_flash  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
 DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
           "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16)}
@@ -166,3 +173,118 @@ def test_ops_reject_bad_input():
     with pytest.raises(ValueError):
         flash_attention(torch.zeros(2, 4, 8), torch.zeros(1, 2, 4, 8),
                         torch.zeros(1, 2, 4, 8))
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(rng, bh, s, p, n, dtype):
+    """Pallas-layout SSD inputs (tests/test_kernels.py:141-147's
+    distributions), drawn with numpy, as (jax, torch) pairs."""
+    x = _pair(rng.randn(bh, s, p), dtype)
+    dt = _pair(np.log1p(np.exp(rng.randn(bh, s, 1))), dtype)
+    a = _pair(-np.exp(rng.randn(bh, 1, 1) * 0.2), dtype)
+    bm = _pair(rng.randn(bh, s, n), dtype)
+    cm = _pair(rng.randn(bh, s, n), dtype)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,s,p,n,chunk", [
+    (3, 64, 16, 8, 16),
+    (2, 128, 32, 16, 32),
+    (1, 64, 64, 128, 64),   # mamba2-780m head geometry
+])
+def test_ssd_scan_matches_pallas(dtype, bh, s, p, n, chunk):
+    """Port op (CPU: its plain version) vs the Pallas kernel in interpret
+    mode and the JAX oracle; the repo's SSD tolerances
+    (tests/test_kernels.py:148-149)."""
+    pairs = _ssd_inputs(np.random.RandomState(6), bh, s, p, n, dtype)
+    jx, tx = zip(*pairs)
+    y, state = ssd_scan(*tx, chunk=chunk)
+    assert y.dtype == DTYPES[dtype][2] and y.shape == (bh, s, p)
+    assert state.dtype == torch.float32 and state.shape == (bh, n, p)
+    tol = dict(rtol=5e-2, atol=5e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(y), _np(ssd_scan_op(*jx, chunk=chunk,
+                                                       interpret=True)),
+                               **tol)
+    np.testing.assert_allclose(_np(y), _np(jax_ssd_ref(*jx)), **tol)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssd_chunked_chunk_invariance(chunks, seed):
+    """The chunked form must not depend on the chunk size (state handoff
+    exact), and matches the sequential plain version, final state
+    included (twin of tests/test_kernels.py:154)."""
+    rng = np.random.RandomState(seed)
+    b, s, h, p, g, n = 2, 64, 2, 8, 1, 8
+    x = torch.from_numpy(rng.randn(b, s, h, p).astype(np.float32))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.randn(b, s, h))).astype(
+        np.float32))
+    a = torch.from_numpy(-np.exp(rng.randn(h) * 0.2).astype(np.float32))
+    bm = torch.from_numpy(rng.randn(b, s, g, n).astype(np.float32))
+    cm = torch.from_numpy(rng.randn(b, s, g, n).astype(np.float32))
+    y16, st16 = ssd_chunked(x, dt, a, bm, cm, chunk=16)
+    y_var, st_var = ssd_chunked(x, dt, a, bm, cm, chunk=16 * chunks)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y16, y_var, **tol)
+    torch.testing.assert_close(st16, st_var, **tol)
+    y_ref, st_ref = ssd_scan(x, dt, a, bm, cm, chunk=16 * chunks)
+    torch.testing.assert_close(y_var, y_ref, **tol)
+    torch.testing.assert_close(st_var, st_ref, **tol)
+
+
+def test_ssd_scan_matches_model_ssd():
+    """Model-layout op with G=2 groups (read at h // (H/G), not expanded)
+    vs the port's and JAX's ssd_chunked, final state included (twin of
+    tests/test_kernels.py:172)."""
+    rng = np.random.RandomState(3)
+    b, s, h, p, g, n = 2, 64, 4, 16, 2, 8
+    arrs = (rng.randn(b, s, h, p), np.log1p(np.exp(rng.randn(b, s, h))),
+            -np.exp(rng.randn(h) * 0.2), rng.randn(b, s, g, n),
+            rng.randn(b, s, g, n))
+    jx, tx = zip(*(_pair(a, "float32") for a in arrs))
+    y, state = ssd_scan(*tx, chunk=16)
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, n, p)
+    ym, sm = ssd_chunked(*tx, chunk=16)
+    yj, sj = jax_ssd_chunked(*jx, chunk=16)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    for got in ((y, state), (ym, sm)):
+        np.testing.assert_allclose(_np(got[0]), _np(yj), **tol)
+        np.testing.assert_allclose(_np(got[1]), _np(sj), **tol)
+
+
+def test_ssd_ref_state_and_layouts_match_jax():
+    """The plain version's final state and the layout helpers: model
+    layout -> Pallas layout -> ssd_ref -> model layout equals JAX's
+    ssd_chunked (y and final state); y equals JAX's ssd_ref."""
+    rng = np.random.RandomState(7)
+    b, s, h, p, g, n = 2, 24, 4, 8, 2, 4
+    arrs = (rng.randn(b, s, h, p), np.log1p(np.exp(rng.randn(b, s, h))),
+            -np.exp(rng.randn(h) * 0.2), rng.randn(b, s, g, n),
+            rng.randn(b, s, g, n))
+    jx, tx = zip(*(_pair(a, "float32") for a in arrs))
+    pallas = to_pallas_layout(*tx)
+    y3, st3 = ssd_ref(*pallas)
+    np.testing.assert_allclose(
+        _np(y3), _np(jax_ssd_ref(*(jnp.asarray(t.numpy()) for t in pallas))),
+        rtol=1e-5, atol=1e-5)
+    y, state = from_pallas_layout(y3, st3, b)
+    yj, sj = jax_ssd_chunked(*jx, chunk=8)
+    np.testing.assert_allclose(_np(y), _np(yj), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(state), _np(sj), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_ops_reject_bad_input():
+    x = torch.zeros(1, 20, 2, 8)
+    dt, a = torch.ones(1, 20, 2), -torch.ones(2)
+    bm = torch.zeros(1, 20, 1, 8)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan(x, dt, a, bm, bm, chunk=16)
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        ssd_chunked(x, dt, a, bm, bm, chunk=16)
+    with pytest.raises(ValueError):
+        ssd_scan(x[0, 0], dt, a, bm, bm)

@@ -1,4 +1,5 @@
-"""PyTorch port's dense LM vs the JAX reference on the CPU.
+"""PyTorch port's LMs (dense, ssm, hybrid) vs the JAX reference on the
+CPU.
 
 Weights are built once by the reference ``init_params`` and carried
 across with ``params_from_numpy``; tokens come from numpy. Logits are
@@ -22,6 +23,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import common, convert, inputs, model_zoo  # noqa: E402
 
 DENSE = ["granite_8b", "olmo_1b"]
+SSM = ["mamba2_780m", "zamba2_1_2b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -182,7 +184,7 @@ def test_inputs_bit_identical():
         np.asarray(jax_inputs.make_decode_tokens(jcfg, 4, seed=6)))
 
 
-@pytest.mark.parametrize("arch", ["mamba2_780m", "granite_moe_1b_a400m",
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "granite_moe_1b_a400m",
                                   "whisper_base", "llava_next_34b"])
 def test_other_families_raise(arch):
     cfg = configs.get_config(arch, smoke=True)
@@ -190,3 +192,161 @@ def test_other_families_raise(arch):
         model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_zoo.init_cache(cfg, 1, 8)
+
+
+# ---------------------------------------------------------------------------
+# ssm (Mamba-2) and hybrid (Zamba-2)
+# ---------------------------------------------------------------------------
+
+def _flat(tree):
+    """{'/'-joined path: leaf} of a nested dict."""
+    out = {}
+    common.tree_map(lambda path, a: out.__setitem__(path, a), tree)
+    return out
+
+
+def _assert_ssm_cache_matches(tc, jc):
+    for key in ("state", "conv_x", "conv_B", "conv_C"):
+        got, want = tc["layers"][key], jc["layers"][key]
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    if "attn" in jc:
+        for key in ("k", "v"):
+            np.testing.assert_allclose(_np(tc["attn"][key]),
+                                       _np(jc["attn"][key]), **TOL)
+    assert tc["pos"] == int(jc["pos"])
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_forward_prefill_decode_match_jax(arch):
+    """Forward, prefill and decode logits within 1e-4 in fp32, and the
+    decode cache after prefill and after each step (SSM state, pre-conv
+    conv buffers, the hybrid's shared KV slots)."""
+    jcfg, cfg, jparams, params = _pair(arch)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab,
+                                            (2, 32)).astype(np.int32)
+    want, _ = jax_zoo.forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    got, aux = model_zoo.forward(cfg, params,
+                                 {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    assert float(aux) == 0.0
+
+    jl, jc = jax_zoo.prefill(jcfg, jparams, jnp.asarray(toks), 40)
+    tl, tc = model_zoo.prefill(cfg, params, torch.from_numpy(toks), 40)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    _assert_ssm_cache_matches(tc, jc)
+    for _ in range(3):
+        nxt = np.argmax(_np(jl), -1).astype(np.int32)
+        jl, jc = jax_zoo.decode_step(jcfg, jparams, jc, jnp.asarray(nxt))
+        tl, tc = model_zoo.decode_step(cfg, params, tc,
+                                       torch.from_numpy(nxt))
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+        _assert_ssm_cache_matches(tc, jc)
+
+
+@pytest.mark.parametrize("prompt_len", [1, 2, 3, 5])
+def test_ssm_cache_from_short_prompt_matches_jax(prompt_len):
+    """Prompts shorter than, equal to and longer than ssm_conv - 1: the
+    conv buffers hold the last pre-conv, pre-SiLU projections,
+    left-padded with zeros (repro/models/lm.py:334-361)."""
+    from repro.models import lm as jax_lm
+    from repro_torch.models import ssm
+    jcfg, cfg, jparams, params = _pair("mamba2_780m")
+    rng = np.random.RandomState(prompt_len)
+    h = rng.randn(2, prompt_len, cfg.d_model).astype(np.float32)
+    jlp = jax.tree_util.tree_map(lambda a: a[0], jparams["layers"]["ssm"])
+    want = jax_lm._ssm_cache_from_prefill(
+        jcfg, jlp, jnp.asarray(h),
+        {"conv_x": jnp.zeros((), jnp.float32)})
+    lp = {k: t[0] for k, t in params["layers"]["ssm"].items()}
+    lc = ssm.init_ssm_cache(cfg, 2)
+    for t in lc.values():
+        t.fill_(7.0)  # prefill overwrites every entry, padding included
+    _, got = ssm.mamba2_prefill(cfg, lp, torch.from_numpy(h), lc)
+    for key in ("state", "conv_x", "conv_B", "conv_C"):
+        np.testing.assert_allclose(_np(got[key]), _np(want[key]), **TOL)
+    if prompt_len < cfg.ssm_conv - 1:
+        assert (got["conv_x"][:, :cfg.ssm_conv - 1 - prompt_len] == 0).all()
+
+
+def test_hybrid_kv_slot_layout_matches_jax():
+    """ceil(L / attn_every) shared KV slots, slot idx // attn_every written
+    after layer idx with idx % attn_every == attn_every - 1: at zamba2's
+    38 layers and attn_every 6 that is 7 slots, 6 used."""
+    full = configs.get_config("zamba2_1_2b")
+    jfull = jax_configs.get_config("zamba2_1_2b")
+    shapes = jax.eval_shape(lambda: jax_zoo.init_cache(jfull, 2, 64))
+    cache = model_zoo.init_cache(full, 2, 64, device="meta")
+    assert _flat(cache["attn"]).keys() == {"k", "v"}
+    for key in ("k", "v"):
+        assert tuple(cache["attn"][key].shape) == shapes["attn"][key].shape \
+            == (7, 2, 64, full.n_kv_heads, full.hd)
+    for key in ("state", "conv_x", "conv_B", "conv_C"):
+        assert tuple(cache["layers"][key].shape) == \
+            shapes["layers"][key].shape
+        assert cache["layers"][key].dtype == getattr(
+            torch, shapes["layers"][key].dtype.name)
+
+    jcfg, cfg, jparams, params = _pair("zamba2_1_2b", n_layers=38,
+                                       attn_every=6)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab,
+                                            (1, 16)).astype(np.int32)
+    jl, jc = jax_zoo.prefill(jcfg, jparams, jnp.asarray(toks), 20)
+    tl, tc = model_zoo.prefill(cfg, params, torch.from_numpy(toks), 20)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    _assert_ssm_cache_matches(tc, jc)
+    used = [bool(tc["attn"]["k"][slot].abs().sum() > 0) for slot in range(7)]
+    assert used == [True] * 6 + [False]
+
+
+@pytest.mark.parametrize("arch", DENSE + SSM)
+def test_keeps_fp32_is_the_reference_rule(arch):
+    """keeps_fp32 names exactly the leaves the reference creates in fp32
+    when param_dtype is bfloat16, and the converter keeps them so."""
+    jcfg = jax_configs.get_config(arch, smoke=True).with_(
+        param_dtype="bfloat16")
+    cfg = configs.get_config(arch, smoke=True).with_(param_dtype="bfloat16")
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_zoo.init_params(jcfg, jax.random.PRNGKey(0)))
+    flat = _flat(tree)
+    for path, arr in flat.items():
+        assert common.keeps_fp32(path) == (arr.dtype == np.float32), path
+    params = convert.params_from_numpy(cfg, tree, "cpu",
+                                       dtype=torch.bfloat16)
+    for path, t in _flat(params).items():
+        assert t.dtype == (torch.float32 if common.keeps_fp32(path)
+                           else torch.bfloat16), path
+    if cfg.is_ssm_family:
+        assert {p.rsplit("/", 1)[-1] for p in flat
+                if common.keeps_fp32(p) and "/ssm/" in p} == \
+            {"dt_bias", "A_log", "D", "gn_scale"}
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_init_params_tree_matches_jax(arch):
+    """The port's own init draws the reference's tree: same paths,
+    shapes and dtypes, and the same constant leaves."""
+    cfg = configs.get_config(arch, smoke=True)
+    jcfg = jax_configs.get_config(arch, smoke=True)
+    want = _flat(jax.tree_util.tree_map(
+        np.asarray, jax_zoo.init_params(jcfg, jax.random.PRNGKey(0))))
+    got = _flat(model_zoo.init_params(cfg, torch.Generator().manual_seed(0)))
+    assert got.keys() == want.keys()
+    for path, arr in want.items():
+        assert tuple(got[path].shape) == arr.shape, path
+        assert got[path].dtype == getattr(torch, arr.dtype.name), path
+        if path.rsplit("/", 1)[-1] in ("dt_bias", "A_log", "D", "gn_scale"):
+            np.testing.assert_array_equal(_np(got[path]), arr)
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_prompt_not_multiple_of_chunk_raises(arch):
+    """The reference asserts S % min(ssm_chunk, S) == 0; the port raises
+    a ValueError saying so, and does not pad."""
+    cfg = configs.get_config(arch, smoke=True).with_(compute_dtype="float32")
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, cfg.ssm_chunk + 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        model_zoo.prefill(cfg, params, toks, 64)
+    logits, _ = model_zoo.prefill(cfg, params, toks[:, :7], 64)
+    assert logits.shape == (1, cfg.padded_vocab)
