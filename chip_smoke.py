@@ -7,12 +7,15 @@ Phases, each raising on failure:
   1. device  -- require CUDA; print the card's name and power limit; set
                 fp32 matmuls to full precision (no TF32).
   2. build   -- compile every CUDA kernel from ``src/repro_torch/csrc``, one
-                nvcc per source, all at once; print ptxas registers/spills.
+                nvcc per source, all at once; print ptxas registers/spills
+                and a SASS census (HGMMA = wgmma, UTMALDG = TMA loads).
   3. kernels -- each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (flash_attention and fused_mlp at
                 granite_8b's, ssd_scan at mamba2_780m's), with its time, the
                 plain version's time, a library yardstick's time and its
-                bound.
+                bound; also flash at head dims 80/96 (stablelm_3b, phi3),
+                fused_mlp at M 4/100/2048 (both regimes, a ragged M) and
+                its bitwise determinism.
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
                 CPU in fp32, on the same weights: granite_8b and mamba2_780m
@@ -45,6 +48,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref  # noqa: E402
+from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
 from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
                                           ssd_scan, to_pallas_layout)
 from repro_torch.models import model_zoo  # noqa: E402
@@ -61,9 +65,10 @@ SEED = 0
 # Tolerances, stated with their reasons:
 # kernel vs plain (both on the card, same bf16 inputs): the plain version is
 # exact fp32 math rounded once to bf16; the kernels also round P (flash) or
-# h (fused_mlp) to bf16 before the second product and sum in another order
-# (fused_mlp: fp32 atomics in a run-dependent order). Outputs are O(1), so
-# bf16's 2^-8 relative step bounds the gap: the repo's bf16 tolerance.
+# h (fused_mlp) to bf16 before the second product and sum in another (fixed)
+# order: wgmma's, and for fused_mlp decode the split of the reduction over
+# a cluster, added in rank order. Outputs are O(1), so bf16's 2^-8 relative
+# step bounds the gap: the repo's bf16 tolerance.
 KERNEL_ATOL = KERNEL_RTOL = 2e-2
 # ssd_scan vs ssd_ref (same bf16 x/B/C, fp32 dt/A): both sum in fp32 and
 # round y to bf16 once, in another order, so they differ by about one bf16
@@ -137,6 +142,11 @@ def check_flash(gen, flush):
         ("end-aligned Sq=100 Skv=300 hd=64, Pallas layout", 2, 100, 300, 8,
          2, 64, True, "pallas"),
     ]
+    for arch in ("stablelm_3b", "phi3_mini_3_8b"):
+        c = get_config(arch)
+        cases.append((f"{arch} B=2 S=512 H={c.n_heads} KV={c.n_kv_heads} "
+                      f"hd={c.hd} causal", 2, 512, 512, c.n_heads,
+                      c.n_kv_heads, c.hd, True, "bshd"))
     main = None
     for label, b, sq, skv, nh, nkv, d, causal, layout in cases:
         if layout == "bshd":
@@ -183,12 +193,21 @@ def check_fused_mlp(gen, flush):
     w3 = randn(gen, k, f, scale=k ** -0.5)
     w2 = randn(gen, f, k, scale=f ** -0.5)
     entries = {}
-    for label, m in (("prefill", 2048), ("decode", 4)):
+    for label, m in (("prefill", 2048), ("decode", 4), ("ragged", 100)):
         x = randn(gen, m, k)
         out = fused_mlp(x, w1, w3, w2)
         ref = fused_mlp_ref(x, w1, w3, w2)
+        again = fused_mlp(x, w1, w3, w2)
         torch.cuda.synchronize()
-        err = compare(f"fused_mlp [{label} M={m} K={k} F={f}]", out, ref)
+        err = compare(f"fused_mlp [{label} M={m} K={k} F={f}, "
+                      f"{regime(m)} kernels]", out, ref)
+        same = torch.equal(out, again)
+        print(f"  fused_mlp [{label} M={m}] two calls bit-identical: {same}",
+              flush=True)
+        if not same:
+            raise RuntimeError("fused_mlp is not deterministic")
+        if label == "ragged":
+            continue
         ms = cuda_ms(lambda: fused_mlp(x, w1, w3, w2), 10, flush)
         plain = cuda_ms(lambda: fused_mlp_ref(x, w1, w3, w2), 3, flush)
         lib = cuda_ms(lambda: (F.silu(x @ w1) * (x @ w3)) @ w2, 10, flush)
@@ -276,6 +295,37 @@ def check_ssd(gen, flush):
                        "the SSD scan",
             "shape": f"B={b} S={s} H={h} P={p} N={n} G={g} chunk {chunk}, "
                      "bf16 x/B/C, fp32 dt/A"}
+
+
+def _cuobjdump():
+    """The toolkit's cuobjdump, else the copy Triton bundles, else None."""
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if os.path.exists(cand):
+        return cand
+    try:
+        import triton
+    except ImportError:
+        return None
+    cand = os.path.join(os.path.dirname(triton.__file__), "backends",
+                        "nvidia", "bin", "cuobjdump")
+    return cand if os.path.exists(cand) else None
+
+
+def sass_census(names, ops=("HGMMA", "UTMALDG")):
+    """Count wgmma (HGMMA) and TMA load (UTMALDG) instructions in each
+    built library's SASS: a diagnostic of which Hopper paths were
+    reached, not a check."""
+    tool = _cuobjdump()
+    if tool is None:
+        print("  SASS census: not available (no cuobjdump)", flush=True)
+        return
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(_build.library(name))],
+                              capture_output=True, text=True).stdout
+        counts = {op: sum(op in line for line in sass.splitlines())
+                  for op in ops}
+        print(f"  SASS census {name}: {counts}", flush=True)
 
 
 def rel_rms(got, want):
@@ -477,8 +527,10 @@ def main():
           f"(per source {secs})", flush=True)
     for name in secs:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "warning" in line.lower()):
                 print(f"  {name}: {line.strip()}")
+    sass_census(secs)
 
     phase("kernels")
     gen = torch.Generator(device="cuda").manual_seed(SEED)

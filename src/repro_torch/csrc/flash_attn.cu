@@ -1,235 +1,298 @@
-// Flash attention forward (causal or not, native GQA) for Hopper, bf16.
+// Flash attention forward (causal or not, native GQA) for Hopper
+// (sm_90a), bf16.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attn/flash_attn.py:flash_attention (_kernel)
 // and computes what it computes: softmax(Q K^T / sqrt(hd)) V with an fp32
 // running max m, normaliser l and accumulator per query row, queries
 // end-aligned to the keys (q_offset = skv - sq), masked scores set to
-// -1e30 and l clamped at 1e-20 before the final division. Scores and
+// -1e30, keys past the end to -inf, P rounded to bf16 before the P V
+// product and l clamped at 1e-20 before the final division. Scores and
 // probabilities never reach device memory.
 //
-// What bounds it on an H100: at prefill shapes (S = 512, hd = 128) the
-// two products do ~8.6 GFLOP against ~42 MB of q/k/v/o, so the card's
-// ratio (~295 flop/byte for bf16) puts it near the memory/compute ridge;
-// at longer prompts it is compute bound. The design keeps the byte
-// count at the minimum -- each block reads its Q tile once and streams
-// K/V tiles of its own KV head (head h // g, never repeated to H heads)
-// from L2/HBM -- and runs both products on the tensor cores (WMMA bf16,
-// fp32 accumulation). Causal tiles wholly above the diagonal are not
-// visited. It is a first, simple kernel: one block per (batch*head,
-// 64-query tile), four warps of 16 query rows each, single-buffered
-// tiles, no TMA/wgmma; those are for a later change.
+// What bounds it on an H100: at granite_8b prefill (B = 4, S = 512,
+// H = 32, KV = 8, hd = 128, causal) the two products do ~8.6 GFLOP
+// against ~42 MB of q/k/v/o, so it sits near the card's memory/compute
+// ridge; longer prompts are compute bound. The design follows
+// FlashAttention-3:
+//   - one block per (batch * head, 128-query tile): two consumer
+//     warpgroups of 64 query rows and a producer warpgroup that gives
+//     its registers to them (setmaxnreg);
+//   - the producer loads the Q tile once and streams K/V tiles of 128
+//     keys of the block's KV head (h // (H / KV), never repeated) through
+//     a 2-stage TMA ring completed on mbarriers; boxes are 64 wide and
+//     128B-swizzled, so hd 80 and 96 load as two boxes whose columns past
+//     hd are zero-filled by TMA and skipped by the k loop;
+//   - S = Q K^T by wgmma (both operands in shared memory) into registers;
+//     the online softmax runs on the accumulator fragments, each row's
+//     max and sum shared by the 4 threads that hold it; P is packed to
+//     bf16 in registers and fed as wgmma's register A operand for O += P V;
+//   - O, m and l stay in registers for the whole key sweep and are
+//     written once;
+//   - causal tiles above the diagonal are not visited, and the grid hands
+//     out the longest (last) query tiles first.
 //
 // Layout: q [B, Sq, H, hd], k/v [B, Skv, KV, hd], o [B, Sq, H, hd], all
-// given by element strides with a unit stride on hd, so both the model
-// layout and the Pallas layout [BH, S, hd] (as B = 1, H = BH) run without
-// a copy. Lengths need not divide the tile: ragged rows and keys are
-// masked here.
+// given by element strides (multiples of 8) with a unit stride on hd, so
+// both the model layout and the Pallas layout [BH, S, hd] (as B = 1,
+// H = BH) run without a copy through the same 4-D TMA descriptors.
+// Lengths need not divide the tiles: TMA zero-fills rows past the end,
+// those keys are masked and those rows are not stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using namespace sm90;
 
-constexpr int TQ = 64;                  // query rows per block
-constexpr int TK = 64;                  // keys per K/V tile
-constexpr int NWARPS = TQ / 16;         // one warp per 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int TQ = 128;                 // query rows per block
+constexpr int TK = 128;                 // keys per K/V stage
+constexpr int THREADS = 384;            // WG0, WG1 consume; WG2 produces
+constexpr int STAGES = 2;
 constexpr float MASK_VALUE = -1e30f;    // the Pallas kernel's NEG_INF
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory plan for one block. Row pitches are padded by 16 bytes
-// to spread rows over banks; every region starts 128-byte aligned.
 template <int HD>
-struct Smem {
-  static constexpr int LDQ = HD + 8;    // bf16 pitch of Q, K and V tiles
-  static constexpr int LDS = TK + 4;    // fp32 pitch of the score tile
-  static constexpr int LDP = TK + 8;    // bf16 pitch of the probability tile
-  static constexpr int LDO = HD + 4;    // fp32 pitch of the output accumulator
-  static constexpr size_t OFF_Q = 0;
-  static constexpr size_t OFF_K = OFF_Q + sizeof(bf16) * TQ * LDQ;
-  static constexpr size_t OFF_V = OFF_K + sizeof(bf16) * TK * LDQ;
-  static constexpr size_t OFF_S = OFF_V + sizeof(bf16) * TK * LDQ;
-  static constexpr size_t OFF_P = OFF_S + sizeof(float) * TQ * LDS;
-  static constexpr size_t OFF_O = OFF_P + sizeof(bf16) * TQ * LDP;
-  static constexpr size_t OFF_M = OFF_O + sizeof(float) * TQ * LDO;
-  static constexpr size_t OFF_L = OFF_M + sizeof(float) * TQ;
-  static constexpr size_t BYTES = OFF_L + sizeof(float) * TQ;
+struct Tiles {
+  static constexpr int NBOX = (HD + BOX - 1) / BOX;   // 64-wide boxes
+  static constexpr int KSTEPS = HD / 16;              // k steps of Q K^T
+  static constexpr int Q_BOX = TQ * BOX_ROW_BYTES;
+  static constexpr int KV_BOX = TK * BOX_ROW_BYTES;
+  static constexpr int Q_BYTES = NBOX * Q_BOX;
+  static constexpr int KV_BYTES = NBOX * KV_BOX;      // one K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int SMEM = Q_BYTES + STAGES * STAGE + 1024;
+  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
 };
 
 struct Strides {
   long long b, s, h;                    // element strides of [B, S, H, hd]
 };
 
-// Copy rows [row0, row0 + rows) of one head (row stride rs) into a tile;
-// rows at or past n are zero-filled. 16-byte vectors.
 template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          long long rs, int row0, int n,
-                                          int rows) {
-  constexpr int VPR = HD / 8;
-  for (int i = threadIdx.x; i < rows * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, bf16* __restrict__ o, int H, int KV,
-          int sq, int skv, int causal, float scale, Strides qs, Strides ks,
-          Strides vs, Strides os) {
-  using SM = Smem<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::OFF_Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::OFF_K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::OFF_V);
-  float* Ss = reinterpret_cast<float*>(smem + SM::OFF_S);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + SM::OFF_P);
-  float* Os = reinterpret_cast<float*>(smem + SM::OFF_O);
-  float* m_s = reinterpret_cast<float*>(smem + SM::OFF_M);
-  float* l_s = reinterpret_cast<float*>(smem + SM::OFF_L);
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+          int H, int KV, int sq, int skv, int causal, float scale_log2,
+          Strides os) {
+  using T = Tiles<HD>;
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* ring_base = qs + T::Q_BYTES;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KV);         // GQA: the KV head of query head h
-  const int q0 = blockIdx.y * TQ;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // longest tiles first
+  const int q0 = qt * TQ;
   const int q_offset = skv - sq;        // queries sit at the last sq keys
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wrow = warp * 16;           // this warp's first tile row
-
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + kvh * ks.h;
-  const bf16* vb = v + b * vs.b + kvh * vs.h;
-  bf16* ob = o + b * os.b + h * os.h;
-
-  load_rows<HD>(Qs, SM::LDQ, qb, qs.s, q0, sq, TQ);
-  for (int i = lane; i < 16 * SM::LDO; i += 32) Os[wrow * SM::LDO + i] = 0.f;
-  if (lane < 16) {
-    m_s[wrow + lane] = MASK_VALUE;
-    l_s[wrow + lane] = 0.f;
-  }
-
   // keys past the causal bound of the tile's last real row are skipped
   int kv_end = skv;
-  if (causal) kv_end = min(skv, min(q0 + TQ, sq) - 1 + q_offset + 1);
+  if (causal) kv_end = max(0, min(skv, min(q0 + TQ, sq) + q_offset));
+  const int n_tiles = (kv_end + TK - 1) / TK;
+  const int wg = threadIdx.x / 128;
 
-  for (int j0 = 0; j0 < kv_end; j0 += TK) {
-    __syncthreads();                    // Q loaded / previous K,V consumed
-    load_rows<HD>(Ks, SM::LDQ, kb, ks.s, j0, skv, TK);
-    load_rows<HD>(Vs, SM::LDQ, vb, vs.s, j0, skv, TK);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);          // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S[wrow:wrow+16, :] = Q K^T (K row-major is K^T column-major)
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TK / 16];
+  if (wg == 2) {
+    regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(&q_full, T::Q_BYTES);
 #pragma unroll
-      for (int n = 0; n < TK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+      for (int j = 0; j < T::NBOX; ++j)
+        tma_load_4d(qs + j * T::Q_BOX, &tq, &q_full, j * BOX, h, q0, b);
+      Ring<STAGES> ring;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
+        uint8_t* st = ring_base + ring.stage * T::STAGE;
+        uint64_t* bar = &full[ring.stage];
+        mbar_expect_tx(bar, T::STAGE);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + wrow * SM::LDQ + kk * 16, SM::LDQ);
+        for (int j = 0; j < T::NBOX; ++j) {
+          tma_load_4d(st + j * T::KV_BOX, &tk, bar, j * BOX, kvh, t * TK, b);
+          tma_load_4d(st + T::KV_BYTES + j * T::KV_BOX, &tv, bar, j * BOX,
+                      kvh, t * TK, b);
+        }
+        ring.advance();
+      }
+    }
+  } else {
+    regs_alloc<240>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // (+ 8) this
+    const int wg_first = q0 + wg * 64;                     // thread's rows
+    const uint8_t* qa = qs + wg * 64 * BOX_ROW_BYTES;
+
+    float acc_o[HD / 2];
 #pragma unroll
-        for (int n = 0; n < TK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, Ks + n * 16 * SM::LDQ + kk * 16, SM::LDQ);
-          wmma::mma_sync(acc[n], a, bt, acc[n]);
+    for (int i = 0; i < HD / 2; ++i) acc_o[i] = 0.f;
+    float m_r[2] = {MASK_VALUE, MASK_VALUE}, l_r[2] = {0.f, 0.f};
+
+    mbar_wait(&q_full, 0);
+    Ring<STAGES> ring;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int j0 = t * TK;
+      mbar_wait(&full[ring.stage], ring.phase);
+      const uint8_t* ks = ring_base + ring.stage * T::STAGE;
+      const uint8_t* vs = ks + T::KV_BYTES;
+
+      // S = Q K^T for this warpgroup's 64 rows and the tile's TK keys
+      float s[TK / 2];
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        Wgmma<TK, 0, 0>::ss(s, desc_kmajor(qa, kk, T::Q_BOX),
+                            desc_kmajor(ks, kk, T::KV_BOX), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // scale into log2 units; mask where a tile crosses the diagonal or
+      // the end of the keys
+      const bool edge = j0 + TK > skv ||
+                        (causal && j0 + TK - 1 > wg_first + q_offset);
+#pragma unroll
+      for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * i + e] * scale_log2;
+          if (edge) {
+            const int col = j0 + 8 * i + 2 * (lane % 4) + (e & 1);
+            const int row = row0 + 8 * (e >> 1);
+            if (col >= skv) x = -INFINITY;                    // not a key
+            else if (causal && col > row + q_offset) x = MASK_VALUE;
+          }
+          s[4 * i + e] = x;
         }
       }
-#pragma unroll
-      for (int n = 0; n < TK / 16; ++n)
-        wmma::store_matrix_sync(Ss + wrow * SM::LDS + n * 16, acc[n], SM::LDS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
 
-    // online softmax over the warp's rows; lane owns columns lane + 32 t
-    for (int r = 0; r < 16; ++r) {
-      const int row = wrow + r;
-      const int qpos = q0 + row + q_offset;
-      float s[TK / 32];
-      float mx = -INFINITY;
+      // online softmax on the fragments: rows row0 and row0 + 8, each
+      // spread over the 4 lanes that share lane / 4
+      float corr[2];
 #pragma unroll
-      for (int t = 0; t < TK / 32; ++t) {
-        const int c = lane + 32 * t, kj = j0 + c;
-        float x = Ss[row * SM::LDS + c] * scale;
-        if (kj >= skv) x = -INFINITY;                  // not a key at all
-        else if (causal && kj > qpos) x = MASK_VALUE;  // above the diagonal
-        s[t] = x;
-        mx = fmaxf(mx, x);
+      for (int half = 0; half < 2; ++half) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < TK / 8; ++i)
+          mx = fmaxf(mx, fmaxf(s[4 * i + 2 * half], s[4 * i + 2 * half + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[half], mx);
+        corr[half] = exp2f(m_r[half] - m_new);
+        m_r[half] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[4 * i + 2 * half + e] - m_new);
+            s[4 * i + 2 * half + e] = p;
+            sum += p;
+          }
+        }
+        l_r[half] = l_r[half] * corr[half] + sum;   // lane-partial sum
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int t = 0; t < TK / 32; ++t) {
-        const float p = expf(s[t] - m_new);
-        psum += p;
-        Ps[row * SM::LDP + lane + 32 * t] = __float2bfloat16(p);
+      for (int i = 0; i < HD / 8; ++i) {
+        acc_o[4 * i + 0] *= corr[0];
+        acc_o[4 * i + 1] *= corr[0];
+        acc_o[4 * i + 2] *= corr[1];
+        acc_o[4 * i + 3] *= corr[1];
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      const float corr = expf(m_prev - m_new);
-      for (int c = lane; c < HD; c += 32) Os[row * SM::LDO + c] *= corr;
-      if (lane == 0) {
-        m_s[row] = m_new;
-        l_s[row] = l_s[row] * corr + psum;
-      }
-    }
-    __syncwarp();
 
-    // O[wrow:wrow+16, :] += P V   (P rounded to bf16, as the Pallas kernel)
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Os + wrow * SM::LDO + n * 16, SM::LDO,
-                             wmma::mem_row_major);
+      // P (bf16) as the register A operand: k step kk covers keys
+      // 16 kk .. 16 kk + 15, i.e. accumulator columns blocks 2 kk, 2 kk + 1
+      uint32_t pa[TK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + wrow * SM::LDP + kk * 16, SM::LDP);
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * SM::LDQ + n * 16, SM::LDQ);
-        wmma::mma_sync(acc, a, bv, acc);
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
-      wmma::store_matrix_sync(Os + wrow * SM::LDO + n * 16, acc, SM::LDO,
-                              wmma::mem_row_major);
+      fence_regs(acc_o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        Wgmma<HD, 0, 1>::rs(acc_o, pa[kk],
+                            desc_mnmajor(vs, kk, T::KV_BOX), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_o);
+      if (lane == 0) mbar_arrive(&empty[ring.stage]);
+      ring.advance();
     }
-  }
-  __syncwarp();
 
-  for (int r = 0; r < 16; ++r) {
-    const int row = wrow + r, qi = q0 + row;
-    if (qi >= sq) break;
-    const float l = fmaxf(l_s[row], 1e-20f);
-    for (int c = lane; c < HD; c += 32)
-      ob[qi * os.s + c] = __float2bfloat16(Os[row * SM::LDO + c] / l);
+    // O / l, written once
+    const int c0 = 2 * (lane % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float l = l_r[half];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-20f);
+      const int row = row0 + 8 * half;
+      if (row < sq) {
+        bf16* orow = o + b * os.b + h * os.h + row * os.s;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i)
+          *reinterpret_cast<uint32_t*>(orow + 8 * i + c0) =
+              pack_bf16(acc_o[4 * i + 2 * half] * inv,
+                        acc_o[4 * i + 2 * half + 1] * inv);
+      }
+    }
   }
 }
 
+// 4-D descriptor of a [B, S, H, hd] tensor with element strides `st`,
+// boxes of 64 values of hd x `rows` positions of S, one head, one batch.
+bool make_tmap_bshd(CUtensorMap* map, const void* base, int hd, int B, int S,
+                    int H, const long long* st, uint32_t rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(hd),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(st[2]) * 2,
+                               static_cast<uint64_t>(st[1]) * 2,
+                               static_cast<uint64_t>(st[0]) * 2};
+  const uint32_t box[4] = {BOX, 1, rows, 1};
+  return make_tmap(map, base, 4, dims, strides, box);
+}
+
 template <int HD>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+cudaError_t launch(const void* q, const void* k, const void* v, bf16* o,
                    int B, int H, int KV, int sq, int skv, int causal,
-                   float scale, const Strides* st, cudaStream_t stream) {
-  const size_t bytes = Smem<HD>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+                   float scale, const long long* st, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_tmap_bshd(&tq, q, HD, B, sq, H, st, TQ) ||
+      !make_tmap_bshd(&tk, k, HD, B, skv, KV, st + 3, TK) ||
+      !make_tmap_bshd(&tv, v, HD, B, skv, KV, st + 6, TK))
+    return cudaErrorInvalidValue;
+  const int bytes = Tiles<HD>::SMEM;
+  static unsigned long long devices = 0;
+  cudaError_t err = allow_smem(flash_fwd<HD>, bytes, devices);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (sq + TQ - 1) / TQ);
-  flash_fwd<HD><<<grid, NTHREADS, bytes, stream>>>(
-      q, k, v, o, H, KV, sq, skv, causal, scale, st[0], st[1], st[2], st[3]);
+  flash_fwd<HD><<<grid, THREADS, bytes, stream>>>(
+      tq, tk, tv, o, H, KV, sq, skv, causal, scale * LOG2E,
+      Strides{st[9], st[10], st[11]});
   return cudaGetLastError();
 }
 
@@ -237,25 +300,22 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 extern "C" {
 
-// strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn.
+// strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
+// all multiples of 8, hd has unit stride, pointers 16-byte aligned.
 // Returns the launch's cudaGetLastError() (0 on success).
 int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KV, int sq, int skv, int hd,
                         int causal, float scale, const long long* strides,
                         void* stream) {
-  Strides st[4];
-  for (int i = 0; i < 4; ++i)
-    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
+  if (B < 1 || sq < 1 || skv < 1 || KV < 1 || H % KV != 0)
+    return cudaErrorInvalidValue;
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch<64>(qp, kp, vp, op, B, H, KV, sq, skv, causal, scale, st, s);
-    case 80: return launch<80>(qp, kp, vp, op, B, H, KV, sq, skv, causal, scale, st, s);
-    case 96: return launch<96>(qp, kp, vp, op, B, H, KV, sq, skv, causal, scale, st, s);
-    case 128: return launch<128>(qp, kp, vp, op, B, H, KV, sq, skv, causal, scale, st, s);
+    case 64: return launch<64>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
+    case 80: return launch<80>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
+    case 96: return launch<96>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
+    case 128: return launch<128>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface, under ``build/kernels/`` at the repo
 root, the first time a kernel is needed; the file name carries a hash of
-the source, so an edited source is rebuilt. Libraries are loaded with
-``ctypes``. Nothing here runs at import time: the CPU-only test
+the source and of the shared headers (``csrc/*.cuh``), so an edited
+source or header is rebuilt. No CUTLASS/CuTe header is used. Libraries
+are loaded with ``ctypes``. Nothing here runs at import time: the CPU-only test
 environment imports every module and has no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,15 +44,21 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built. Its
+    name hashes the source, every shared header ``csrc/*.cuh`` (the
+    sources include them) and the flags, so an edit to any of them
+    builds a new library instead of loading a stale one."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _compile(name: str) -> float:
     """Compile one source unless its library exists; returns seconds."""
-    out = _lib_path(name)
+    out = library(name)
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -88,7 +96,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             _compile(name)
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(library(name)))
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
@@ -103,9 +111,20 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``t``'s device, for a launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device (its raw handle),
+    for a launch. Read through the call PyTorch's own generated code
+    uses: building a ``torch.cuda.Stream`` object on every launch costs
+    host time on a host-bound decode path."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s device current for a launch; a no-op
+    when it already is (entering ``torch.cuda.device`` costs host time)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -30,8 +30,12 @@ def _to_bshd(t):
     return t.permute(1, 0, 2).unsqueeze(0)
 
 
-def _check(q, k, v):
-    _build.require_cuda(q, k, v)
+def admit(q, k, v):
+    """Raise ValueError unless the kernel takes these model-layout
+    [B, S, H, hd] tensors: bfloat16, matching shapes, whole GQA groups, a
+    head dim in HEAD_DIMS, and what its TMA descriptors need: a unit
+    stride on hd, other strides multiples of 8 elements (16 bytes) and
+    16-byte aligned data."""
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"flash_attention kernel takes bfloat16 only, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -49,6 +53,11 @@ def _check(q, k, v):
                 or t.data_ptr() % 16):
             raise ValueError("q/k/v need a unit stride on hd, other strides "
                              "a multiple of 8 and 16-byte aligned data")
+
+
+def _check(q, k, v):
+    _build.require_cuda(q, k, v)
+    admit(q, k, v)
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -75,7 +84,7 @@ def flash_attention(q, k, v, causal: bool = True):
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
     lib = _build.load("flash_attn")
-    with torch.cuda.device(q.device):
+    with _build.on_device(q):
         rc = _bind(lib)(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                         o4.data_ptr(), b, h, kv, sq, skv, hd, int(causal),
                         1.0 / (hd ** 0.5), strides, _build.stream_ptr(q))

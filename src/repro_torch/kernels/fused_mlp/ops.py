@@ -1,24 +1,94 @@
-"""Fused SwiGLU MLP op: the CUDA kernel ``csrc/fused_mlp.cu`` on CUDA
+"""Fused SwiGLU MLP op: the CUDA kernels ``csrc/fused_mlp.cu`` on CUDA
 tensors, its plain version (``ref.fused_mlp_ref``) on CPU tensors.
 
 Replaces ``repro/kernels/fused_mlp/fused_mlp.py:fused_mlp``.
-``fused_mlp.launches`` counts kernel launches.
+``fused_mlp.launches`` counts calls that ran the kernels (one per MLP;
+each is a gate/up and a down launch per row chunk).
+
+Two regimes, chosen by M here: ``decode`` (M <= 64) runs the swap-AB
+cluster kernels, whose reduction is split over ``decode_split`` blocks;
+``prefill`` runs the persistent wgmma kernels over ``row_chunks``, which
+bound the bf16 h scratch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
 from .ref import fused_mlp_ref
 
-TILE = 128  # K and F must be multiples of the kernel's tiles
+TILE = 128          # K and F must be multiples of the kernels' tiles
+DECODE_MAX_M = 64   # M at or below which the decode kernels run
+SPLITS = (1, 2, 4, 8)  # cluster sizes of the decode kernels
 
 
-def _bind(lib):
-    fn = lib.fused_mlp_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def regime(m: int) -> str:
+    """``"decode"`` for M <= 64 (the weight stream bounds it), else
+    ``"prefill"`` (the tensor cores bound it)."""
+    return "decode" if m <= DECODE_MAX_M else "prefill"
+
+
+def row_chunks(m: int, k: int, f: int):
+    """[(start, rows)] row chunks of x for the prefill kernels. The bf16 h
+    of one chunk ([rows, F]) takes no more bytes than the fp32 [M, K]
+    workspace of the earlier design (M*K*4), but a chunk is never smaller
+    than one 128-row tile; chunks are equal in whole tiles, so the last is
+    no sliver. Decode is one chunk: its h is at most [64, F]."""
+    if regime(m) == "decode":
+        return [(0, m)]
+    cap = max(TILE, (2 * m * k // f) // TILE * TILE)
+    n = _cdiv(m, cap)
+    while _cdiv(_cdiv(m, n), TILE) * TILE > cap:
+        n += 1
+    rows = _cdiv(_cdiv(m, n), TILE) * TILE
+    return [(s, min(rows, m - s)) for s in range(0, m, rows)]
+
+
+def decode_split(outputs: int, reduction: int, sms: int) -> int:
+    """Cluster size of a decode kernel with ``outputs`` output rows (64
+    per block group) and a ``reduction``-long sum: the smallest size in
+    ``SPLITS`` that gives at least one block per SM, no larger than the
+    reduction's 64-wide blocks. Each block keeps ~100 KB of loads in
+    flight, so one block per SM streams the weights; more blocks only
+    add cluster reductions."""
+    tiles, kblocks = outputs // 64, reduction // 64
+    best = 1
+    for cs in SPLITS:
+        if cs > kblocks:
+            break
+        best = cs
+        if tiles * cs >= sms:
+            break
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(m: int, k: int, f: int, sms: int):
+    """(row chunks, rows of h, decode flag, split_up, split_down) for one
+    shape: computed once, since decode calls this 36 times a step."""
+    chunks = tuple(row_chunks(m, k, f))
+    decode = regime(m) == "decode"
+    return (chunks, max(r for _, r in chunks), int(decode),
+            decode_split(f, k, sms) if decode else 1,
+            decode_split(k, f, sms) if decode else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _bound():
+    fn = _build.load("fused_mlp").fused_mlp_fwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -53,14 +123,21 @@ def fused_mlp(x, w1, w3, w2):
     _check(x, w1, w3, w2)
     m, k = x.shape
     f = w1.shape[1]
-    ws = torch.zeros((m, k), dtype=torch.float32, device=x.device)
+    sms = _sm_count(x.device.index)
+    chunks, h_rows, decode, split_up, split_down = _plan(m, k, f, sms)
     y = torch.empty_like(x)
-    lib = _build.load("fused_mlp")
-    with torch.cuda.device(x.device):
-        rc = _bind(lib)(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
-                        w2.data_ptr(), ws.data_ptr(), y.data_ptr(), m, k, f,
-                        _build.stream_ptr(x))
-    _build.check(lib, "fused_mlp", rc)
+    h = torch.empty((h_rows, f), dtype=x.dtype, device=x.device)
+    fn = _bound()
+    row_bytes = k * x.element_size()
+    with _build.on_device(x):
+        stream = _build.stream_ptr(x)
+        for start, rows in chunks:
+            rc = fn(x.data_ptr() + start * row_bytes, w1.data_ptr(),
+                    w3.data_ptr(), w2.data_ptr(), h.data_ptr(),
+                    y.data_ptr() + start * row_bytes, rows, k, f, decode,
+                    split_up, split_down, sms, stream)
+            if rc:
+                _build.check(_build.load("fused_mlp"), "fused_mlp", rc)
     fused_mlp.launches += 1
     return y
 

@@ -98,7 +98,7 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
         *x4.stride()[:3], *dt4.stride(), a1.stride(0), *b4.stride()[:3],
         *c4.stride()[:3], *y4.stride()[:3])
     lib = _build.load("ssd_scan")
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         rc = _bind(lib)(x4.data_ptr(), dt4.data_ptr(), a1.data_ptr(),
                         b4.data_ptr(), c4.data_ptr(), y4.data_ptr(),
                         state.data_ptr(), b, s, h, g, n, p, chunk, strides,

@@ -43,6 +43,16 @@ def _randn(gen, *shape, scale=1.0):
     (1, 77, 77, 4, 4, 64, True),
     (2, 50, 200, 8, 1, 96, True),
     (1, 130, 70, 4, 2, 80, False),
+    # ragged query tiles on both sides of the 128-row tile, end-aligned
+    # Sq < Skv, every head dim
+    (1, 1, 1, 4, 2, 128, True),
+    (2, 63, 63, 4, 1, 64, True),
+    (1, 127, 300, 4, 2, 80, True),
+    (1, 129, 129, 6, 3, 96, True),
+    (2, 500, 500, 4, 2, 128, True),
+    (1, 1, 257, 4, 4, 96, True),
+    (1, 129, 400, 2, 1, 80, False),
+    (1, 500, 620, 8, 8, 64, True),
 ])
 def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd, causal):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -57,8 +67,26 @@ def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd, causal):
                                **BF16_TOL)
 
 
-@pytest.mark.parametrize("m,k,f", [(1, 128, 256), (70, 256, 384),
-                                   (256, 512, 1024)])
+@pytest.mark.parametrize("sq,skv,hd", [(63, 63, 80), (129, 200, 96),
+                                       (500, 500, 128), (1, 64, 64)])
+def test_flash_kernel_pallas_layout(cuda, sq, skv, hd):
+    """The Pallas layout [BH, S, hd] goes through the same 4-D TMA
+    descriptors (as B = 1, H = BH) and matches the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, 8, sq, hd)
+    k, v = _randn(gen, 4, skv, hd), _randn(gen, 4, skv, hd)
+    y = flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(y.float(),
+                               attention_ref(q, k, v, True).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("m,k,f", [
+    (m, k, f) for m in (1, 4, 63, 64, 65, 100, 256)
+    for k, f in ((128, 256), (256, 384), (512, 1024))] + [
+    (70, 256, 384),
+    (300, 128, 1024),  # 3 row chunks of the prefill kernels
+])
 def test_fused_mlp_kernel_matches_plain(cuda, m, k, f):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = _randn(gen, m, k)
@@ -72,6 +100,19 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, k, f):
     torch.testing.assert_close(y.float(),
                                fused_mlp_ref(x, w1, w3, w2).float(),
                                **BF16_TOL)
+
+
+@pytest.mark.parametrize("m", [4, 100])
+def test_fused_mlp_kernel_is_deterministic(cuda, m):
+    """No atomics: two calls on the same inputs are bit-identical, in both
+    regimes."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k, f = 512, 1024
+    x = _randn(gen, m, k)
+    w1 = _randn(gen, k, f, scale=k ** -0.5)
+    w3 = _randn(gen, k, f, scale=k ** -0.5)
+    w2 = _randn(gen, f, k, scale=f ** -0.5)
+    assert torch.equal(fused_mlp(x, w1, w3, w2), fused_mlp(x, w1, w3, w2))
 
 
 def _ssd_inputs(gen, b, s, h, g, n, p=64):

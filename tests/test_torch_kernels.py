@@ -20,8 +20,12 @@ from repro.kernels.ssd_scan import ssd_ref as jax_ssd_ref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_op  # noqa: E402
 from repro.models.attention import flash_attention as jax_model_flash  # noqa: E402
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import admit as flash_admit  # noqa: E402
 from repro_torch.kernels.fused_mlp import fused_mlp  # noqa: E402
+from repro_torch.kernels.fused_mlp.ops import (decode_split, regime,  # noqa: E402
+                                               row_chunks)
 from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
                                           ssd_scan, to_pallas_layout)
 from repro_torch.models.attention import flash_attention as model_flash  # noqa: E402
@@ -73,6 +77,121 @@ def test_fused_mlp_matches_pallas(dtype, m, k, f, tm, tf):
     np.testing.assert_allclose(_np(y), _np(yk), **_tol(dtype))
     np.testing.assert_allclose(_np(y), _np(jax_fused_mlp_ref(x, w1, w3, w2)),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("m,want", [(1, "decode"), (4, "decode"),
+                                    (64, "decode"), (65, "prefill"),
+                                    (2048, "prefill")])
+def test_fused_mlp_regime_by_m(m, want):
+    """M <= 64 runs the weight-streaming decode kernels, larger M the
+    tensor-core prefill kernels."""
+    assert regime(m) == want
+
+
+@pytest.mark.parametrize("m,k,f", [
+    (2048, 4096, 14336),   # granite_8b prefill
+    (4, 4096, 14336),      # granite_8b decode
+    (65, 128, 256), (100, 256, 384), (300, 128, 1024), (1000, 512, 1024),
+    (4096, 2048, 5632), (129, 4096, 14336),
+])
+def test_fused_mlp_row_chunks_cap_h(m, k, f):
+    """The chunks tile [0, M) in order, all but the last of one size in
+    whole 128-row tiles, and h ([rows, F] bf16) never exceeds the fp32
+    [M, K] workspace it replaces, or one tile where that is smaller."""
+    chunks = row_chunks(m, k, f)
+    assert [s for s, _ in chunks] == list(
+        np.cumsum([0] + [r for _, r in chunks[:-1]]))
+    assert sum(r for _, r in chunks) == m
+    rows = max(r for _, r in chunks)
+    if regime(m) == "prefill":
+        assert len(chunks) == 1 or rows % 128 == 0
+        assert all(r == rows for _, r in chunks[:-1])
+        assert rows * f * 2 <= max(m * k * 4, 128 * f * 2)
+    else:
+        assert chunks == [(0, m)]
+
+
+def test_fused_mlp_row_chunks_granite_prefill():
+    """granite_8b prefill (M 2048): two equal chunks of 8 tiles, so the
+    down GEMM's 8 x 32 tiles fill 132 SMs in two rounds each."""
+    assert row_chunks(2048, 4096, 14336) == [(0, 1024), (1024, 1024)]
+
+
+@pytest.mark.parametrize("outputs,reduction,sms,want", [
+    (14336, 4096, 132, 1),   # granite_8b gate/up: 224 blocks, no split
+    (4096, 14336, 132, 4),   # granite_8b down: 64 x 4 blocks
+    (256, 128, 132, 2),      # capped by the 2 blocks of the reduction
+    (128, 64, 132, 1),
+    (8192, 8192, 4, 1),      # already a block per SM
+])
+def test_fused_mlp_decode_split(outputs, reduction, sms, want):
+    cs = decode_split(outputs, reduction, sms)
+    assert cs == want
+    assert cs in (1, 2, 4, 8) and cs <= max(1, reduction // 64)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_flash_admission_takes_model_and_pallas_layouts():
+    for hd in (64, 80, 96, 128):
+        q, k = _bf16(2, 33, 8, hd), _bf16(2, 40, 2, hd)
+        flash_admit(q, k, k)
+        qp, kp = _bf16(16, 33, hd), _bf16(4, 40, hd)
+        flash_admit(*(t.permute(1, 0, 2).unsqueeze(0) for t in (qp, kp, kp)))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head_dim_48", "head dim"),
+    ("float32", "bfloat16"),
+    ("gqa_3_over_2", "multiple of"),
+    ("stride_not_16_bytes", "stride"),
+    ("misaligned", "aligned"),
+    ("kv_shape", "shape mismatch"),
+])
+def test_flash_admission_rejects(case, match):
+    """What the kernel's TMA descriptors cannot take is refused before a
+    launch: strides that are not multiples of 16 bytes, misaligned data,
+    a head dim outside 64/80/96/128, and the shape rules."""
+    q, k = _bf16(1, 8, 2, 64), _bf16(1, 8, 2, 64)
+    if case == "head_dim_48":
+        q, k = _bf16(1, 8, 2, 48), _bf16(1, 8, 2, 48)
+    elif case == "float32":
+        q = q.float()
+    elif case == "gqa_3_over_2":
+        q = _bf16(1, 8, 3, 64)
+    elif case == "stride_not_16_bytes":
+        q = _bf16(1, 8, 2, 68)[..., :64]
+    elif case == "misaligned":
+        q = _bf16(1 * 8 * 2 * 64 + 1)[1:].view(1, 8, 2, 64)
+    elif case == "kv_shape":
+        k = _bf16(1, 8, 2, 80)
+    with pytest.raises(ValueError, match=match):
+        flash_admit(q, k, k)
+
+
+def test_build_library_name_hashes_shared_headers(tmp_path, monkeypatch):
+    """A kernel library's file name changes with its source and with any
+    shared header in csrc/, so an edited header never loads a stale
+    library; nothing here needs nvcc."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "shared.cuh").write_text("// v1\n")
+    first = _build.library("k")
+    assert first.parent == tmp_path / "build"
+    assert first.name.startswith("libk-") and first.suffix == ".so"
+    assert _build.library("k") == first
+    (csrc / "shared.cuh").write_text("// v2\n")
+    second = _build.library("k")
+    assert second != first
+    (csrc / "other.cuh").write_text("// new header\n")
+    assert _build.library("k") != second
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert _build.library("k") not in (first, second)
 
 
 # ---------------------------------------------------------------------------
