@@ -14,8 +14,11 @@ Phases, each raising on failure:
                 granite_8b's, ssd_scan at mamba2_780m's), with its time, the
                 plain version's time, a library yardstick's time and its
                 bound; also flash at head dims 80/96 (stablelm_3b, phi3),
-                fused_mlp at M 4/100/2048 (both regimes, a ragged M) and
-                its bitwise determinism.
+                fused_mlp at M 4/100/2048 (both regimes, a ragged M),
+                ssd_scan at chunk 64, grouped, in the Pallas layout and at
+                zamba2_1_2b's geometry; fused_mlp's and ssd_scan's bitwise
+                determinism; the device time of each of ssd_scan's three
+                kernel launches (torch.profiler).
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
                 CPU in fp32, on the same weights: granite_8b and mamba2_780m
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -237,11 +241,14 @@ def ssd_inputs(gen, b, s, h, g, n, p):
 
 def check_ssd(gen, flush):
     """ssd_scan kernel vs ssd_ref (y and final state) at mamba2_780m's
-    prefill shape, a grouped case, the Pallas layout and two chunk sizes;
-    returns the kernel's JSON entry (main shape)."""
+    prefill shape, a grouped case, the Pallas layout, two chunk sizes and
+    zamba2_1_2b's geometry; two calls bit-identical; each of the op's
+    kernel launches timed by torch.profiler; returns the kernel's JSON
+    entry (main shape)."""
     cfg = get_config("mamba2_780m")
     b, s, h, p = 4, 2048, cfg.ssm_heads, cfg.ssm_head_dim
     g, n, chunk = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
+    zcfg = get_config("zamba2_1_2b")
     main = ssd_inputs(gen, b, s, h, g, n, p)
     cases = [  # (label, inputs, chunk, Pallas layout)
         (f"mamba2_780m B={b} S={s} H={h} P={p} N={n} G={g} chunk {chunk}",
@@ -251,6 +258,10 @@ def check_ssd(gen, flush):
          ssd_inputs(gen, 2, 512, 8, 2, 64, p), 256, False),
         ("Pallas layout BH=8 S=512 N=128 chunk 128",
          to_pallas_layout(*ssd_inputs(gen, 1, 512, 8, 8, 128, p)), 128, True),
+        (f"zamba2_1_2b B=2 S=1024 H={zcfg.ssm_heads} N={zcfg.ssm_state} "
+         f"G={zcfg.ssm_groups} chunk {zcfg.ssm_chunk}",
+         ssd_inputs(gen, 2, 1024, zcfg.ssm_heads, zcfg.ssm_groups,
+                    zcfg.ssm_state, zcfg.ssm_head_dim), zcfg.ssm_chunk, False),
     ]
     errs, y_main = [], None
     for label, args, ck, pallas in cases:
@@ -271,6 +282,15 @@ def check_ssd(gen, flush):
             compare("ssd_scan y chunk 64 vs chunk 256", y, y_main, SSD_ATOL,
                     SSD_RTOL)
         del y, state, want_y, want_state
+    y, state = ssd_scan(*main, chunk=chunk)
+    y2, state2 = ssd_scan(*main, chunk=chunk)
+    same = torch.equal(y, y2) and torch.equal(state, state2)
+    print(f"  ssd_scan [main shape] two calls bit-identical (y and state): "
+          f"{same}", flush=True)
+    if not same:
+        raise RuntimeError("ssd_scan is not deterministic")
+    del y, state, y2, state2
+    launch_ms = ssd_launch_profile(main, chunk)
     ms = cuda_ms(lambda: ssd_scan(*main, chunk=chunk), 10, flush)
     ref_in = to_pallas_layout(*main)
     plain = cuda_ms(lambda: ssd_ref(*ref_in), 2, flush)
@@ -288,13 +308,38 @@ def check_ssd(gen, flush):
             "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:63",
             "launches": None, "max_abs_err": max(errs), "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib,
+            "library_ms": lib, "launch_device_ms": launch_ms,
             "library": "torch chain, not one call: "
                        "repro_torch.models.ssm.ssd_chunked (einsums and a "
                        "loop over chunks); no single PyTorch call computes "
                        "the SSD scan",
             "shape": f"B={b} S={s} H={h} P={p} N={n} G={g} chunk {chunk}, "
                      "bf16 x/B/C, fp32 dt/A"}
+
+
+def ssd_launch_profile(args, chunk):
+    """Device time of each kernel launch of one ssd_scan call (the C entry
+    issues three: chunk states, state passing, chunk scan), by
+    torch.profiler; returns {kernel name: ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.device_time_total for e in evts) / 1e3
+    print(f"  ssd_scan one call, profiled: {len(evts)} device launches, "
+          f"{total:.4f} ms", flush=True)
+    for e in evts:
+        print(f"    {e.device_time_total / 1e3:9.4f} ms  {e.name[:100]}",
+              flush=True)
+    names = [re.search(r"ssd_\w+(<\d+>)?", e.name) for e in evts]
+    return {m.group(0) if m else e.name[:60]: e.device_time_total / 1e3
+            for m, e in zip(names, evts)}
 
 
 def _cuobjdump():
@@ -469,6 +514,10 @@ def serve(arch: str, batch: int, prompt_len: int, new: int):
     return launches
 
 
+# kernel name prefix in csrc/ -> the op whose wrapper launches it
+PORT_OPS = {"ssd": "ssd_scan", "mlp": "fused_mlp", "flash": "flash_attention"}
+
+
 def profile(eng, prompts, top: int = 8):
     """Where the device time goes: torch.profiler over one prefill and over
     3 decode steps of the served model (run after the counted main path)."""
@@ -502,6 +551,18 @@ def profile(eng, prompts, top: int = 8):
                 print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
                       f"{100 * e.self_device_time_total / 1e3 / busy:5.1f}% "
                       f"x{e.count:<5d} {e.key[:90]}", flush=True)
+            ops = {}                    # the port's kernels, by op
+            for e in evts:
+                m = re.search(r"::(ssd|mlp|flash)_", e.key)
+                if m:
+                    op = PORT_OPS[m.group(1)]
+                    ms, n = ops.get(op, (0.0, 0))
+                    ops[op] = (ms + e.self_device_time_total / 1e3,
+                               n + e.count)
+            print("    port kernels: " + (", ".join(
+                f"{op} {ms:.3f} ms ({100 * ms / busy:.1f}%, {n} launches)"
+                for op, (ms, n) in sorted(ops.items())) or "none"),
+                flush=True)
 
 
 def main():

@@ -1,297 +1,758 @@
-// Mamba-2 SSD chunk scan forward for Hopper: bf16 x, B, C; fp32 dt, A.
+// Mamba-2 SSD chunk scan forward for Hopper (sm_90a): bf16 x, B, C; fp32
+// dt, A; y in bf16, the final state in fp32.
 //
 // Replaces the Pallas TPU kernel
-//   src/repro/kernels/ssd_scan/ssd_scan.py:ssd_scan (_kernel)
-// and computes what it computes, in fp32: per chunk of L steps,
-// cum = cumsum(dt * a); y = [(C B^T) * exp(cum_i - cum_j) * dt_j]_(i>=j) x
-// + (C * exp(cum)) S_prev; S = S * exp(cum_L) + (B * exp(cum_L - cum) dt)^T x,
-// with y rounded once to bf16. It also writes the final state S [N, P]
-// (fp32), which the Pallas kernel keeps in VMEM and drops: prefill needs it
-// for the decode cache (it is ``final`` of models/ssm.py::ssd_chunked).
+//   src/repro/kernels/ssd_scan/ssd_scan.py:ssd_scan (_kernel; pallas_call
+//   at :71)
+// and computes what it computes: per chunk of L steps, cum = cumsum(dt a);
+// y = [(C B^T) * exp(cum_i - cum_j) * dt_j]_(i>=j) x + (C * exp(cum)) S_prev;
+// S = S * exp(cum_L) + (B * exp(cum_L - cum) dt)^T x, with y rounded once
+// to bf16. It also writes the final state S [N, P], which the Pallas kernel
+// keeps in VMEM and drops: prefill needs it for the decode cache (it is
+// ``final`` of models/ssm.py::ssd_chunked).
 //
-// Differences from the TPU, and what the design does about them:
-// - The TPU grid runs the chunk axis in order and carries S in VMEM
-//   scratch; H100 blocks run in no order. One block per (batch, head)
-//   loops over the chunks itself with S in shared memory (128 x 64 fp32 =
-//   32 KB at mamba2_780m).
-// - The Pallas body holds [L, L] fp32 scores/decay matrices (256 KB each
-//   at L = 256, over a block's 227 KB). Here the chunk is walked in
-//   64-row query tiles; for each, the 64 x 64 tiles of C B^T are formed
-//   for key tiles j <= i only (tiles above the diagonal are skipped), the
-//   decay and dt_j applied, and their product with x_j accumulated into
-//   the tile's 64 x P output in registers.
-// - Every decay is exp of a difference of cumsums, formed only where
-//   i >= j (masked before exp: above the diagonal cum_i - cum_j > 0 can
-//   overflow, and inf * 0 would give NaN). Never exp(cum_i) / exp(cum_j).
-// - Layouts by element strides: x [B, S, H, P], dt [B, S, H], A [H],
-//   B/C [B, S, G, N] read at group h / (H / G) without expanding groups,
-//   y [B, S, H, P]; the Pallas layout [BH, S, *] runs as B = 1, H = G = BH.
+// What bounds it on an H100: at mamba2_780m's prefill (B = 4, S = 2048,
+// H = 48, P = 64, N = 128, L = 256) chip_smoke.py counts 32.29 GFLOP
+// against 112.72 MB of inputs and outputs: 0.0336 ms at 3.35 TB/s, just
+// above the 0.033 ms at the bf16 tensor rate, so the bytes bound it. The
+// design adds ~200 MB of scratch traffic (~0.06 ms at that rate) and,
+// with the hi/lo operands below, ~45 GFLOP of wgmma (~0.046 ms).
 //
-// What bounds it on an H100: at mamba2_780m's prefill (B*H = 4*48,
-// S = 2048, P = 64, N = 128, L = 256) the work is ~32 GFLOP against
-// ~113 MB, so both bounds are ~0.033 ms at the data sheet's bf16 tensor
-// rate and HBM bandwidth. This first kernel is far from that: it does its
-// sums in fp32 on the CUDA cores (67 TFLOP/s peak, not the tensor cores),
-// and its 192 blocks of 141 KB shared memory run one per SM, two waves on
-// 132 SMs. Tensor cores (mma/wgmma for C B^T and M x), cp.async/TMA
-// staging and a split over P are for a later change.
+// Why the chunk axis is parallel here. The TPU grid runs the chunk axis in
+// order and carries S in VMEM; only the N x P state is a recurrence, the
+// rest of a chunk's work depends on its own inputs alone. H100 blocks run
+// in no order, and one block per (batch, head) looping over its chunks
+// gives 192 blocks at the main shape, two waves on 132 SMs. So the one C
+// entry issues three launches on the caller's stream, all reading the
+// model layout through 4-D TMA descriptors (128B-swizzled 64-wide boxes):
+//   (a) ssd_chunk_state, one warpgroup per (b, h, chunk): a warp-parallel
+//       cumsum of dt a (in log2 units) over the chunk, written to scratch
+//       as (cum, dt) pairs; then
+//       S_c = B^T (w o x), w_j = 2^(cum_L - cum_j) dt_j, on wgmma: A = the
+//       B tile read MN-major straight from its TMA box (the N state rows
+//       as one or two m64 tiles), B = w o x, formed by the threads at the
+//       swizzled place of the x box it was read from. 2-stage TMA ring.
+//   (b) ssd_state_pass, one thread per (b, h, n, 4 p): the fp32 recurrence
+//       S <- S 2^(cum_L) + S_c over the chunks, writing each chunk's
+//       previous state as a bf16 hi/lo pair ready for TMA, and the final
+//       state. Elementwise, ~100 MB at the main shape.
+//   (c) ssd_chunk_scan, persistent (one block per SM), items of 256 query
+//       rows of one (b, h, chunk), the longest of a chunk first: a
+//       producer warpgroup loads an item's C tile (double-buffered, so the
+//       next item's loads run under this one's math), streams 64-key B
+//       and x tiles with their (cum, dt) pairs through a TMA ring, and
+//       loads S_prev last. Two consumer warpgroups own query tiles {0, 3}
+//       and {1, 2} of the item (5 key tiles each). Per key tile: C B^T on
+//       wgmma (both K-major over N) into registers, the decay and dt_j on
+//       the accumulator fragments (masked only on the diagonal tile), and
+//       M x as register-A wgmma (x read MN-major from its box); at the end
+//       2^(cum_i) (C S_prev) on wgmma, and y stored once.
+// Scratch (the (cum, dt) pairs, the chunk states S_c in fp32, the previous
+// states as bf16 hi/lo) is one workspace the caller allocates; the kernels
+// allocate nothing. No atomics: two calls give bit-identical results, and
+// the Pallas layout gives the model layout's bits.
+//
+// Operand precision. C B^T takes exact bf16 inputs, so bf16 wgmma is exact
+// up to fp32 accumulation. The three fp32-weighted operands (M, S_prev and
+// w o x) are each split into bf16 hi + bf16 lo (split_bf16), two wgmmas
+// into one fp32 accumulator. Rounding them to plain bf16 instead puts 116
+// of 131,072 y elements outside chip_smoke's atol = rtol = 2e-2 (CPU
+// emulation: one sequence, S = 512, 4 heads, N = 128, P = 64, chunk 256);
+// hi/lo puts none outside, with a final-state max error of 4.0e-5 against
+// 7.3e-3 for bf16 (tf32 truncated by the hardware: 3.1e-3).
+// tests/test_torch_kernels.py::test_ssd_kernel_rounding_at_mamba2_geometry
+// repeats the comparison at 2 heads.
+//
+// Masking: every decay is 2^ of a difference of cumsums, formed only where
+// i >= j (masked before the exponential, to -inf: above the diagonal
+// cum_i - cum_j > 0 can overflow, and inf * 0 would give NaN). Never
+// exp(cum_i) / exp(cum_j). Rows past the chunk's end (a ragged chunk such
+// as 100) are neither used as keys (weight 0) nor stored as queries.
+//
+// Layouts by element strides: x [B, S, H, P], dt [B, S, H], A [H], B/C
+// [B, S, G, N] read at group h / (H / G) without expanding groups, y
+// [B, S, H, P]; the Pallas layout [BH, S, *] runs as B = 1, H = G = BH,
+// through the same descriptors. N < 64 (or not a multiple of 64) loads as
+// a 64-wide box that TMA zero-fills past N.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace sm90;
 
-constexpr int P = 64;           // head dim: columns of x, y and the state
-constexpr int T = 64;           // rows of a query or key tile
-constexpr int NTHREADS = 256;   // 16 x 16 threads, each owns a 4 x 4 sub-tile
-constexpr int LDT = T + 4;      // fp32 pitch of the transposed tiles
-constexpr int LDX = P + 4;      // fp32 pitch of x tiles and of the state
-constexpr int MAX_NB = 2;       // state rows in 64-row blocks (N <= 128)
+constexpr int P = 64;                   // head dim: columns of x, y, state
+constexpr int MAX_N = 128;              // state rows: two 64-wide boxes
+constexpr int KT = 64;                  // keys per B / x tile
+constexpr int QT = 64;                  // query rows per tile
+constexpr int QB = 4 * QT;              // query rows per chunk-scan block
+constexpr int TILE = KT * BOX_ROW_BYTES;   // one [64 rows][64] box, 8 KB
+constexpr int KV_BYTES = KT * 8;        // (cum, dt) pairs of a key tile
+constexpr int STATE_STAGES = 2;
+constexpr int STATE_THREADS = 128;      // (a): one warpgroup
+constexpr int PASS_THREADS = 256;       // (b)
+constexpr int SCAN_STAGES = 2;
+constexpr int SCAN_THREADS = 384;       // (c): WG0, WG1 consume; WG2 loads
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
-  long long b, s, h;            // element strides of [B, S, H(or G), *]
+  long long b, s, h;                    // element strides of [B, S, H, *]
 };
 
-__device__ __forceinline__ void outer(float (&acc)[4][4], float4 a,
-                                      float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// 2^x in one instruction (relative error below 2^-22; 2^-inf = 0). The
+// cumsums are kept in log2 units, so every decay is one ex2 of a
+// difference.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void unpack8(uint4 raw, float (&v)[8]) {
-  const bf16* h = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(h[k]);
+// Byte offsets of the workspace's three arrays and its size.
+struct Workspace {
+  size_t sc, sp, bytes;
+};
+
+inline size_t round_up(size_t v, size_t a) { return (v + a - 1) / a * a; }
+
+// (cum, dt) pairs of one chunk, padded to whole key tiles so that a key
+// tile's pairs are one aligned bulk copy.
+__host__ __device__ inline int chunk_pitch(int chunk) {
+  return (chunk + KT - 1) / KT * KT;
 }
 
-// dst[w * LDT + r] = src[r * rs + w] for r < rows and w < W, else 0, for
-// w < w_pad: a 64-row tile of B or C, transposed to [N][64] in fp32.
-__device__ void load_tile_t(float* dst, const bf16* src, long long rs,
-                            int rows, int W, int w_pad) {
-  const int nv = w_pad / 8;
-  for (int e = threadIdx.x; e < T * nv; e += NTHREADS) {
-    const int r = e % T, v = e / T;
-    float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < rows && v * 8 < W)
-      unpack8(*reinterpret_cast<const uint4*>(src + r * rs + v * 8), vals);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) dst[(v * 8 + k) * LDT + r] = vals[k];
-  }
+inline Workspace workspace(int batch, int S, int H, int N, int chunk) {
+  const size_t bh = static_cast<size_t>(batch) * H;
+  const size_t bhc = bh * (S / chunk);
+  Workspace w;
+  w.sc = round_up(bhc * chunk_pitch(chunk) * sizeof(float2), 1024);
+  w.sp = w.sc + round_up(bhc * N * P * sizeof(float), 1024);  // S_c
+  w.bytes = w.sp + round_up(bhc * 2 * N * P * sizeof(bf16), 1024);
+  return w;                                   // S_prev as [bhc][hi, lo]
 }
 
-// dst[r * LDX + p] = src[r * rs + p] * scale_r for r < rows, else 0: a
-// 64-row tile of x in fp32. scale_r = 1, or exp(cl - cum[r]) * dts[r]
-// when cum is given (the state update's weights).
-__device__ void load_x(float* dst, const bf16* src, long long rs, int rows,
-                       const float* cum, const float* dts, float cl) {
-  for (int e = threadIdx.x; e < T * (P / 8); e += NTHREADS) {
-    const int r = e / (P / 8), v = e % (P / 8);
-    float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < rows) {
-      unpack8(*reinterpret_cast<const uint4*>(src + r * rs + v * 8), vals);
-      if (cum != nullptr) {
-        const float w = expf(cl - cum[r]) * dts[r];
+// ---------------------------------------------------------------------------
+// (a) chunk states
+// ---------------------------------------------------------------------------
+
+template <int NM>                       // 64-row blocks of the state
+struct StateTiles {
+  static constexpr int B_BYTES = NM * TILE;     // B tile [64 keys][64 n] x NM
+  static constexpr int STAGE = B_BYTES + TILE;  // + x tile [64 keys][64 p]
+  static constexpr int SMEM = STATE_STAGES * STAGE + 2 * TILE + 1024;
+};
+
+// The key tile at sequence row `row`: NM boxes of B, one of x, into `st`.
+template <int NM>
+__device__ __forceinline__ void load_state_tile(
+    uint8_t* st, uint64_t* bar, const CUtensorMap* tb, const CUtensorMap* tx,
+    int b, int h, int g, int row) {
+  mbar_expect_tx(bar, StateTiles<NM>::STAGE);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) vals[k] *= w;
-      }
-    }
-    float4* d = reinterpret_cast<float4*>(dst + r * LDX + v * 8);
-    d[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
-    d[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
-  }
+  for (int m = 0; m < NM; ++m)
+    tma_load_4d(st + m * TILE, tb, bar, m * BOX, g, row, b);
+  tma_load_4d(st + StateTiles<NM>::B_BYTES, tx, bar, 0, h, row, b);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+template <int NM>
+__global__ void __launch_bounds__(STATE_THREADS)
+ssd_chunk_state(const __grid_constant__ CUtensorMap tb,
+                const __grid_constant__ CUtensorMap tx,
+                const float* __restrict__ dt, const float* __restrict__ A,
+                float2* __restrict__ cd, float* __restrict__ sc, int S,
+                int H, int G, int N, int chunk, Strides ds, long long as) {
+  using T = StateTiles<NM>;
+  __shared__ __align__(8) uint64_t full[STATE_STAGES];
+  __shared__ float warp_sum[STATE_THREADS / 32];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* xhi = ring + STATE_STAGES * T::STAGE;     // w o x, split
+  uint8_t* xlo = xhi + TILE;
 
-__global__ void __launch_bounds__(NTHREADS)
-ssd_fwd(const bf16* __restrict__ x, const float* __restrict__ dt,
-        const float* __restrict__ A, const bf16* __restrict__ Bm,
-        const bf16* __restrict__ Cm, bf16* __restrict__ y,
-        float* __restrict__ state, int S, int H, int G, int N, int n_pad,
-        int chunk, Strides xs, Strides ds, long long as, Strides bs,
-        Strides cs, Strides ys) {
-  extern __shared__ __align__(16) float smem[];
-  float* St = smem;                     // [n_pad][LDX] running state
-  float* Ct = St + n_pad * LDX;         // [n_pad][LDT] query tile of C^T
-  float* Bt = Ct + n_pad * LDT;         // [n_pad][LDT] key tile of B^T
-  float* Xs = Bt + n_pad * LDT;         // [T][LDX] key tile of x
-  float* Mt = Xs + T * LDX;             // [T][LDT] decayed scores, M^T
-  float* cum = Mt + T * LDT;            // [chunk] cumsum(dt * a)
-  float* dts = cum + chunk;             // [chunk] dt
+  const int nc = S / chunk;
+  const int bh = blockIdx.x / nc, c = blockIdx.x % nc;
+  const int b = bh / H, h = bh % H, g = h / (H / G);
+  const int c0 = c * chunk;
+  const int n_kt = (chunk + KT - 1) / KT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int g = h / (H / G);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nbs = n_pad / T;
-  const float a = A[h * as];
-  const bf16* xb = x + b * xs.b + h * xs.h;
-  const float* db = dt + b * ds.b + h * ds.h;
-  const bf16* Bb = Bm + b * bs.b + g * bs.h;
-  const bf16* Cb = Cm + b * cs.b + g * cs.h;
-  bf16* yb = y + b * ys.b + h * ys.h;
-
-  for (int i = threadIdx.x; i < n_pad * LDX; i += NTHREADS) St[i] = 0.f;
-
-  for (int c0 = 0; c0 < S; c0 += chunk) {
-    __syncthreads();                    // last chunk's state update done
-    for (int i = threadIdx.x; i < chunk; i += NTHREADS)
-      dts[i] = db[(c0 + i) * ds.s];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float run = 0.f;
-      for (int i = 0; i < chunk; ++i) {
-        run += dts[i] * a;
-        cum[i] = run;
-      }
-    }
-
-    for (int i0 = 0; i0 < chunk; i0 += T) {
-      const int rows_i = min(T, chunk - i0);
-      __syncthreads();                  // cum ready / last tile's Ct read
-      load_tile_t(Ct, Cb + (c0 + i0) * cs.s, cs.s, rows_i, N, n_pad);
-      __syncthreads();
-
-      // inter-chunk term: exp(cum_r) * sum_n C[r, n] S_prev[n, p]
-      float acc[4][4] = {};
-      for (int n = 0; n < n_pad; ++n)
-        outer(acc, ld4(Ct + n * LDT + ty * 4), ld4(St + n * LDX + tx * 4));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i0 + ty * 4 + i;
-        const float e = r < chunk ? expf(cum[r]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= e;
-      }
-
-      // intra-chunk term over key tiles at or below the diagonal
-      for (int j0 = 0; j0 <= i0; j0 += T) {
-        const int rows_j = min(T, chunk - j0);
-        __syncthreads();                // last key tile's Bt, Xs, Mt read
-        load_tile_t(Bt, Bb + (c0 + j0) * bs.s, bs.s, rows_j, N, n_pad);
-        load_x(Xs, xb + (c0 + j0) * xs.s, xs.s, rows_j, nullptr, nullptr,
-               0.f);
-        __syncthreads();
-        float sc[4][4] = {};
-        for (int n = 0; n < n_pad; ++n)
-          outer(sc, ld4(Ct + n * LDT + ty * 4), ld4(Bt + n * LDT + tx * 4));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = i0 + ty * 4 + i, c = j0 + tx * 4 + j;
-            float m = 0.f;              // mask before exp (c <= r < chunk)
-            if (r >= c && r < chunk)
-              m = sc[i][j] * expf(cum[r] - cum[c]) * dts[c];
-            Mt[(tx * 4 + j) * LDT + ty * 4 + i] = m;
-          }
-        __syncthreads();
-        for (int c = 0; c < T; ++c)
-          outer(acc, ld4(Mt + c * LDT + ty * 4), ld4(Xs + c * LDX + tx * 4));
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i0 + ty * 4 + i;
-        if (r < chunk) {
-          __nv_bfloat162 lo = __floats2bfloat162_rn(acc[i][0], acc[i][1]);
-          __nv_bfloat162 hi = __floats2bfloat162_rn(acc[i][2], acc[i][3]);
-          uint2 packed;
-          packed.x = *reinterpret_cast<unsigned int*>(&lo);
-          packed.y = *reinterpret_cast<unsigned int*>(&hi);
-          *reinterpret_cast<uint2*>(yb + (c0 + r) * ys.s + tx * 4) = packed;
-        }
-      }
-    }
-
-    // state: S = S * exp(cum_L) + sum_j B_j^T (exp(cum_L - cum_j) dt_j x_j)
-    const float cl = cum[chunk - 1];
-    float sacc[MAX_NB][4][4] = {};
-    for (int j0 = 0; j0 < chunk; j0 += T) {
-      const int rows_j = min(T, chunk - j0);
-      __syncthreads();                  // query tiles' Bt, Xs reads done
-      load_tile_t(Bt, Bb + (c0 + j0) * bs.s, bs.s, rows_j, N, n_pad);
-      load_x(Xs, xb + (c0 + j0) * xs.s, xs.s, rows_j, cum + j0, dts + j0, cl);
-      __syncthreads();
-#pragma unroll
-      for (int nb = 0; nb < MAX_NB; ++nb) {
-        if (nb < nbs) {
-          const float* brow = Bt + (nb * T + ty * 4) * LDT;
-          for (int j = 0; j < T; ++j) {
-            const float4 bv = make_float4(brow[j], brow[LDT + j],
-                                          brow[2 * LDT + j],
-                                          brow[3 * LDT + j]);
-            outer(sacc[nb], bv, ld4(Xs + j * LDX + tx * 4));
-          }
-        }
-      }
-    }
-    const float decay = expf(cl);
-#pragma unroll
-    for (int nb = 0; nb < MAX_NB; ++nb) {
-      if (nb < nbs) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float* s = St + (nb * T + ty * 4 + i) * LDX + tx * 4 + j;
-            *s = *s * decay + sacc[nb][i][j];
-          }
-      }
-    }
+  if (tid == 0) {
+    for (int s = 0; s < STATE_STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
   }
   __syncthreads();
 
-  float* sb = state + (static_cast<long long>(b) * H + h) * N * P;
-  for (int i = threadIdx.x; i < N * P; i += NTHREADS)
-    sb[i] = St[(i / P) * LDX + i % P];
+  if (tid == 0)
+    for (int t = 0; t < min(STATE_STAGES, n_kt); ++t)
+      load_state_tile<NM>(ring + t * T::STAGE, &full[t], &tb, &tx, b, h, g,
+                          c0 + t * KT);
+
+  // cum = cumsum(dt a) log2(e) over the chunk, 128 steps at a time: a
+  // shuffle scan in each warp, then the warps' totals in order.
+  const float a = A[h * as] * LOG2E;    // cum in log2 units
+  const float* db = dt + b * ds.b + h * ds.h;
+  float2* cdc = cd + static_cast<long long>(blockIdx.x) * chunk_pitch(chunk);
+  float carry = 0.f;                    // pairs past the chunk are zeros
+  for (int i0 = 0; i0 < chunk_pitch(chunk); i0 += STATE_THREADS) {
+    const int i = i0 + tid;
+    const float d = i < chunk ? db[static_cast<long long>(c0 + i) * ds.s] : 0.f;
+    float v = d * a;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) warp_sum[warp] = v;
+    __syncthreads();
+    float before = carry;
+    for (int w = 0; w < warp; ++w) before += warp_sum[w];
+    if (i < chunk_pitch(chunk))
+      cdc[i] = i < chunk ? make_float2(before + v, d) : make_float2(0.f, 0.f);
+    for (int w = 0; w < STATE_THREADS / 32; ++w) carry += warp_sum[w];
+    __syncthreads();                    // warp_sum is reused; cdc visible
+  }
+  const float cl = cdc[chunk - 1].x;
+
+  float acc[NM][32];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+
+  for (int t = 0; t < n_kt; ++t) {
+    const uint8_t* bt = ring + (t % STATE_STAGES) * T::STAGE;
+    const uint8_t* xt = bt + T::B_BYTES;
+    mbar_wait(&full[t % STATE_STAGES], (t / STATE_STAGES) & 1);
+    // w o x, split into hi/lo at the same swizzled place: a 16-byte chunk
+    // stays in its 128-byte row, so its row (key) is its offset / 128
+    for (int e = tid; e < KT * 8; e += STATE_THREADS) {
+      const int j = t * KT + e / 8;
+      float w = 0.f;                    // keys past the chunk weigh 0
+      if (j < chunk) {
+        const float2 v = cdc[j];
+        w = ex2(cl - v.x) * v.y;
+      }
+      const uint4 raw = *reinterpret_cast<const uint4*>(xt + e * 16);
+      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      uint4 hi, lo;
+      uint32_t* hv = reinterpret_cast<uint32_t*>(&hi);
+      uint32_t* lv = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(xv[k]);
+        split_bf16(f.x * w, f.y * w, hv[k], lv[k]);
+      }
+      *reinterpret_cast<uint4*>(xhi + e * 16) = hi;
+      *reinterpret_cast<uint4*>(xlo + e * 16) = lo;
+    }
+    fence_proxy_async();
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < NM; ++m) fence_regs(acc[m]);
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        const uint64_t da = desc_mnmajor(bt + m * TILE, kk, TILE);
+        Wgmma<P, 1, 1>::ss(acc[m], da, desc_mnmajor(xhi, kk, TILE), 1);
+        Wgmma<P, 1, 1>::ss(acc[m], da, desc_mnmajor(xlo, kk, TILE), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < NM; ++m) fence_regs(acc[m]);
+    __syncthreads();                    // stage, xhi and xlo free again
+    if (tid == 0 && t + STATE_STAGES < n_kt)
+      load_state_tile<NM>(ring + (t % STATE_STAGES) * T::STAGE,
+                          &full[t % STATE_STAGES], &tb, &tx, b, h, g,
+                          c0 + (t + STATE_STAGES) * KT);
+  }
+
+  // S_c rows n = 64 m + 16 warp + lane / 4 (+ 8), columns 8 i + 2 (lane % 4)
+  float* scb = sc + static_cast<long long>(blockIdx.x) * N * P;
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = 64 * m + 16 * warp + lane / 4 + 8 * half;
+      if (n < N) {
+#pragma unroll
+        for (int i = 0; i < P / 8; ++i)
+          *reinterpret_cast<float2*>(scb + n * P + 8 * i + 2 * (lane % 4)) =
+              make_float2(acc[m][4 * i + 2 * half],
+                          acc[m][4 * i + 2 * half + 1]);
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// (b) state passing
+// ---------------------------------------------------------------------------
+
+// Thread e owns state elements 4 e .. 4 e + 3 of [B * H][N][P].
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_state_pass(const float2* __restrict__ cd, const float* __restrict__ sc,
+               bf16* __restrict__ sp, float* __restrict__ state, int S,
+               int N, int chunk, long long quads) {
+  const long long e = static_cast<long long>(blockIdx.x) * PASS_THREADS +
+                      threadIdx.x;
+  if (e >= quads) return;
+  const int np = N * P;
+  const long long bh = 4 * e / np;
+  const int r = static_cast<int>(4 * e - bh * np);
+  const int nc = S / chunk;
+  const int lp = chunk_pitch(chunk);
+  const float2* last = cd + bh * nc * lp + chunk - 1;   // cum_L of chunk 0
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nc; ++c) {
+    const long long bhc = bh * nc + c;
+    uint2 hi, lo;
+    split_bf16(s.x, s.y, hi.x, lo.x);
+    split_bf16(s.z, s.w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(sp + 2 * bhc * np + r) = hi;
+    *reinterpret_cast<uint2*>(sp + (2 * bhc + 1) * np + r) = lo;
+    const float decay = ex2(last[c * lp].x);
+    const float4 add = *reinterpret_cast<const float4*>(sc + bhc * np + r);
+    s.x = s.x * decay + add.x;
+    s.y = s.y * decay + add.y;
+    s.z = s.z * decay + add.z;
+    s.w = s.w * decay + add.w;
+  }
+  *reinterpret_cast<float4*>(state + 4 * e) = s;
+}
+
+// ---------------------------------------------------------------------------
+// (c) chunk scan
+// ---------------------------------------------------------------------------
+
+template <int NB>                       // 64-wide boxes over N
+struct ScanTiles {
+  static constexpr int C_BOX = QB * BOX_ROW_BYTES;   // [256 queries][64 n]
+  static constexpr int C_BYTES = NB * C_BOX;
+  static constexpr int KSTEPS = NB * BOX / 16;       // k steps over N
+  static constexpr int SP_BYTES = NB * TILE;         // [64 NB n][64 p]
+  static constexpr int STAGE = NB * TILE + TILE;     // B [64 keys][N], x
+  static constexpr int SMEM = 2 * C_BYTES + 2 * SP_BYTES +
+                              SCAN_STAGES * STAGE + SCAN_STAGES * KV_BYTES +
+                              2 * QB * 8 + 1024;
+};
+
+// M = s 2^(cum_i - cum_j) dt_j in place, with j <= i < chunk enforced on
+// the exponent (-inf) when MASK (a tile on the diagonal or past the
+// chunk's end). This thread's keys are 8 i + 2 (lane % 4) + e, its rows
+// row0 (+ 8).
+template <bool MASK>
+__device__ __forceinline__ void decay(float (&s)[32], const float2* kv,
+                                      int t, int row0,
+                                      const float (&cum_r)[2], int chunk,
+                                      int lane) {
+#pragma unroll
+  for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int k = 8 * i + 2 * (lane % 4) + e;
+      const float2 cj = kv[k];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        float d = cum_r[half] - cj.x;
+        if (MASK && !(t * KT + k <= row && row < chunk)) d = -INFINITY;
+        s[4 * i + 2 * half + e] *= ex2(d) * cj.y;
+      }
+    }
+}
+
+// acc += M x_t for the 64 query rows at `qa` (C, K-major) against key
+// tile t (B at `bk`, x at `xk`): s = C B_t^T on wgmma, the decay on its
+// fragments, then M as hi + lo bf16 register A operands, two wgmmas per
+// k step (k step kk covers keys 16 kk .. 16 kk + 15, accumulator column
+// blocks 2 kk and 2 kk + 1).
+template <int NB>
+__device__ __forceinline__ void intra_tile(float (&acc)[32],
+                                           const uint8_t* qa,
+                                           const uint8_t* bk,
+                                           const uint8_t* xk,
+                                           const float2* kv, int t,
+                                           bool mask, int row0,
+                                           const float (&cum_r)[2],
+                                           int chunk, int lane) {
+  using T = ScanTiles<NB>;
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::KSTEPS; ++kk)
+    Wgmma<KT, 0, 0>::ss(s, desc_kmajor(qa, kk, T::C_BOX),
+                        desc_kmajor(bk, kk, TILE), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  if (mask)
+    decay<true>(s, kv, t, row0, cum_r, chunk, lane);
+  else
+    decay<false>(s, kv, t, row0, cum_r, chunk, lane);
+  uint32_t hi[KT / 16][4], lo[KT / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      split_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1], hi[kk][q],
+                 lo[kk][q]);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    const uint64_t dx = desc_mnmajor(xk, kk, TILE);
+    Wgmma<P, 0, 1>::rs(acc, hi[kk], dx, 1);
+    Wgmma<P, 0, 1>::rs(acc, lo[kk], dx, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// y = acc + 2^(cum_i) (C S_prev) for the 64 query rows at `qa`, S_prev as
+// hi + lo, stored for the rows inside the chunk.
+template <int NB>
+__device__ __forceinline__ void finish_tile(float (&acc)[32],
+                                            const uint8_t* qa,
+                                            const uint8_t* sp_hi,
+                                            const uint8_t* sp_lo, int row0,
+                                            const float (&cum_r)[2],
+                                            int chunk, bf16* yb,
+                                            long long ys, int lane) {
+  using T = ScanTiles<NB>;
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::KSTEPS; ++kk) {
+    const uint64_t da = desc_kmajor(qa, kk, T::C_BOX);
+    Wgmma<P, 0, 1>::ss(o, da, desc_mnmajor(sp_hi, kk, TILE), 1);
+    Wgmma<P, 0, 1>::ss(o, da, desc_mnmajor(sp_lo, kk, TILE), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row < chunk) {
+      const float e = ex2(cum_r[half]);
+      bf16* yrow = yb + row * ys;
+#pragma unroll
+      for (int i = 0; i < P / 8; ++i)
+        *reinterpret_cast<uint32_t*>(yrow + 8 * i + 2 * (lane % 4)) =
+            pack_bf16(acc[4 * i + 2 * half] + e * o[4 * i + 2 * half],
+                      acc[4 * i + 2 * half + 1] +
+                          e * o[4 * i + 2 * half + 1]);
+    }
+  }
+}
+
+// Work item w of the chunk scan: query tiles 4 qb .. 4 qb + 3 of chunk c
+// of head bh; the longest items of a chunk first.
+struct ScanItem {
+  int bhc, b, h, g, c0, i0, n_kt;
+};
+
+__device__ __forceinline__ ScanItem scan_item(int w, int S, int H, int G,
+                                              int chunk) {
+  const int n_qb = (chunk + QB - 1) / QB;
+  ScanItem it;
+  it.bhc = w / n_qb;
+  const int bh = it.bhc / (S / chunk);
+  it.b = bh / H;
+  it.h = bh % H;
+  it.g = it.h / (H / G);
+  it.c0 = it.bhc % (S / chunk) * chunk;
+  it.i0 = (n_qb - 1 - w % n_qb) * QB;
+  it.n_kt = (min(it.i0 + QB, chunk) + KT - 1) / KT;
+  return it;
+}
+
+// Persistent: block i takes items i, i + gridDim.x, ... The C tile is
+// double-buffered, so the next item's loads run under this item's math.
+template <int NB>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+ssd_chunk_scan(const __grid_constant__ CUtensorMap tc,
+               const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tsp,
+               const float2* __restrict__ cd, bf16* __restrict__ y, int S,
+               int H, int G, int chunk, int items, Strides ys) {
+  using T = ScanTiles<NB>;
+  __shared__ __align__(8) uint64_t c_full[2], c_empty[2];
+  __shared__ __align__(8) uint64_t sp_full, sp_empty;
+  __shared__ __align__(8) uint64_t full[SCAN_STAGES];
+  __shared__ __align__(8) uint64_t empty[SCAN_STAGES];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* cq_base = align1024(smem_raw);           // two C buffers
+  uint8_t* sp_hi = cq_base + 2 * T::C_BYTES;
+  uint8_t* sp_lo = sp_hi + T::SP_BYTES;
+  uint8_t* ring = sp_lo + T::SP_BYTES;
+  float2* kv_ring = reinterpret_cast<float2*>(ring + SCAN_STAGES * T::STAGE);
+  float2* cum_q = kv_ring + SCAN_STAGES * KT;       // [2][QB] query rows'
+  const int lp = chunk_pitch(chunk);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&c_full[i], 1);
+      mbar_init(&c_empty[i], 8);        // lane 0 of each consumer warp
+    }
+    mbar_init(&sp_full, 1);
+    mbar_init(&sp_empty, 8);
+    for (int s = 0; s < SCAN_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {             // loader warpgroup
+    regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      Ring<SCAN_STAGES> ring_pos;
+      int n = 0;                        // items done by this block
+      for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+        const ScanItem it = scan_item(w, S, H, G, chunk);
+        const int cb = n & 1;
+        uint8_t* cq = cq_base + cb * T::C_BYTES;
+        mbar_wait(&c_empty[cb], ((n >> 1) & 1) ^ 1u);
+        const float2* cdc = cd + static_cast<long long>(it.bhc) * lp;
+        const int q_bytes = min(QB, lp - it.i0) * 8;   // (cum, dt) of rows
+        mbar_expect_tx(&c_full[cb], T::C_BYTES + q_bytes);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(cq + j * T::C_BOX, &tc, &c_full[cb], j * BOX, it.g,
+                      it.c0 + it.i0, it.b);
+        bulk_load(cum_q + cb * QB, cdc + it.i0, q_bytes, &c_full[cb]);
+        for (int t = 0; t < it.n_kt; ++t) {
+          mbar_wait(&empty[ring_pos.stage], ring_pos.phase ^ 1u);
+          uint8_t* st = ring + ring_pos.stage * T::STAGE;
+          uint64_t* bar = &full[ring_pos.stage];
+          mbar_expect_tx(bar, T::STAGE + KV_BYTES);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            tma_load_4d(st + j * TILE, &tb, bar, j * BOX, it.g,
+                        it.c0 + t * KT, it.b);
+          tma_load_4d(st + NB * TILE, &tx, bar, 0, it.h, it.c0 + t * KT,
+                      it.b);
+          bulk_load(kv_ring + ring_pos.stage * KT, cdc + t * KT, KV_BYTES,
+                    bar);
+          ring_pos.advance();
+          if (t == min(it.n_kt, SCAN_STAGES) - 1) {  // S_prev is needed last
+            mbar_wait(&sp_empty, (n & 1) ^ 1u);
+            mbar_expect_tx(&sp_full, 2 * T::SP_BYTES);
+            tma_load_3d(sp_hi, &tsp, &sp_full, 0, 0, 2 * it.bhc);
+            tma_load_3d(sp_lo, &tsp, &sp_full, 0, 0, 2 * it.bhc + 1);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // warpgroup w owns query tiles w and 3 - w of an item (1 + 4 and 2 + 3
+  // key tiles when all four are inside the chunk)
+  regs_alloc<240>();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int qt[2] = {wg, 3 - wg};
+  Ring<SCAN_STAGES> ring_pos;
+  int n = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+    const ScanItem it = scan_item(w, S, H, G, chunk);
+    const int cb = n & 1;
+    const uint8_t* cq = cq_base + cb * T::C_BYTES;
+    mbar_wait(&c_full[cb], (n >> 1) & 1);
+    int row0[2], diag[2];
+    bool live[2], full_rows[2];
+    float cum_r[2][2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int q0 = it.i0 + qt[u] * QT;
+      row0[u] = q0 + 16 * warp + lane / 4;
+      live[u] = q0 < chunk;
+      diag[u] = q0 / KT;                // the key tile on its diagonal
+      full_rows[u] = q0 + QT <= chunk;  // below the diagonal: no mask
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0[u] + 8 * half;
+        cum_r[u][half] = r < chunk ? cum_q[cb * QB + r - it.i0].x : 0.f;
+      }
+    }
+    const uint8_t* qa0 = cq + qt[0] * QT * BOX_ROW_BYTES;
+    const uint8_t* qa1 = cq + qt[1] * QT * BOX_ROW_BYTES;
+
+    float acc0[32], acc1[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+    for (int t = 0; t < it.n_kt; ++t) {
+      mbar_wait(&full[ring_pos.stage], ring_pos.phase);
+      const uint8_t* bk = ring + ring_pos.stage * T::STAGE;
+      const uint8_t* xk = bk + NB * TILE;
+      const float2* kv = kv_ring + ring_pos.stage * KT;
+      if (live[0] && t <= diag[0])
+        intra_tile<NB>(acc0, qa0, bk, xk, kv, t,
+                       t == diag[0] || !full_rows[0], row0[0], cum_r[0],
+                       chunk, lane);
+      if (live[1] && t <= diag[1])
+        intra_tile<NB>(acc1, qa1, bk, xk, kv, t,
+                       t == diag[1] || !full_rows[1], row0[1], cum_r[1],
+                       chunk, lane);
+      if (lane == 0) mbar_arrive(&empty[ring_pos.stage]);
+      ring_pos.advance();
+    }
+
+    // inter-chunk term, then y, written once
+    mbar_wait(&sp_full, n & 1);
+    bf16* yb = y + it.b * ys.b + it.h * ys.h +
+               static_cast<long long>(it.c0) * ys.s;
+    if (live[0])
+      finish_tile<NB>(acc0, qa0, sp_hi, sp_lo, row0[0], cum_r[0], chunk, yb,
+                      ys.s, lane);
+    if (live[1])
+      finish_tile<NB>(acc1, qa1, sp_hi, sp_lo, row0[1], cum_r[1], chunk, yb,
+                      ys.s, lane);
+    if (lane == 0) {
+      mbar_arrive(&sp_empty);
+      mbar_arrive(&c_empty[cb]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
+// 4-D descriptor of a [B, S, H, W] bf16 tensor with element strides `st`
+// (batch, seq, head), boxes of 64 values of W x `rows` positions of S.
+bool make_tmap_bshw(CUtensorMap* map, const void* base, int W, int B, int S,
+                    int H, const long long* st, uint32_t rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(W),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(st[2]) * 2,
+                               static_cast<uint64_t>(st[1]) * 2,
+                               static_cast<uint64_t>(st[0]) * 2};
+  const uint32_t box[4] = {BOX, 1, rows, 1};
+  return make_tmap(map, base, 4, dims, strides, box);
+}
+
+template <int NB>
+cudaError_t launch(const void* x, const float* dt, const float* A,
+                   const void* Bm, const void* Cm, bf16* y, float* state,
+                   uint8_t* work, int batch, int S, int H, int G, int N,
+                   int chunk, const long long* st, cudaStream_t stream) {
+  const Workspace ws = workspace(batch, S, H, N, chunk);
+  float2* cd = reinterpret_cast<float2*>(work);
+  float* sc = reinterpret_cast<float*>(work + ws.sc);
+  bf16* sp = reinterpret_cast<bf16*>(work + ws.sp);
+  const int nc = S / chunk;
+  const long long bhc = static_cast<long long>(batch) * H * nc;
+
+  CUtensorMap tb, tc, tx, tsp;
+  const uint64_t sp_dims[3] = {P, static_cast<uint64_t>(N),
+                               static_cast<uint64_t>(2 * bhc)};
+  const uint64_t sp_strides[2] = {P * 2, static_cast<uint64_t>(N) * P * 2};
+  const uint32_t sp_box[3] = {BOX, NB * BOX, 1};   // zero rows past N
+  if (!make_tmap_bshw(&tx, x, P, batch, S, H, st, KT) ||
+      !make_tmap_bshw(&tb, Bm, N, batch, S, G, st + 7, KT) ||
+      !make_tmap_bshw(&tc, Cm, N, batch, S, G, st + 10, QB) ||
+      !make_tmap(&tsp, sp, 3, sp_dims, sp_strides, sp_box))
+    return cudaErrorInvalidValue;
+
+  static unsigned long long state_devices = 0, scan_devices = 0;
+  cudaError_t err = allow_smem(ssd_chunk_state<NB>, StateTiles<NB>::SMEM,
+                               state_devices);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(ssd_chunk_scan<NB>, ScanTiles<NB>::SMEM, scan_devices);
+  if (err != cudaSuccess) return err;
+
+  ssd_chunk_state<NB><<<static_cast<unsigned>(bhc), STATE_THREADS,
+                        StateTiles<NB>::SMEM, stream>>>(
+      tb, tx, dt, A, cd, sc, S, H, G, N, chunk, Strides{st[3], st[4], st[5]},
+      st[6]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const long long quads = static_cast<long long>(batch) * H * N * P / 4;
+  ssd_state_pass<<<static_cast<unsigned>((quads + PASS_THREADS - 1) /
+                                         PASS_THREADS),
+                   PASS_THREADS, 0, stream>>>(cd, sc, sp, state, S, N, chunk,
+                                              quads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const long long items = bhc * ((chunk + QB - 1) / QB);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  ssd_chunk_scan<NB><<<grid, SCAN_THREADS, ScanTiles<NB>::SMEM, stream>>>(
+      tc, tb, tx, tsp, cd, y, S, H, G, chunk, static_cast<int>(items),
+      Strides{st[13], st[14], st[15]});
+  return cudaGetLastError();
+}
+
+bool admit(int S, int H, int G, int N, int p, int chunk) {
+  return p == P && N > 0 && N % 8 == 0 && N <= MAX_N && G > 0 && H % G == 0 &&
+         chunk > 0 && S % chunk == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of device workspace ssd_scan_fwd_bf16 needs for these sizes (0 for
+// shapes it does not take).
+long long ssd_scan_workspace_bytes(int batch, int S, int H, int N,
+                                   int chunk) {
+  if (batch < 1 || S < 1 || H < 1 || !admit(S, H, 1, N, P, chunk)) return 0;
+  return static_cast<long long>(workspace(batch, S, H, N, chunk).bytes);
+}
+
 // strides: 16 element strides: (batch, seq, head) of x, of dt, the head
 // stride of A, (batch, seq, group) of B, of C, and (batch, seq, head) of
-// y. state is a contiguous fp32 [batch, H, N, P]. Returns the launch's
+// y; those of x, B, C and y multiples of 8 with 16-byte aligned data.
+// state is a contiguous fp32 [batch, H, N, P]; work is a 16-byte aligned
+// buffer of ssd_scan_workspace_bytes(batch, S, H, N, chunk) bytes. Issues
+// three launches on `stream` and returns the first non-zero
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
-// the kernel does not take.
+// the kernels do not take.
 int ssd_scan_fwd_bf16(const void* x, const void* dt, const void* A,
                       const void* B, const void* C, void* y, void* state,
-                      int batch, int S, int H, int G, int N, int p,
-                      int chunk, const long long* strides, void* stream) {
-  if (p != P || N <= 0 || N % 8 || N > MAX_NB * T || G <= 0 || H % G ||
-      chunk <= 0 || S % chunk)
+                      void* work, int batch, int S, int H, int G, int N,
+                      int p, int chunk, const long long* strides,
+                      void* stream) {
+  if (batch < 1 || H < 1 || !admit(S, H, G, N, p, chunk))
     return cudaErrorInvalidValue;
-  const int n_pad = (N + T - 1) / T * T;
-  const size_t bytes = sizeof(float) * (static_cast<size_t>(n_pad) *
-                                            (LDX + 2 * LDT) +
-                                        T * (LDX + LDT) + 2 * chunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const Strides xs{strides[0], strides[1], strides[2]};
-  const Strides ds{strides[3], strides[4], strides[5]};
-  const long long as = strides[6];
-  const Strides bs{strides[7], strides[8], strides[9]};
-  const Strides cs{strides[10], strides[11], strides[12]};
-  const Strides ys{strides[13], strides[14], strides[15]};
-  ssd_fwd<<<batch * H, NTHREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const bf16*>(B),
-      static_cast<const bf16*>(C), static_cast<bf16*>(y),
-      static_cast<float*>(state), S, H, G, N, n_pad, chunk, xs, ds, as, bs,
-      cs, ys);
-  return cudaGetLastError();
+  const float* dtp = static_cast<const float*>(dt);
+  const float* ap = static_cast<const float*>(A);
+  bf16* yp = static_cast<bf16*>(y);
+  float* stp = static_cast<float*>(state);
+  uint8_t* wp = static_cast<uint8_t*>(work);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N > BOX)
+    return launch<2>(x, dtp, ap, B, C, yp, stp, wp, batch, S, H, G, N, chunk,
+                     strides, s);
+  return launch<1>(x, dtp, ap, B, C, yp, stp, wp, batch, S, H, G, N, chunk,
+                   strides, s);
 }
 
 const char* ssd_scan_error_string(int code) {

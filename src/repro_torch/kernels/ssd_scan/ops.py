@@ -1,9 +1,11 @@
-"""SSD chunk-scan op: the CUDA kernel ``csrc/ssd_scan.cu`` on CUDA
+"""SSD chunk-scan op: the CUDA kernels ``csrc/ssd_scan.cu`` on CUDA
 tensors, its plain version (``ref.ssd_ref``) on CPU tensors.
 
 Replaces ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan``; like
-``models.ssm.ssd_chunked`` it also returns the final state.
-``ssd_scan.launches`` counts kernel launches.
+``models.ssm.ssd_chunked`` it also returns the final state. One call of
+the op is one call of the C entry, which issues three kernel launches
+(chunk states, state passing, chunk scan) into a workspace this wrapper
+allocates; ``ssd_scan.launches`` counts calls of the op.
 """
 from __future__ import annotations
 
@@ -19,11 +21,17 @@ MAX_STATE = 128   # largest N the kernel takes (a multiple of 8)
 
 
 def _bind(lib):
-    fn = lib.ssd_scan_fwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """(entry, workspace-size function) of the loaded library, typed once."""
+    if not hasattr(lib, "_ssd_fns"):
+        fn = lib.ssd_scan_fwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ws = lib.ssd_scan_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_longlong
+        lib._ssd_fns = (fn, ws)
+    return lib._ssd_fns
 
 
 def _check(x, dt, a, bm, cm):
@@ -98,11 +106,16 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
         *x4.stride()[:3], *dt4.stride(), a1.stride(0), *b4.stride()[:3],
         *c4.stride()[:3], *y4.stride()[:3])
     lib = _build.load("ssd_scan")
+    fn, ws_bytes = _bind(lib)
+    # (cum, dt) pairs, chunk states and previous states: ~104 MB at
+    # mamba2_780m's prefill, from PyTorch's caching allocator
+    work = torch.empty(ws_bytes(b, s, h, n, chunk), dtype=torch.uint8,
+                       device=x.device)
     with _build.on_device(x):
-        rc = _bind(lib)(x4.data_ptr(), dt4.data_ptr(), a1.data_ptr(),
-                        b4.data_ptr(), c4.data_ptr(), y4.data_ptr(),
-                        state.data_ptr(), b, s, h, g, n, p, chunk, strides,
-                        _build.stream_ptr(x))
+        rc = fn(x4.data_ptr(), dt4.data_ptr(), a1.data_ptr(), b4.data_ptr(),
+                c4.data_ptr(), y4.data_ptr(), state.data_ptr(),
+                work.data_ptr(), b, s, h, g, n, p, chunk, strides,
+                _build.stream_ptr(x))
     _build.check(lib, "ssd_scan", rc)
     ssd_scan.launches += 1
     return y, state

@@ -133,6 +133,10 @@ def _ssd_inputs(gen, b, s, h, g, n, p=64):
     (1, 192, 4, 2, 64, 64),     # grouped, zamba2's state size
     (2, 100, 2, 1, 16, 100),    # ragged chunk (a 100-token prompt)
     (1, 320, 2, 2, 24, 64),     # N not a multiple of the 64-row tile
+    (1, 2048, 2, 1, 128, 256),  # the state carried across 8 chunks
+    (1, 512, 64, 1, 64, 256),   # zamba2_1_2b geometry (H=64, N=64)
+    (1, 1024, 2, 1, 128, 512),  # two 256-row scan items per chunk
+    (1, 2048, 1, 1, 64, 2048),  # one chunk of 2048: 8 scan items
 ])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, g, n, chunk):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -161,6 +165,17 @@ def test_ssd_kernel_pallas_layout_and_chunk_invariance(cuda):
     y3, state3 = from_pallas_layout(y3, state3, b)
     torch.testing.assert_close(y3, y, rtol=0, atol=0)
     torch.testing.assert_close(state3, state, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,chunk", [(128, 256), (24, 100)])
+def test_ssd_kernel_is_deterministic(cuda, n, chunk):
+    """No atomics: two calls on the same inputs give bit-identical y and
+    final state."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, dt, a, bm, cm = _ssd_inputs(gen, 2, 4 * chunk, 4, 1, n)
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    y2, state2 = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
 
 
 def test_kernels_raise_for_unsupported_input(cuda):

@@ -332,6 +332,111 @@ def test_ssd_scan_matches_pallas(dtype, bh, s, p, n, chunk):
     np.testing.assert_allclose(_np(y), _np(jax_ssd_ref(*jx)), **tol)
 
 
+def _split_bf16(t):
+    """An fp32 operand as the kernel feeds it to two bf16 wgmmas:
+    (hi, lo) = (bf16(t), bf16(t - hi)), returned in fp32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _round_bf16(t):
+    """An fp32 operand rounded once to bf16 (one wgmma), for contrast."""
+    return (t.to(torch.bfloat16).float(),)
+
+
+def _ssd_passes(x, dt, a, bm, cm, chunk, split=_split_bf16):
+    """The scan as csrc/ssd_scan.cu computes it, in fp32 on the CPU:
+    (a) chunk states S_c = B^T (w o x), w_j = exp(cum_L - cum_j) dt_j;
+    (b) state passing S <- S exp(cum_L) + S_c, keeping each chunk's
+    previous state; (c) the chunk scan exp(cum_i) (C S_prev) + M x with
+    M = (C B^T) exp(cum_i - cum_j) dt_j masked to j <= i before exp. Each
+    fp32-weighted operand (w o x, S_prev, M) goes through ``split`` into
+    the bf16 parts the kernel's wgmmas take. Pallas layout; returns
+    (y in x.dtype, final state)."""
+    bh, s, p = x.shape
+    n, nc = bm.shape[-1], s // chunk
+    xf = x.float().reshape(bh, nc, chunk, p)
+    bf = bm.float().reshape(bh, nc, chunk, n)
+    cf = cm.float().reshape(bh, nc, chunk, n)
+    dtf = dt.float().reshape(bh, nc, chunk)
+    cum = torch.cumsum(dtf * a.float().reshape(bh, 1, 1), dim=-1)
+    cl = cum[..., -1]                                    # [bh, nc]
+    wx = (torch.exp(cl[..., None] - cum) * dtf)[..., None] * xf
+    sc = sum(torch.einsum("bcjn,bcjp->bcnp", bf, part) for part in split(wx))
+    state, prev = torch.zeros(bh, n, p), []
+    for c in range(nc):
+        prev.append(state)
+        state = state * torch.exp(cl[:, c])[:, None, None] + sc[:, c]
+    sprev = torch.stack(prev, dim=1)                     # [bh, nc, n, p]
+    y = sum(torch.einsum("bcin,bcnp->bcip", cf, part)
+            for part in split(sprev)) * torch.exp(cum)[..., None]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    seg = torch.where(causal, cum[..., :, None] - cum[..., None, :], 0.0)
+    m = torch.where(causal, torch.einsum("bcin,bcjn->bcij", cf, bf)
+                    * torch.exp(seg) * dtf[..., None, :], 0.0)
+    y = y + sum(torch.einsum("bcij,bcjp->bcip", part, xf)
+                for part in split(m))
+    return y.reshape(bh, s, p).to(x.dtype), state
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,s,p,n,chunk", [
+    (3, 64, 16, 8, 16),
+    (2, 128, 32, 16, 32),
+    (1, 64, 64, 128, 64),   # mamba2-780m head geometry
+])
+def test_ssd_kernel_passes_match_pallas(dtype, bh, s, p, n, chunk):
+    """The kernel's decomposition and operand rounding (chunk states, state
+    passing, chunk scan; hi/lo bf16 operands) vs the Pallas kernel in
+    interpret mode and the JAX oracle, final state vs the plain version;
+    the tolerances of test_ssd_scan_matches_pallas."""
+    pairs = _ssd_inputs(np.random.RandomState(6), bh, s, p, n, dtype)
+    jx, tx = zip(*pairs)
+    y, state = _ssd_passes(*tx, chunk=chunk)
+    tol = dict(rtol=5e-2, atol=5e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(y), _np(ssd_scan_op(*jx, chunk=chunk,
+                                                       interpret=True)),
+                               **tol)
+    np.testing.assert_allclose(_np(y), _np(jax_ssd_ref(*jx)), **tol)
+    np.testing.assert_allclose(_np(state), _np(ssd_ref(*tx)[1]), **tol)
+
+
+def _outside(got, want, tol=2e-2):
+    """Elements outside chip_smoke.py's SSD_ATOL = SSD_RTOL."""
+    got, want = got.float(), want.float()
+    return int(((got - want).abs() > tol + tol * want.abs()).sum())
+
+
+@pytest.mark.parametrize("split,ok", [(_split_bf16, True),
+                                      (_round_bf16, False)])
+def test_ssd_kernel_rounding_at_mamba2_geometry(split, ok):
+    """CPU evidence for the kernel's operand precision at one mamba2_780m
+    head geometry (S=512, 2 heads, N=128, P=64, chunk 256) with
+    chip_smoke.py's input distribution: hi/lo bf16 operands keep y and the
+    final state within the card's unchanged 2e-2 of ssd_ref; plain bf16
+    rounding of the same operands puts y elements outside it."""
+    rng = np.random.RandomState(11)
+    bh, s, p, n = 2, 512, 64, 128
+    x = torch.from_numpy(rng.randn(bh, s, p).astype(np.float32)).to(
+        torch.bfloat16)
+    dt = torch.from_numpy(np.log1p(np.exp(rng.randn(bh, s, 1))).astype(
+        np.float32))
+    a = torch.from_numpy(-np.exp(rng.randn(bh, 1, 1) * 0.2).astype(
+        np.float32))
+    bm, cm = (torch.from_numpy(rng.randn(bh, s, n).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(2))
+    want_y, want_state = ssd_ref(x, dt, a, bm, cm)
+    y, state = _ssd_passes(x, dt, a, bm, cm, chunk=256, split=split)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    if ok:
+        assert _outside(y, want_y) == 0
+        assert _outside(state, want_state) == 0
+        assert float((state - want_state).abs().max()) < 1e-3
+    else:
+        assert _outside(y, want_y) > 0
+
+
 @pytest.mark.parametrize("chunks", [1, 2, 4])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ssd_chunked_chunk_invariance(chunks, seed):
