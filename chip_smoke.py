@@ -29,6 +29,21 @@ Phases, each raising on failure:
                 tokens each; each path's launch counters, zeroed just before
                 it, must show that it went through its kernels; then each is
                 profiled over one prefill and 3 decode steps.
+  6. train   -- the training half: (a) each kernel's autograd Function
+                (kernel forward, explicit torch backward) at olmo_1b's
+                train shapes: its output against the plain version, its
+                gradients against autograd of the plain version, with its
+                backward's time; (b) at full width and 2 layers, one train
+                step's loss, gradient norm and every gradient leaf on the
+                card in bf16 through the kernels against the port's CPU fp32
+                path; (c) full-width, full-depth olmo_1b (fp32 params and
+                AdamW moments, bf16 compute, remat "full") trains 8 steps of
+                4 x 2048 tokens through the port's Trainer: finite,
+                decreasing loss, both kernels in every step (forward and
+                remat recompute), step time, tokens/s, peak memory, model-
+                FLOP share, a profiled step and its forward/backward/
+                optimizer split; (d) checkpoint: a failed run resumes
+                bitwise from its checkpoint, which also restores on the CPU.
 The last two lines of output are a JSON ``kernels`` line and the JSON result
 line. Exits non-zero, printing no result, without a GPU or without the repo.
 """
@@ -39,6 +54,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,18 +63,29 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
-from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref  # noqa: E402
+from calibrate_train_numerics import leaf_rel_rms  # noqa: E402
+from repro_torch.data.synthetic import DataConfig  # noqa: E402
+from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
+                                            attention_ref, flash_attention)
+from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
+                                           fused_mlp_ref)
 from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
 from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
                                           ssd_scan, to_pallas_layout)
 from repro_torch.models import model_zoo  # noqa: E402
-from repro_torch.models.common import keeps_fp32, tree_map  # noqa: E402
+from repro_torch.launch.steps import value_and_grad  # noqa: E402
+from repro_torch.models.common import (keeps_fp32, tree_get,  # noqa: E402
+                                       tree_map)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         adamw_update, global_norm)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # H100 SXM data sheet: dense bf16 tensor rate and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
@@ -83,6 +110,30 @@ SSD_ATOL = SSD_RTOL = 2e-2
 # bf16 operations per layer (2^-9 relative each) compound to ~1% of the
 # logits' RMS; 3% leaves room without hiding a wrong kernel (which is O(1)).
 NUMERICS_REL_RMS = 3e-2
+# Gradients of a kernel's Function (kernel forward, explicit torch backward)
+# vs autograd of its plain version, same bf16 inputs: the fused MLP's
+# backward rounds g, u, dg and du to bf16 where autograd of the fp32 plain
+# version does not (one bf16 step, ~3.5e-3 relative RMS on the CPU,
+# tests/test_torch_kernels.py::test_functions_match_autograd_of_plain_bf16);
+# flash's rounds P and dS to bf16 before its products (~3e-3 relative RMS,
+# at most 7e-3 of the largest gradient there). Each gradient is scaled by
+# its largest magnitude, so it is O(1) like the outputs the repo's bf16
+# tolerance was set for, and held to that tolerance.
+GRAD_ATOL = GRAD_RTOL = 2e-2
+# One train step, card bf16 kernel path vs CPU fp32 plain path, olmo_1b at
+# full width and 2 layers, 2 x 256 tokens. scripts/calibrate_train_numerics.py
+# (bf16 plain path vs fp32, both on the CPU, same setting) measured: loss
+# rel diff 6.0e-7, grad_norm rel diff 2.7e-5, worst leaf (layers/attn/wk)
+# rel RMS 1.28e-2; the card path, which rounds at other places (P in flash,
+# the backwards' bf16 products), gave 1.08e-5, 1.43e-5 and 1.20e-2 on an
+# H100. The per-leaf limit is the check that finds a wrong kernel: a dropped
+# or wrong gradient term is O(1) on its leaf. The loss at random init is
+# about ln(vocab) whatever the layers compute, and one leaf moves the
+# global norm little, so those two limits only catch a broken loss or a
+# gross fault; each sits about 10x above the larger spread seen.
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GNORM_REL = 3e-4
+TRAIN_LEAF_REL_RMS = 5e-2   # ~4x the worst calibrated leaf
 
 
 def phase(name):
@@ -117,7 +168,7 @@ def bound_ms(flops: float, nbytes: float):
 
 def compare(name, got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
     """Max abs and relative error; raises beyond the tolerance."""
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     err = (got - want).abs()
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp_min(1e-3)).max())
@@ -518,10 +569,35 @@ def serve(arch: str, batch: int, prompt_len: int, new: int):
 PORT_OPS = {"ssd": "ssd_scan", "mlp": "fused_mlp", "flash": "flash_attention"}
 
 
-def profile(eng, prompts, top: int = 8):
+def report(prof, label, wall, top=8):
+    """Print a profiler window: wall and device busy/idle, the ``top``
+    device ops by self time, and the port's kernels by op."""
+    from torch.autograd import DeviceType
+    evts = [e for e in prof.key_averages()  # kernels, memsets, copies
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evts) / 1e3
+    print(f"  profile {label}: wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+          f"{100 * (1 - busy / wall):.1f}%", flush=True)
+    for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{100 * e.self_device_time_total / 1e3 / busy:5.1f}% "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    ops = {}                    # the port's kernels, by op
+    for e in evts:
+        m = re.search(r"::(ssd|mlp|flash)_", e.key)
+        if m:
+            op = PORT_OPS[m.group(1)]
+            ms, n = ops.get(op, (0.0, 0))
+            ops[op] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    print("    port kernels: " + (", ".join(
+        f"{op} {ms:.3f} ms ({100 * ms / busy:.1f}%, {n} launches)"
+        for op, (ms, n) in sorted(ops.items())) or "none"), flush=True)
+
+
+def profile(eng, prompts):
     """Where the device time goes: torch.profiler over one prefill and over
     3 decode steps of the served model (run after the counted main path)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     tokens = torch.as_tensor(prompts).cuda()
@@ -540,29 +616,330 @@ def profile(eng, prompts, top: int = 8):
                         logits, cache = eng._decode(eng.params, cache, tok)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            evts = [e for e in prof.key_averages()  # kernels, memsets, copies
-                    if e.device_type == DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in evts) / 1e3
-            print(f"  profile {label}: wall {wall:.2f} ms, device busy "
-                  f"{busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
-                  f"{100 * (1 - busy / wall):.1f}%", flush=True)
-            for e in sorted(evts, key=lambda e: -e.self_device_time_total)[
-                    :top]:
-                print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
-                      f"{100 * e.self_device_time_total / 1e3 / busy:5.1f}% "
-                      f"x{e.count:<5d} {e.key[:90]}", flush=True)
-            ops = {}                    # the port's kernels, by op
-            for e in evts:
-                m = re.search(r"::(ssd|mlp|flash)_", e.key)
-                if m:
-                    op = PORT_OPS[m.group(1)]
-                    ms, n = ops.get(op, (0.0, 0))
-                    ops[op] = (ms + e.self_device_time_total / 1e3,
-                               n + e.count)
-            print("    port kernels: " + (", ".join(
-                f"{op} {ms:.3f} ms ({100 * ms / busy:.1f}%, {n} launches)"
-                for op, (ms, n) in sorted(ops.items())) or "none"),
-                flush=True)
+            report(prof, label, wall)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def compare_grads(name, got, want):
+    """Each gradient scaled by the largest magnitude of its plain
+    counterpart, held to GRAD_ATOL/GRAD_RTOL; returns the worst scaled
+    error."""
+    worst = 0.0
+    for label, g, w in zip(("dx", "dW1", "dW3", "dW2") if len(got) == 4
+                           else ("dq", "dk", "dv"), got, want):
+        top = float(w.float().abs().max())
+        worst = max(worst, compare(f"{name} {label} (scaled by max "
+                                   f"{top:.3e})", g.float() / top,
+                                   w.float() / top, GRAD_ATOL, GRAD_RTOL))
+    return worst
+
+
+def backward_ms(out, inputs, dy, flush, reps=5):
+    """Device time of one backward through ``out``'s graph (kept)."""
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, dy,
+                                               retain_graph=True), reps,
+                   flush)
+
+
+def check_train_kernels(gen, flush):
+    """Each kernel's autograd Function against its plain version at
+    olmo_1b's train shapes (4 x 2048 tokens): flash B=4 S=2048 H=16 hd=128
+    causal, fused_mlp M=8192 K=2048 F=8192; the forward (the kernel) and
+    the gradients (autograd of the plain version). Returns {op: entry}
+    with the forward's error and the backward's times (Function, plain,
+    library)."""
+    cfg = get_config("olmo_1b")
+    b, s, h, hd = 4, 2048, cfg.n_heads, cfg.hd
+    k, f, m = cfg.d_model, cfg.d_ff, 4 * 2048
+    out = {}
+    q, kk, v = (randn(gen, b, s, h, hd).requires_grad_() for _ in range(3))
+    do = randn(gen, b, s, h, hd)
+    y = FlashAttention.apply(q, kk, v, True)
+    y_ref = attention_ref(q, kk, v, True)
+    torch.cuda.synchronize()
+    fwd_err = compare(f"FlashAttention forward [B={b} S={s} H={h} hd={hd} "
+                      "causal]", y, y_ref)
+    got = torch.autograd.grad(y, (q, kk, v), do, retain_graph=True)
+    want = torch.autograd.grad(y_ref, (q, kk, v), do, retain_graph=True)
+    torch.cuda.synchronize()
+    err = compare_grads(f"FlashAttention grads [B={b} S={s} H={h} "
+                        f"hd={hd} causal]", got, want)
+    ms = backward_ms(y, (q, kk, v), do, flush)
+    plain = backward_ms(y_ref, (q, kk, v), do, flush, reps=2)
+    del y_ref, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    y_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = backward_ms(y_lib, (q, kk, v), do.transpose(1, 2), flush)
+    print(f"  FlashAttention backward: {ms:.4f} ms (explicit torch: bf16 "
+          f"cuBLAS products, materialised fp32 softmax), plain autograd "
+          f"{plain:.4f} ms, SDPA backward {lib:.4f} ms", flush=True)
+    out["flash_attention"] = {
+        "max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
+        "plain_backward_ms": plain,
+        "library_backward_ms": lib,
+        "shape": f"B={b} S={s} H={h} KV={h} hd={hd} causal bf16"}
+    del y, y_lib, got, q, kk, v, do, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    x = randn(gen, m, k).requires_grad_()
+    w1, w3 = (randn(gen, k, f, scale=k ** -0.5).requires_grad_()
+              for _ in range(2))
+    w2 = randn(gen, f, k, scale=f ** -0.5).requires_grad_()
+    dy = randn(gen, m, k)
+    args = (x, w1, w3, w2)
+    y = FusedMLP.apply(*args)
+    y_ref = fused_mlp_ref(*args)
+    torch.cuda.synchronize()
+    fwd_err = compare(f"FusedMLP forward [M={m} K={k} F={f}, {regime(m)} "
+                      "kernels]", y, y_ref)
+    got = torch.autograd.grad(y, args, dy, retain_graph=True)
+    want = torch.autograd.grad(y_ref, args, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    err = compare_grads(f"FusedMLP grads [M={m} K={k} F={f}]", got, want)
+    ms = backward_ms(y, args, dy, flush)
+    plain = backward_ms(y_ref, args, dy, flush, reps=2)
+    del y_ref, want
+    y_lib = (F.silu(x @ w1) * (x @ w3)) @ w2
+    lib = backward_ms(y_lib, args, dy, flush)
+    print(f"  FusedMLP backward: {ms:.4f} ms (explicit torch, bf16 cuBLAS "
+          f"products), plain autograd {plain:.4f} ms, cuBLAS-chain autograd "
+          f"{lib:.4f} ms", flush=True)
+    out["fused_mlp"] = {
+        "max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
+        "plain_backward_ms": plain,
+        "library_backward_ms": lib, "shape": f"M={m} K={k} F={f} bf16"}
+    del y, y_lib, got, args, x, w1, w3, w2, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def expected_train_launches(cfg, steps: int):
+    """Kernel launches of ``steps`` dense train steps under remat "full":
+    each attention and MLP runs its kernel in the forward and again in
+    the backward's recompute; ssd_scan never (dense)."""
+    per = 2 * cfg.n_layers * steps
+    return {"flash_attention": per, "fused_mlp": per, "ssd_scan": 0}
+
+
+def check_train_numerics(n_layers=2, batch=2, seq=256):
+    """olmo_1b at full width and ``n_layers`` layers: one train step's
+    loss, gradient norm and every gradient leaf, card bf16 through the
+    kernels vs the port's CPU fp32 path from the same weights and batch;
+    every projection and MLP weight of every layer gets a non-zero
+    gradient on the card."""
+    cfg = get_config("olmo_1b").with_(n_layers=n_layers)
+    params = model_zoo.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    toks = np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (batch, seq + 1)).astype(np.int32)
+    host = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+            "labels": torch.from_numpy(toks[:, 1:].copy())}
+    reset_launch_counts()
+    loss, _, grads = value_and_grad(
+        cfg, params, {k: v.cuda() for k, v in host.items()})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != expected_train_launches(cfg, 1):
+        raise RuntimeError(f"train step launches {counts}, expected "
+                           f"{expected_train_launches(cfg, 1)}")
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda _, t: t.cpu(), params)
+    loss32, _, grads32 = value_and_grad(cfg.with_(compute_dtype="float32"),
+                                        cpu_params, host)
+    cpu_s = time.perf_counter() - t0
+    gn, gn32 = float(global_norm(grads)), float(global_norm(grads32))
+    rel = leaf_rel_rms(grads, grads32)
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(float(loss) - float(loss32)) / abs(float(loss32))
+    gn_rel = abs(gn - gn32) / gn32
+    print(f"  olmo_1b {n_layers} layers, {batch} x {seq} tokens: launches "
+          f"{counts} (as expected); CPU fp32 step {cpu_s:.1f} s", flush=True)
+    print(f"  loss card {float(loss):.6f} cpu {float(loss32):.6f} rel "
+          f"{loss_rel:.3e} (limit {TRAIN_LOSS_REL}); grad_norm card "
+          f"{gn:.6f} cpu {gn32:.6f} rel {gn_rel:.3e} (limit "
+          f"{TRAIN_GNORM_REL})", flush=True)
+    for path, r in sorted(rel.items(), key=lambda kv: kv[1]):
+        print(f"    {path}: rel RMS {r:.3e}", flush=True)
+    print(f"  worst leaf {worst}: rel RMS {rel[worst]:.3e} (limit "
+          f"{TRAIN_LEAF_REL_RMS})", flush=True)
+    dead = [f"{path}[{i}]" for path in (
+        "layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
+        "layers/attn/wo", "layers/mlp/w1", "layers/mlp/w3", "layers/mlp/w2")
+        for i in range(n_layers)
+        if not bool(tree_get(grads, path)[i].abs().sum() > 0)]
+    print(f"  per-layer projection and MLP weights with a zero gradient: "
+          f"{dead or 'none'}", flush=True)
+    finite = np.isfinite(float(loss)) and all(
+        bool(torch.isfinite(tree_get(grads, p)).all()) for p in rel)
+    if (dead or not finite or loss_rel > TRAIN_LOSS_REL
+            or gn_rel > TRAIN_GNORM_REL
+            or rel[worst] > TRAIN_LEAF_REL_RMS):
+        raise RuntimeError("train step on the card disagrees with the fp32 "
+                           "CPU path")
+    del params, grads, cpu_params, grads32
+
+
+def _timed(fn):
+    """(device-inclusive ms, result) of ``fn()``, by CUDA events on the
+    stream around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _step_split(cfg, opt_cfg, params, opt, batch):
+    """ms of one train step's parts, each the port's own function timed
+    by ``_timed``: the forward (``model_zoo.loss_fn`` without grad), the
+    backward (``launch.steps.value_and_grad`` less that forward; under
+    remat "full" it includes the recompute) and the optimizer
+    (``adamw_update``, which updates ``params`` and ``opt`` in place)."""
+    with torch.no_grad():
+        fwd, _ = _timed(lambda: model_zoo.loss_fn(cfg, params, batch))
+    fwd_bwd, (_, _, grads) = _timed(lambda: value_and_grad(cfg, params,
+                                                           batch))
+    opt_ms, _ = _timed(lambda: adamw_update(opt_cfg, params, grads, opt))
+    return {"forward": fwd, "backward": fwd_bwd - fwd, "optimizer": opt_ms}
+
+
+def train_full(steps=8, batch=4, seq=2048):
+    """Full-width, full-depth olmo_1b through the port's Trainer (module
+    docstring, phase 6c). Returns the kernels' launch counts of the run."""
+    cfg = get_config("olmo_1b")
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    tr = Trainer(cfg, opt_cfg, TrainerConfig(steps=steps, log_every=1),
+                 DataConfig(batch=batch, seq=seq), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    want = expected_train_launches(cfg, steps)
+    losses = [h["loss"] for h in tr.metrics_history]
+    params, opt = tr.final_state
+    n_params = cfg.params_count(params)
+    print(f"  olmo_1b {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B params (fp32, AdamW moments fp32), bf16 "
+          f"compute, remat {cfg.remat_policy!r}; {steps} steps of {batch} x "
+          f"{seq} tokens in {wall:.1f} s (init included)", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"  launches {launches} (expected {want}: per step "
+          f"{expected_train_launches(cfg, 1)})", flush=True)
+    if launches != want:
+        raise RuntimeError("train launches differ: the train path did not "
+                           "run the kernels in every forward and recompute")
+    if (len(losses) != steps or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]):
+        raise RuntimeError(f"train losses {losses}: not finite and "
+                           "decreasing")
+    step_s = float(np.median(tr.step_seconds[1:]))
+    tokens = batch * seq
+    mfu = 6.0 * n_params * tokens / (step_s * PEAK_BF16_FLOPS)
+    print(f"  step times (s) {[round(t, 4) for t in tr.step_seconds]}; "
+          f"median of steps 2-{steps} {step_s:.4f} s, "
+          f"{tokens / step_s:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  model-FLOP share 6*N*T/(t*989 TFLOP/s) = 6 x {n_params} x "
+          f"{tokens} / ({step_s:.4f} s x 989e12) = {100 * mfu:.2f}% (989 "
+          "TFLOP/s: H100 SXM data sheet, bf16 dense; remat's recompute "
+          "is not counted)", flush=True)
+    batch_t = tr._device_batch(tr.stream.batch_at(steps))
+    split = _step_split(cfg, opt_cfg, params, opt, batch_t)
+    total = sum(split.values())
+    parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
+                      for k, v in split.items())
+    print("  one step split (CUDA events around each part, device-"
+          f"inclusive; backward = value_and_grad less the forward): {parts}",
+          flush=True)
+    profile_train_step(tr, params, opt, batch_t)
+    del tr, params, opt
+    return launches
+
+
+def profile_train_step(tr, params, opt, batch):
+    """torch.profiler over one train step: device busy/idle and the top
+    device ops."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    report(prof, "train step", wall, top=12)
+
+
+def check_checkpoint():
+    """Resume and restore: olmo_1b_smoke widened to the kernels' sizes
+    (d_model 256, 4 heads of 64, d_ff 512: its own 16-wide heads and
+    64-wide model are below what the kernels take, and the card path
+    does not fall back) trains on the card, fails at step 9, and a fresh
+    Trainer resumes from the step-8 checkpoint to step 12; the restored
+    params and moments are bitwise those saved, and the last checkpoint
+    restores on the CPU bitwise."""
+    cfg = get_config("olmo_1b", smoke=True).with_(
+        d_model=256, n_heads=4, n_kv_heads=4, d_ff=512)
+    saved = {}
+    with tempfile.TemporaryDirectory() as d:
+        def trainer():
+            return Trainer(cfg, OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                total_steps=12),
+                           TrainerConfig(steps=12, ckpt_dir=d,
+                                         ckpt_every=4, log_every=4),
+                           DataConfig(batch=4, seq=64), device="cuda")
+
+        t1 = trainer()
+        save = t1.save
+
+        def keep(params, opt):
+            saved[t1.step] = tree_map(lambda _, t: t.clone(),
+                                      {"params": params, "opt": opt})
+            save(params, opt)
+
+        t1.save = keep
+        try:
+            t1.run(fail_at=9)
+            raise RuntimeError("the injected failure did not happen")
+        except RuntimeError as e:
+            if "injected failure at step 9" not in str(e):
+                raise
+        t2 = trainer()
+        params, opt = t2.maybe_restore()
+        restored = t2.step
+        same = _bitwise({"params": params, "opt": opt}, saved[restored])
+        t2.run()
+        final = dict(zip(("params", "opt"), t2.final_state))
+        res = ckpt_lib.restore(d, final, device="cpu")
+        on_cpu = res is not None and res[0] == 12 and _bitwise(
+            {"params": res[1]["params"], "opt": res[1]["opt"]}, final)
+        print(f"  {cfg.arch_id} widened (d_model 256, hd 64, d_ff 512) on "
+              f"the card: failed at step 9, checkpoints {sorted(saved)}, "
+              f"restored step {restored} bitwise equal "
+              f"to the saved state: {same}; resumed to step {t2.step}; "
+              f"step-12 checkpoint restores on the CPU bitwise: {on_cpu}",
+              flush=True)
+        if not (same and on_cpu and restored == 8 and t2.step == 12
+                and ckpt_lib.latest_step(d) == 12):
+            raise RuntimeError("checkpoint resume or restore failed")
+
+
+def _bitwise(got, want):
+    """Every leaf of ``got`` equals ``want``'s bitwise (same dtype)."""
+    ok = []
+    tree_map(lambda path, t: ok.append(
+        t.dtype == tree_get(want, path).dtype and torch.equal(
+            t.cpu(), tree_get(want, path).cpu())), want)
+    return all(ok) and len(ok) > 0
 
 
 def main():
@@ -617,6 +994,27 @@ def main():
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
         e["launches_path"] = path_of[e["name"]]
+    torch.cuda.empty_cache()
+
+    phase("train")
+    t_train = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    train_entries = check_train_kernels(gen, flush)
+    del flush
+    check_train_numerics()
+    torch.cuda.empty_cache()
+    steps = 8
+    train_launches = train_full(steps=steps)
+    torch.cuda.empty_cache()
+    check_checkpoint()
+    for e in entries:
+        e["train"] = {"launches_per_step":
+                      train_launches[e["name"]] // steps,
+                      "path": "olmo_1b train, remat full",
+                      **train_entries.get(e["name"], {})}
+    print(f"  train phase wall {time.perf_counter() - t_train:.1f} s",
+          flush=True)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -127,6 +127,18 @@ def on_device(t: torch.Tensor):
     return torch.cuda.device(t.device)
 
 
+def refuse_grad(name: str, tensors, remedy: str) -> None:
+    """Raise NotImplementedError when autograd would record a kernel
+    launch: grad mode is on and an input requires grad. A launch writes
+    into ``torch.empty`` through ctypes, so its output carries no
+    ``grad_fn``; without this check a backward would run through and give
+    the inputs' producers no gradient. ``remedy`` says what to call."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward, and autograd would "
+            f"drop the gradient of its inputs; {remedy}")
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a CUDA tensor on one device."""
     dev = tensors[0].device

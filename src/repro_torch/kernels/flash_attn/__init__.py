@@ -1,2 +1,2 @@
-from .ops import flash_attention
+from .ops import FlashAttention, flash_attention
 from .ref import attention_ref

@@ -2,7 +2,13 @@
 tensors, its plain version (``ref.attention_ref``) on CPU tensors.
 
 Replaces ``repro/kernels/flash_attn/flash_attn.py:flash_attention``.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches (forwards only).
+
+``FlashAttention`` puts the op under autograd: its forward is the op
+(the kernel on the card, in every forward, the recompute under remat
+included), its backward is explicit torch (``attention_bwd``). The raw
+op refuses to launch when autograd would record it
+(``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -78,6 +84,8 @@ def flash_attention(q, k, v, causal: bool = True):
     else:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         q4, k4, v4, o4 = q, k, v, out
+    _build.refuse_grad("flash_attention", (q, k, v),
+                       "call FlashAttention.apply, which has a backward")
     _check(q4, k4, v4)
     b, sq, h, hd = q4.shape
     skv, kv = k4.shape[1], k4.shape[2]
@@ -94,3 +102,95 @@ def flash_attention(q, k, v, causal: bool = True):
 
 
 flash_attention.launches = 0
+
+
+def _bmm_acc(a, b, acc):
+    """Batched a @ b on a's dtype with the result in ``acc`` (fp32 or
+    float64): on the card, bf16/fp16 operands on the tensor cores with
+    fp32 accumulation and an fp32 result (cuBLAS, ``out_dtype``); on the
+    CPU, which has no ``out_dtype`` kernel, the operands widened first,
+    the same exact products summed in ``acc``."""
+    if a.is_cuda and a.dtype != acc:
+        return torch.bmm(a, b, out_dtype=acc)
+    return torch.bmm(a.to(acc), b.to(acc))
+
+
+def attention_bwd(q, k, v, do, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``attention_ref`` for model-layout
+    q [B, Sq, H, hd], k/v [B, Skv, KV, hd] and the output's gradient do,
+    in explicit torch, with native GQA (head h reads KV head h // (H/KV);
+    dk and dv sum over the group) and the causal mask end-aligned as in
+    the forward.
+
+    The five products (S = QK^T, dV = P^T dO, dP = dO V^T, dQ = dS K,
+    dK = dS^T Q) take operands in q.dtype and accumulate in fp32 (float64
+    for float64 inputs), as the reference's bf16 einsums do; the softmax,
+    its row sums D = rowsum(dO * O) and dS = P (dP - D) stay fp32. P and
+    dS are rounded to q.dtype before their products, as the forward
+    kernel rounds P; O is recomputed as P V from that rounded P. One batch
+    row at a time, so the materialised [KV, G*Sq, Skv] scores and their
+    gradients stay one row in size (268 MB each in fp32 at olmo_1b's
+    train shape S=2048, 16 heads)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / (hd ** 0.5)
+    mask = (torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+            .tril(diagonal=skv - sq) if causal else None)
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+
+    def heads(t):  # [Sq, H, hd] -> [KV, G*Sq, hd]
+        return (t.reshape(sq, kv, g, hd).permute(1, 2, 0, 3)
+                .reshape(kv, g * sq, hd))
+
+    for i in range(b):
+        qi, doi = heads(q[i]), heads(do[i])
+        ki, vi = k[i].transpose(0, 1), v[i].transpose(0, 1)  # [KV, Skv, hd]
+        s = _bmm_acc(qi, ki.transpose(1, 2), acc).mul_(scale)
+        if causal:
+            s.view(kv, g, sq, skv).masked_fill_(~mask, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        p_lo = p.to(q.dtype)
+        dv[i] = _bmm_acc(p_lo.transpose(1, 2), doi, acc).transpose(0, 1)
+        d = (_bmm_acc(p_lo, vi, acc) * doi).sum(dim=-1, keepdim=True)
+        del p_lo
+        ds = _bmm_acc(doi, vi.transpose(1, 2), acc).sub_(d).mul_(p)
+        del p
+        ds = ds.to(q.dtype)
+        dqi = _bmm_acc(ds, ki, acc).mul_(scale)
+        dq[i] = (dqi.reshape(kv, g, sq, hd).permute(2, 0, 1, 3)
+                 .reshape(sq, h, hd))
+        dk[i] = _bmm_acc(ds.transpose(1, 2), qi, acc).mul_(scale
+                                                            ).transpose(0, 1)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd, in either layout of the op.
+
+    Forward is the op as it is: the hand-written kernel on CUDA tensors
+    (so the kernel runs in every forward, including the recompute under
+    remat), the plain version on CPU tensors. Backward is explicit torch
+    recomputed from the saved q, k, v (``attention_bwd``): the TPU kernel
+    is forward-only and the reference's gradients come from XLA's
+    autodiff of einsums outside any Pallas kernel, so there is no backward
+    kernel to port. This is not a fallback; a Hopper backward kernel is
+    later speed work (ROADMAP Queue 2)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        if q.dim() == 3:  # Pallas layout as [1, S, BH, hd] views
+            grads = attention_bwd(*(_to_bshd(t) for t in (q, k, v, do)),
+                                  ctx.causal)
+            return (*(t[0].permute(1, 0, 2) for t in grads), None)
+        return (*attention_bwd(q, k, v, do, ctx.causal), None)

@@ -1,6 +1,7 @@
 """Plain PyTorch oracle for the flash attention kernel: exact softmax
 attention, causal with queries end-aligned to the keys, GQA via repeat
-(the semantics of ``repro.kernels.flash_attn.ref.attention_ref``)."""
+(the semantics of ``repro.kernels.flash_attn.ref.attention_ref``), in
+fp32 (float64 for float64 inputs)."""
 import torch
 
 
@@ -16,13 +17,14 @@ def attention_ref(q, k, v, causal=True):
     bh, sq, hd = q.shape
     bkv, skv, _ = k.shape
     g = bh // bkv
+    acc = torch.promote_types(q.dtype, torch.float32)
     kk = k.repeat_interleave(g, dim=0)
     vv = v.repeat_interleave(g, dim=0)
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kk.float()) / (hd ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), kk.to(acc)) / (hd ** 0.5)
     if causal:
         mask = torch.ones((sq, skv), dtype=torch.bool,
                           device=q.device).tril(diagonal=skv - sq)
         s = s.masked_fill(~mask[None], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bqk,bkd->bqd", p, vv.float())
+    o = torch.einsum("bqk,bkd->bqd", p, vv.to(acc))
     return o.to(q.dtype)

@@ -1,2 +1,2 @@
-from .ops import fused_mlp
+from .ops import FusedMLP, fused_mlp
 from .ref import fused_mlp_ref

@@ -3,7 +3,12 @@ tensors, its plain version (``ref.fused_mlp_ref``) on CPU tensors.
 
 Replaces ``repro/kernels/fused_mlp/fused_mlp.py:fused_mlp``.
 ``fused_mlp.launches`` counts calls that ran the kernels (one per MLP;
-each is a gate/up and a down launch per row chunk).
+each is a gate/up and a down launch per row chunk); only forwards count.
+
+``FusedMLP`` puts the op under autograd: its forward is the op (the
+kernels on the card, in every forward, the recompute under remat
+included), its backward is explicit torch (``fused_mlp_bwd``). The raw
+op refuses to launch when autograd would record it (``_build.refuse_grad``).
 
 Two regimes, chosen by M here: ``decode`` (M <= 64) runs the swap-AB
 cluster kernels, whose reduction is split over ``decode_split`` blocks;
@@ -120,6 +125,8 @@ def fused_mlp(x, w1, w3, w2):
         raise ValueError(f"x must be [M, K], got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return fused_mlp_ref(x, w1, w3, w2)
+    _build.refuse_grad("fused_mlp", (x, w1, w3, w2),
+                       "call FusedMLP.apply, which has a backward")
     _check(x, w1, w3, w2)
     m, k = x.shape
     f = w1.shape[1]
@@ -143,3 +150,48 @@ def fused_mlp(x, w1, w3, w2):
 
 
 fused_mlp.launches = 0
+
+
+def fused_mlp_bwd(x, w1, w3, w2, dy):
+    """Gradients (dx, dW1, dW3, dW2) of the fused MLP, recomputed from its
+    inputs in explicit torch: g = xW1, u = xW3, h = silu(g)*u;
+    dW2 = h^T dy; dh = dy W2^T; dg = dh*u*silu'(g); du = dh*silu(g);
+    dx = dg W1^T + du W3^T; dW1 = x^T dg; dW3 = x^T du. Products run in
+    x.dtype with fp32 accumulation (cuBLAS on the card, as the
+    reference's XLA backward does in bf16), the elementwise part in fp32
+    (float64 for float64 inputs); h, dg and du are rounded to x.dtype
+    before their products, as h is in the forward."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    g = (x @ w1).to(acc)
+    u = (x @ w3).to(acc)
+    sig = torch.sigmoid(g)
+    sg = g * sig                                   # silu(g)
+    dw2 = (sg * u).to(x.dtype).T @ dy
+    dh = (dy @ w2.T).to(acc)
+    dg = (dh * u * sig * (1 + g * (1 - sig))).to(x.dtype)
+    du = (dh * sg).to(x.dtype)
+    del g, u, sig, sg, dh
+    dx = torch.addmm(dg @ w1.T, du, w3.T)
+    return dx, x.T @ dg, x.T @ du, dw2
+
+
+class FusedMLP(torch.autograd.Function):
+    """``fused_mlp`` under autograd: x [M, K]; w1/w3 [K, F]; w2 [F, K].
+
+    Forward is the op as it is: the hand-written kernels on CUDA tensors
+    (so the kernel runs in every forward, including the recompute under
+    remat), the plain version on CPU tensors. Backward is explicit torch
+    recomputed from the saved inputs (``fused_mlp_bwd``): the TPU kernel
+    is forward-only and the reference's gradients come from XLA's
+    autodiff of einsums outside any Pallas kernel, so there is no backward
+    kernel to port. This is not a fallback; a Hopper backward kernel is
+    later speed work (ROADMAP Queue 2)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2):
+        ctx.save_for_backward(x, w1, w3, w2)
+        return fused_mlp(x, w1, w3, w2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fused_mlp_bwd(*ctx.saved_tensors, dy)

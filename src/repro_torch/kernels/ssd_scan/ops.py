@@ -5,7 +5,9 @@ Replaces ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan``; like
 ``models.ssm.ssd_chunked`` it also returns the final state. One call of
 the op is one call of the C entry, which issues three kernel launches
 (chunk states, state passing, chunk scan) into a workspace this wrapper
-allocates; ``ssd_scan.launches`` counts calls of the op.
+allocates; ``ssd_scan.launches`` counts calls of the op. The kernels
+have no backward yet: on CUDA tensors the op raises when autograd would
+record it (``_build.refuse_grad``) rather than drop the gradient.
 """
 from __future__ import annotations
 
@@ -84,6 +86,11 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
             return ssd_ref(x, dt, a, bm, cm)
         y, state = ssd_ref(*to_pallas_layout(x, dt, a, bm, cm))
         return from_pallas_layout(y, state, x.shape[0])
+    _build.refuse_grad(
+        "ssd_scan", (x, dt, a, bm, cm),
+        "training the ssm and hybrid families on the card waits for "
+        "ROADMAP Queue 1's 'SSM and hybrid training' item (ssd_scan's "
+        "gradient); on CPU tensors the plain version keeps autograd")
     if pallas_layout:  # as B = 1, H = G = BH: permuted views, no copy
         bh, _, p = x.shape
         y = torch.empty((bh, s, p), dtype=x.dtype, device=x.device)

@@ -4,9 +4,11 @@
         --no-smoke --batch 4 --prompt-len 512 --new-tokens 32
 
 Builds random parameters from ``--seed`` on ``--device`` (CUDA unless
-told otherwise) and serves a batch of synthetic prompts through the
-Engine. ``--smoke`` (the default, as in the reference) picks the reduced
-config; ``--no-smoke`` the full one.
+told otherwise), or with ``--ckpt DIR`` restores the ``"params"`` of the
+newest valid ``.rpck`` checkpoint there (either package's trainer writes
+them), and serves a batch of synthetic prompts through the Engine.
+``--smoke`` (the default, as in the reference) picks the reduced config;
+``--no-smoke`` the full one.
 """
 import argparse
 
@@ -16,6 +18,7 @@ import torch
 from ..configs import ARCH_IDS, get_config
 from ..models import model_zoo
 from ..serve.engine import Engine, ServeConfig, resolve_device
+from ..train import checkpoint as ckpt_lib
 
 
 def main(argv=None):
@@ -29,12 +32,22 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the params of the newest checkpoint here")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     params = model_zoo.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed))
+    if args.ckpt:
+        res = ckpt_lib.restore(args.ckpt, {"params": params}, device=device)
+        if res is None:
+            raise SystemExit(f"no valid checkpoint of {cfg.arch_id} in "
+                             f"{args.ckpt}")
+        step, trees, _ = res
+        params = trees["params"]
+        print(f"restored params of step {step} from {args.ckpt}")
     eng = Engine(cfg, params, scfg=ServeConfig(
         max_seq=args.prompt_len + args.new_tokens + 1,
         max_new_tokens=args.new_tokens, temperature=args.temperature),

@@ -1,11 +1,81 @@
-"""Prefill and decode step functions per config.
+"""Train, prefill and decode step functions per config.
 
-PyTorch counterpart of ``repro.launch.steps`` (serving steps). PyTorch
-runs eagerly, so these are plain closures; the reference jits them."""
+PyTorch counterpart of ``repro.launch.steps``. PyTorch runs eagerly, so
+these are plain closures; the reference jits them. Train steps take and
+return ``(params, opt_state, batch) -> (params, opt_state, metrics)``;
+the params and the optimizer state are updated in place
+(``train.optimizer.adamw_update``), as the reference's trainer donates
+them. The reference's ``acc_specs`` (the accumulator's sharding) waits
+for the multi-GPU slice (ROADMAP Queue 1, Slice E): one device here.
+"""
 from __future__ import annotations
 
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
 from ..models import model_zoo
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, tree_get, tree_map
+from ..train.optimizer import OptimizerConfig, adamw_update
+
+PyTree = Any
+
+
+def value_and_grad(cfg: ModelConfig, params: PyTree, batch: Dict
+                   ) -> Tuple[torch.Tensor, Dict, PyTree]:
+    """(loss, metrics, grads) of ``model_zoo.loss_fn`` at ``params``;
+    grads mirror params (a leaf the loss does not read gets zeros, as in
+    JAX). Gradients come from ``torch.autograd.grad`` over detached
+    leaves, so ``params`` themselves never require grad."""
+    leaves = tree_map(lambda _, t: t.detach().requires_grad_(), params)
+    paths = []
+    tree_map(lambda path, _: paths.append(path), leaves)
+    with torch.enable_grad():
+        loss, metrics = model_zoo.loss_fn(cfg, leaves, batch)
+        grads = torch.autograd.grad(
+            loss, [tree_get(leaves, p) for p in paths], allow_unused=True,
+            materialize_grads=True)
+    by_path = dict(zip(paths, grads))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda path, _: by_path[path], leaves))
+
+
+def make_train_step(cfg: ModelConfig,
+                    opt_cfg: Optional[OptimizerConfig] = None):
+    opt_cfg = opt_cfg or OptimizerConfig()
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = value_and_grad(cfg, params, batch)
+        params, opt_state, om = adamw_update(opt_cfg, params, grads,
+                                             opt_state)
+        return params, opt_state, {"loss": loss, **metrics, **om}
+
+    return train_step
+
+
+def make_grad_accum_train_step(cfg: ModelConfig, n_micro: int,
+                               opt_cfg: Optional[OptimizerConfig] = None):
+    """Gradient accumulation over ``n_micro`` micro-batches: batch leaves
+    are [n_micro, b / n_micro, ...]; the update takes the mean of the
+    micro-batch gradients, summed in fp32, and ``loss`` is the mean of
+    the micro-batch losses."""
+    opt_cfg = opt_cfg or OptimizerConfig()
+
+    def train_step(params, opt_state, batch):
+        gsum, lsum = None, 0.0
+        for i in range(n_micro):
+            loss, _, grads = value_and_grad(
+                cfg, params, {k: v[i] for k, v in batch.items()})
+            grads = tree_map(lambda _, g: g.float(), grads)
+            gsum = grads if gsum is None else tree_map(
+                lambda path, g: g.add_(tree_get(grads, path)), gsum)
+            lsum = lsum + loss
+        grads = tree_map(lambda _, g: g / n_micro, gsum)
+        params, opt_state, om = adamw_update(opt_cfg, params, grads,
+                                             opt_state)
+        return params, opt_state, {"loss": lsum / n_micro, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):

@@ -3,9 +3,11 @@
 PyTorch counterpart of ``repro.models.attention``. GQA is computed on
 grouped queries ([B, S, KV, G, hd] against [B, S, KV, hd]); the KV
 tensor is never repeated to H heads. On CUDA tensors prefill attention
-runs the hand-written flash kernel (``kernels.flash_attn``); on CPU
-tensors it runs ``flash_attention`` below, the reference's chunked
-online softmax. The decode path has no kernel and stays in torch.
+runs the hand-written flash kernel through its autograd Function
+(``kernels.flash_attn.FlashAttention``: the kernel forward, an explicit
+torch backward); on CPU tensors it runs ``flash_attention`` below, the
+reference's chunked online softmax, under plain autograd. The decode
+path has no kernel and stays in torch.
 
 Unlike the reference, whose arrays are immutable, the KV cache here is
 updated in place: prefill and decode write their keys and values into
@@ -77,9 +79,10 @@ def flash_attention(q, k, v, causal: bool, q_offset: int = 0,
 
 
 def _prefill_attend(q, k, v, causal: bool):
-    """Kernel on CUDA, the model's chunked flash on CPU."""
+    """Kernel on CUDA (under autograd), the model's chunked flash on
+    CPU."""
     if q.is_cuda:
-        return flash_kernel.flash_attention(q, k, v, causal=causal)
+        return flash_kernel.FlashAttention.apply(q, k, v, causal)
     return flash_attention(q, k, v, causal=causal)
 
 

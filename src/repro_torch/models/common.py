@@ -125,6 +125,13 @@ def tree_leaves(tree: PyTree):
         yield tree
 
 
+def tree_get(tree: PyTree, path: str):
+    """The leaf (or subtree) of a nested dict at a '/'-joined path."""
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
 def tree_map(fn, tree: PyTree, path: str = "") -> PyTree:
     """Apply ``fn(path, leaf)`` to every leaf of a nested dict; ``path``
     is the '/'-joined key path."""

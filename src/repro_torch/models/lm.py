@@ -9,17 +9,38 @@ slot per invocation. Per-layer parameters are stacked on a leading
 layer axis, as in the reference, and applied by a Python loop over the
 layers. The other families raise ``NotImplementedError`` naming the
 ROADMAP slice that ports them.
+
+Training: ``loss_fn`` is the reference's next-token cross entropy.
+When autograd records, ``forward`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), the counterpart of the
+reference's ``jax.checkpoint`` over its scan body. ``cfg.remat_policy``
+maps as follows (``_remat``); the three give the same loss and
+gradients:
+  - ``"full"``: the whole layer is recomputed; only its input is kept
+    (``jax.checkpoint`` with no policy).
+  - ``"dots"``: the layer is recomputed except the outputs of 2-D
+    matrix products (``aten.mm``/``aten.addmm``: the projections), which
+    are kept (``dots_with_no_batch_dims_saveable``). On the card the
+    fused MLP is a kernel launch, not an ``aten`` product, and is
+    recomputed.
+  - ``"mlp"``: the residual sublayers other than the MLP (attention,
+    Mamba-2) are recomputed; each MLP keeps what its backward needs (its
+    input), so it is not run again in the recompute (the reference keeps
+    the MLP's hidden ``h``, ``save_only_these_names("mlp_hidden")``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import (attention, decode_attention, init_attn,
                         init_kv_cache, prefill_into_cache)
 from .common import (ModelConfig, apply_norm, dense_init, torch_dtype,
-                     tree_map)
+                     tree_get, tree_leaves, tree_map)
 from .mlp import init_mlp, mlp
 from .ssm import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode, \
     mamba2_prefill
@@ -93,7 +114,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
         if layers is None:
             layers = tree_map(lambda _, t: t.new_empty((cfg.n_layers,
                                                         *t.shape)), lp)
-        tree_map(lambda path, t: _leaf(layers, path)[i].copy_(t), lp)
+        tree_map(lambda path, t: tree_get(layers, path)[i].copy_(t), lp)
     params["layers"] = layers
     if cfg.family == "hybrid" and cfg.attn_every:
         ones = torch.ones((cfg.d_model,), dtype=torch.float32,
@@ -102,12 +123,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
             "norm": ones, "attn": init_attn(cfg, gen, dtype=dtype),
             "mlp_norm": ones.clone(), "mlp": init_mlp(cfg, gen, dtype=dtype)}
     return params
-
-
-def _leaf(tree: PyTree, path: str):
-    for key in path.split("/"):
-        tree = tree[key]
-    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -141,27 +156,99 @@ def _shared_attn_apply(cfg: ModelConfig, shared: Dict, x, attend):
     return x + mlp(cfg, shared["mlp"], h)
 
 
+# A residual sublayer: (is it an MLP, x -> x + f(norm(x))).
+Sublayer = Tuple[bool, Callable]
+
+
+def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
+               ) -> List[Sublayer]:
+    """Layer ``idx`` of ``forward`` as its residual sublayers, in order."""
+    def residual(norm, fn):
+        return lambda x: x + fn(apply_norm(cfg, x, norm))
+
+    if cfg.is_ssm_family:
+        subs = [(False, residual(lp["ssm_norm"], lambda h: mamba2_block(
+            cfg, lp["ssm"], h)))]
+        if _shared_fires(cfg, shared, idx):
+            subs += [(False, residual(shared["norm"], lambda h: attention(
+                cfg, shared["attn"], h, causal=True))),
+                (True, residual(shared["mlp_norm"], lambda h: mlp(
+                    cfg, shared["mlp"], h)))]
+        return subs
+    return [(False, residual(lp["attn_norm"], lambda h: attention(
+        cfg, lp["attn"], h, causal=True))),
+        (True, residual(lp["ffn_norm"], lambda h: mlp(cfg, lp["mlp"], h)))]
+
+
+# outputs the "dots" policy keeps: 2-D matrix products (no batch dims)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(policy: str, subs: List[Sublayer], x):
+    """Run one layer's sublayers under ``policy`` (module docstring)."""
+    def run(fns, x):
+        for fn in fns:
+            x = fn(x)
+        return x
+
+    fns = [fn for _, fn in subs]
+    if policy == "full":
+        return checkpoint(run, fns, x, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(run, fns, x, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts, _DOTS))
+    if policy == "mlp":
+        for is_mlp, fn in subs:
+            x = fn(x) if is_mlp else checkpoint(fn, x, use_reentrant=False)
+        return x
+    raise ValueError(f"unknown remat_policy {policy!r}; have 'full', "
+                     "'dots', 'mlp'")
+
+
+def _unstacked(layers: PyTree, n: int) -> List[PyTree]:
+    """The layer-stacked tree as ``n`` per-layer trees of views. Through
+    ``unbind``, one backward node per leaf stacks the layers' gradients
+    (indexing each layer would scatter each into a full-size zero
+    tensor)."""
+    flat = tree_map(lambda _, t: t.unbind(0), layers)
+    return [tree_map(lambda _, ts: ts[i], flat) for i in range(n)]
+
+
 def forward(cfg: ModelConfig, params: PyTree,
             tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,S] -> (logits [B,S,Vp], aux_loss scalar)."""
+    """tokens [B,S] -> (logits [B,S,Vp], aux_loss scalar). Each layer is
+    recomputed in the backward when autograd records (``_remat``)."""
     require_ported(cfg)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
     x = _embed(cfg, params, tokens)
     shared = params.get("shared_attn")
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        if cfg.is_ssm_family:
-            h = apply_norm(cfg, x, lp["ssm_norm"])
-            x = x + mamba2_block(cfg, lp["ssm"], h)
-            if _shared_fires(cfg, shared, i):
-                x = _shared_attn_apply(cfg, shared, x, lambda h: attention(
-                    cfg, shared["attn"], h, causal=True))
-            continue
-        h = apply_norm(cfg, x, lp["attn_norm"])
-        x = x + attention(cfg, lp["attn"], h, causal=True)
-        h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + mlp(cfg, lp["mlp"], h)
+    for i, lp in enumerate(_unstacked(params["layers"], cfg.n_layers)):
+        subs = _sublayers(cfg, lp, shared, i)
+        if remat:
+            x = _remat(cfg.remat_policy, subs, x)
+        else:
+            for _, fn in subs:
+                x = fn(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: PyTree,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross entropy (``repro/models/lm.py:loss_fn``): batch
+    tokens [B,S], labels [B,S], optional mask [B,S]; logits in fp32,
+    logsumexp minus the gold logit, masked mean; returns (ce + aux,
+    {"ce", "aux"})."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = torch.ones_like(gold) if mask is None else mask.to(gold.dtype)
+    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Dense FFN (SwiGLU / GELU).
 
 PyTorch counterpart of ``repro.models.mlp`` (dense part). On CUDA
-tensors SwiGLU runs the hand-written fused MLP kernel
-(``kernels.fused_mlp``), which forms h in fp32 and rounds it once; on
-CPU tensors it runs the reference's formula, which rounds each product
-to x.dtype. In bf16 the two round differently.
+tensors SwiGLU runs the hand-written fused MLP kernel through its
+autograd Function (``kernels.fused_mlp.FusedMLP``: the kernel forward,
+an explicit torch backward), which forms h in fp32 and rounds it once;
+on CPU tensors it runs the reference's formula, which rounds each
+product to x.dtype, under plain autograd. In bf16 the two round
+differently.
 """
 from __future__ import annotations
 
@@ -33,10 +35,10 @@ def mlp(cfg: ModelConfig, params: Dict, x):
         h = F.gelu(x @ params["w1"].to(x.dtype), approximate="tanh")
         return h @ params["w2"].to(x.dtype)
     if x.is_cuda:
-        y = fused_kernel.fused_mlp(x.reshape(-1, x.shape[-1]),
-                                   params["w1"].to(x.dtype),
-                                   params["w3"].to(x.dtype),
-                                   params["w2"].to(x.dtype))
+        y = fused_kernel.FusedMLP.apply(x.reshape(-1, x.shape[-1]),
+                                        params["w1"].to(x.dtype),
+                                        params["w3"].to(x.dtype),
+                                        params["w2"].to(x.dtype))
         return y.reshape(x.shape)
     h = F.silu(x @ params["w1"].to(x.dtype)) * (x @ params["w3"].to(x.dtype))
     return h @ params["w2"].to(x.dtype)

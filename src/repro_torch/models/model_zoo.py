@@ -20,6 +20,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
     return lm.init_params(cfg, gen)
 
 
+def loss_fn(cfg: ModelConfig, params: PyTree, batch: Dict):
+    return lm.loss_fn(cfg, params, batch)
+
+
 def forward(cfg: ModelConfig, params: PyTree, batch: Dict):
     return lm.forward(cfg, params, batch["tokens"])
 

@@ -1,6 +1,7 @@
 """The PyTorch port on a CUDA GPU: each hand-written kernel against its
-plain version, and the dense and Mamba-2 LMs' card path against their
-CPU path.
+plain version, the dense and Mamba-2 LMs' card path against their CPU
+path, and training: the kernels' autograd Functions against autograd of
+their plain versions, the gradient guard, and train steps on the card.
 
 Every test here needs a GPU and skips without one; the file imports no
 JAX, so it runs on a machine with only PyTorch:
@@ -13,12 +14,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
-from repro_torch.kernels.fused_mlp import fused_mlp, fused_mlp_ref  # noqa: E402
+from repro_torch.data.synthetic import DataConfig  # noqa: E402
+from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
+                                            attention_ref, flash_attention)
+from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
+                                           fused_mlp_ref)
 from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
                                           ssd_scan, to_pallas_layout)
+from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -259,3 +267,133 @@ def test_mamba2_card_path_matches_cpu_path(cuda):
         assert float((g - w).norm() / w.norm()) < 3e-2
     out = eng.generate(toks.numpy()[:, :256])
     assert out.shape == (2, 4) and ((out >= 0) & (out < cfg.vocab)).all()
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd
+# ---------------------------------------------------------------------------
+
+def _olmo_card_smoke():
+    """olmo_1b_smoke widened to the kernels' sizes: its own 16-wide heads
+    and 64-wide model are below what flash (hd 64..128) and fused_mlp (K
+    and F multiples of 128) take, and the card path does not fall back."""
+    return get_config("olmo_1b", smoke=True).with_(
+        d_model=256, n_heads=4, n_kv_heads=4, d_ff=512)
+
+
+def _scaled_close(got, want):
+    """The repo's bf16 tolerance on gradients scaled by their largest
+    magnitude (tests/test_torch_kernels.py's bf16 backward test)."""
+    for g, w in zip(got, want):
+        top = w.float().abs().max()
+        torch.testing.assert_close(g.float() / top, w.float() / top,
+                                   **BF16_TOL)
+
+
+@pytest.mark.parametrize("m,k,f", [(64, 128, 256), (300, 256, 512)])
+def test_fused_mlp_function_grads_match_plain(cuda, m, k, f):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    args = (_randn(gen, m, k).requires_grad_(),
+            _randn(gen, k, f, scale=k ** -0.5).requires_grad_(),
+            _randn(gen, k, f, scale=k ** -0.5).requires_grad_(),
+            _randn(gen, f, k, scale=f ** -0.5).requires_grad_())
+    dy = _randn(gen, m, k)
+    before = fused_mlp.launches
+    y = FusedMLP.apply(*args)
+    assert fused_mlp.launches == before + 1
+    got = torch.autograd.grad(y, args, dy)
+    assert fused_mlp.launches == before + 1   # the backward is torch
+    want = torch.autograd.grad(fused_mlp_ref(*args), args, dy)
+    _scaled_close(got, want)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", [(2, 128, 4, 2, 64),
+                                         (1, 300, 4, 4, 128)])
+def test_flash_function_grads_match_plain(cuda, b, s, h, kv, hd):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, b, s, h, hd).requires_grad_()
+    k, v = (_randn(gen, b, s, kv, hd).requires_grad_() for _ in range(2))
+    do = _randn(gen, b, s, h, hd)
+    before = flash_attention.launches
+    y = FlashAttention.apply(q, k, v, True)
+    got = torch.autograd.grad(y, (q, k, v), do)
+    assert flash_attention.launches == before + 1
+    want = torch.autograd.grad(attention_ref(q, k, v, True), (q, k, v), do)
+    _scaled_close(got, want)
+
+
+def test_raw_kernels_refuse_to_drop_gradients(cuda):
+    """A raw wrapper called under grad with an input that requires grad
+    raises instead of launching (its output would carry no grad_fn);
+    the same call under no_grad launches."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _randn(gen, 64, 128).requires_grad_()
+    w = _randn(gen, 128, 128)
+    with pytest.raises(NotImplementedError, match="FusedMLP.apply"):
+        fused_mlp(x, w, w, w)
+    q = _randn(gen, 1, 64, 2, 64).requires_grad_()
+    with pytest.raises(NotImplementedError, match="FlashAttention.apply"):
+        flash_attention(q, q, q)
+    xs, dt, a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 1, 16)
+    with pytest.raises(NotImplementedError, match="SSM and hybrid training"):
+        ssd_scan(xs.requires_grad_(), dt, a, bm, cm)
+    with torch.no_grad():
+        fused_mlp(x, w, w, w)
+        flash_attention(q, q, q)
+        ssd_scan(xs, dt, a, bm, cm)
+
+
+def test_mamba2_train_step_raises_on_card(cuda):
+    """Training the ssm family on the card waits for ssd_scan's gradient:
+    the loss's forward raises rather than train without it."""
+    cfg = get_config("mamba2_780m").with_(n_layers=1, d_model=256,
+                                          ssm_state=64, vocab=1000)
+    params = model_zoo.init_params(cfg, torch.Generator(
+        device=cuda).manual_seed(0))
+    toks = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        value_and_grad(cfg, params, {"tokens": toks, "labels": toks})
+
+
+@pytest.mark.parametrize("policy,mlp_per_layer", [("full", 2), ("dots", 2),
+                                                  ("mlp", 1)])
+def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
+    """One card train step runs flash twice per layer (forward and remat
+    recompute) and the fused MLP twice (once under "mlp", which keeps the
+    MLP's input); every projection and MLP weight of every layer gets a
+    non-zero gradient; the policies agree."""
+    cfg = _olmo_card_smoke().with_(remat_policy=policy)
+    params = tree_map(lambda _, t: t.to(cuda), model_zoo.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 65)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    f0, m0 = flash_attention.launches, fused_mlp.launches
+    loss, _, grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - f0 == 2 * cfg.n_layers
+    assert fused_mlp.launches - m0 == mlp_per_layer * cfg.n_layers
+    assert torch.isfinite(loss)
+    for name in ("wq", "wk", "wv", "wo"):
+        assert (grads["layers"]["attn"][name].flatten(1).abs().sum(1)
+                > 0).all(), name
+    for name in ("w1", "w3", "w2"):
+        assert (grads["layers"]["mlp"][name].flatten(1).abs().sum(1)
+                > 0).all(), name
+
+
+def test_olmo_smoke_trains_on_card(cuda):
+    """Two Trainer steps on the card (kernel-sized olmo smoke) lower the
+    loss, through both kernels in each step."""
+    cfg = _olmo_card_smoke()
+    tr = Trainer(cfg, OptimizerConfig(lr=3e-3, warmup_steps=0,
+                                      total_steps=2),
+                 TrainerConfig(steps=2, log_every=1),
+                 DataConfig(batch=4, seq=64), device=cuda)
+    f0, m0 = flash_attention.launches, fused_mlp.launches
+    tr.run()
+    losses = [h["loss"] for h in tr.metrics_history]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert losses[1] < losses[0]
+    assert flash_attention.launches - f0 == 2 * 2 * cfg.n_layers
+    assert fused_mlp.launches - m0 == 2 * 2 * cfg.n_layers

@@ -149,8 +149,9 @@ def test_serve_launcher_ssm_on_cpu(arch, capsys):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Every module of the port, and chip_smoke.py, in a fresh process:
-    neither jax nor any ``repro`` module gets imported."""
+    """Every module of the port (the training half's ``train/``,
+    ``data/`` and ``launch/train.py`` included), and chip_smoke.py, in a
+    fresh process: neither jax nor any ``repro`` module gets imported."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
@@ -161,10 +162,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
+        "need = ['repro_torch.train.' + m for m in ('optimizer', "
+        "'checkpoint', '_msgpack', 'trainer')] + ["
+        "'repro_torch.data.synthetic', 'repro_torch.launch.train']\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "n = sum(m.startswith('repro_torch.') for m in sys.modules)\n"
         "print(n, bad)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, check=True, timeout=120).stdout
     n, bad = out.strip().split(" ", 1)
-    assert bad == "[]" and int(n) >= 20
+    assert bad == "[]" and int(n) >= 27

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attn import attention_ref as jax_attention_ref  # noqa: E402
@@ -23,7 +24,8 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import admit as flash_admit  # noqa: E402
-from repro_torch.kernels.fused_mlp import fused_mlp  # noqa: E402
+from repro_torch.kernels.flash_attn import FlashAttention  # noqa: E402
+from repro_torch.kernels.fused_mlp import FusedMLP, fused_mlp, fused_mlp_ref  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import (decode_split, regime,  # noqa: E402
                                                row_chunks)
 from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
@@ -292,6 +294,137 @@ def test_ops_reject_bad_input():
     with pytest.raises(ValueError):
         flash_attention(torch.zeros(2, 4, 8), torch.zeros(1, 2, 4, 8),
                         torch.zeros(1, 2, 4, 8))
+
+
+# ---------------------------------------------------------------------------
+# the kernels under autograd (FusedMLP, FlashAttention) and the guard
+# ---------------------------------------------------------------------------
+
+def _f64(rng, *shape, scale=1.0):
+    return torch.from_numpy(rng.randn(*shape) * scale).requires_grad_()
+
+
+def test_fused_mlp_function_gradcheck():
+    """FusedMLP's explicit backward against finite differences of its
+    forward (the plain version on CPU tensors), in float64."""
+    rng = np.random.RandomState(0)
+    args = (_f64(rng, 6, 8), _f64(rng, 8, 12, scale=0.4),
+            _f64(rng, 8, 12, scale=0.4), _f64(rng, 12, 8, scale=0.4))
+    assert FusedMLP.apply(*args).grad_fn.name() == "FusedMLPBackward"
+    assert torch.autograd.gradcheck(FusedMLP.apply, args)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["model", "pallas"])
+def test_flash_function_gradcheck(causal, layout):
+    """FlashAttention's explicit backward (GQA, end-aligned causal mask,
+    Sq < Skv) against finite differences, in float64, in both layouts."""
+    rng = np.random.RandomState(1)
+    if layout == "model":
+        args = (_f64(rng, 2, 5, 4, 8), _f64(rng, 2, 7, 2, 8),
+                _f64(rng, 2, 7, 2, 8))
+    else:
+        args = (_f64(rng, 4, 5, 8), _f64(rng, 2, 7, 8), _f64(rng, 2, 7, 8))
+
+    def fn(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
+
+    assert fn(*args).grad_fn.name() == "FlashAttentionBackward"
+    assert torch.autograd.gradcheck(fn, args)
+
+
+def _vjp_jax(fn, args, cot):
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    return [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+def test_functions_match_jax_oracle_gradients():
+    """In fp32, each Function's gradients against jax.vjp of the
+    reference's kernel oracle (repro.kernels.*.ref) on the same inputs,
+    within the repo's fp32 tolerance; flash with GQA and causal."""
+    rng = np.random.RandomState(2)
+    x, w1, w3, w2, dy = (rng.randn(*s).astype(np.float32) * sc for s, sc in
+                         (((16, 32), 1.0), ((32, 64), 0.2), ((32, 64), 0.2),
+                          ((64, 32), 0.2), ((16, 32), 1.0)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, w1, w3, w2)]
+    got = torch.autograd.grad(FusedMLP.apply(*ts), ts, torch.from_numpy(dy))
+    want = _vjp_jax(jax_fused_mlp_ref, (x, w1, w3, w2), dy)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **_tol("float32"))
+    q, k, v, do = (rng.randn(*s).astype(np.float32) for s in
+                   ((8, 40, 16), (2, 40, 16), (2, 40, 16), (8, 40, 16)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(FlashAttention.apply(*ts, True), ts,
+                              torch.from_numpy(do))
+    want = _vjp_jax(lambda q, k, v: jax_attention_ref(q, k, v, causal=True),
+                    (q, k, v), do)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **_tol("float32"))
+
+
+def test_functions_match_autograd_of_plain_bf16():
+    """In bf16 (the card's dtype, here on the CPU), the explicit
+    backwards against autograd through the plain versions, within the
+    repo's bf16 tolerance on gradients scaled to a largest magnitude of 1
+    (the O(1) scale of the outputs that tolerance was set for; the fused
+    MLP's backward rounds g, u, dg and du to bf16, and flash's P and dS,
+    where autograd of the fp32 plain version does not, about one bf16
+    step: ~3e-3 relative RMS, at most 7e-3 of the largest gradient)."""
+    gen = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(
+            torch.bfloat16).requires_grad_()
+
+    cases = [(lambda *a: FusedMLP.apply(*a), fused_mlp_ref,
+              (rnd(64, 128), rnd(128, 256, scale=128 ** -0.5),
+               rnd(128, 256, scale=128 ** -0.5),
+               rnd(256, 128, scale=256 ** -0.5))),
+             (lambda q, k, v: FlashAttention.apply(q, k, v, True),
+              lambda q, k, v: attention_ref(q, k, v, True),
+              (rnd(2, 96, 4, 64), rnd(2, 96, 2, 64), rnd(2, 96, 2, 64)))]
+    for fn, plain, args in cases:
+        dy = torch.randn(fn(*args).shape, generator=gen).to(torch.bfloat16)
+        got = torch.autograd.grad(fn(*args), args, dy)
+        want = torch.autograd.grad(plain(*args), args, dy)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == torch.bfloat16
+            top = w.float().abs().max()
+            torch.testing.assert_close(g.float() / top, w.float() / top,
+                                       **_tol("bfloat16"))
+
+
+def test_refuse_grad_guard():
+    """The raw wrappers' guard: raises when grad mode is on and an input
+    requires grad (a ctypes launch would drop that gradient), and lets
+    detached inputs, no_grad and inference_mode through."""
+    t = torch.zeros(2, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward.*use X"):
+        _build.refuse_grad("op", (t.detach(), t), "use X")
+    _build.refuse_grad("op", (t.detach(),), "use X")
+    with torch.no_grad():
+        _build.refuse_grad("op", (t,), "use X")
+    with torch.inference_mode():
+        _build.refuse_grad("op", (t,), "use X")
+
+
+def test_plain_ops_keep_autograd_on_cpu():
+    """On CPU tensors the raw ops run their plain versions, so autograd
+    flows through them (the guard is for CUDA launches only)."""
+    rng = np.random.RandomState(4)
+    x = _f64(rng, 1, 16, 2, 64)
+    dt = torch.from_numpy(np.log1p(np.exp(rng.randn(1, 16, 2)))
+                          ).requires_grad_()
+    a = torch.from_numpy(-np.exp(rng.randn(2) * 0.2)).requires_grad_()
+    bm, cm = _f64(rng, 1, 16, 1, 8), _f64(rng, 1, 16, 1, 8)
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=8)
+    grads = torch.autograd.grad(y.sum() + state.sum(), (x, dt, a, bm, cm))
+    assert all(bool(torch.isfinite(g).all()) and g.abs().sum() > 0
+               for g in grads)
+    q = _f64(rng, 1, 8, 2, 16)
+    assert flash_attention(q, q, q).grad_fn is not None
+    w = _f64(rng, 16, 16)
+    assert fused_mlp(q[0, :, 0], w, w, w).grad_fn is not None
 
 
 # ---------------------------------------------------------------------------
