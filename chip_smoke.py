@@ -18,32 +18,44 @@ Phases, each raising on failure:
                 ssd_scan at chunk 64, grouped, in the Pallas layout and at
                 zamba2_1_2b's geometry; fused_mlp's and ssd_scan's bitwise
                 determinism; the device time of each of ssd_scan's three
-                kernel launches (torch.profiler).
+                kernel launches (torch.profiler); and each kernel at the
+                registry's smoke shapes (flash hd 16, fused_mlp K 64 / F
+                128, ssd_scan P 16 / N 16), which its op zero-pads to the
+                kernel's native sizes, with each call's launch counted.
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
                 CPU in fp32, on the same weights: granite_8b and mamba2_780m
                 at 2 layers, zamba2_1_2b at 6 (its shared block fires once);
                 each kernel's launches per step are checked.
   5. serve   -- full-width, full-depth Engines: granite_8b serves 4 requests
-                of 512 prompt tokens and mamba2_780m 4 of 2048, 32 greedy new
+                of 512 prompt tokens, mamba2_780m and zamba2_1_2b (38
+                layers, its shared block 6 times) 4 of 2048, 32 greedy new
                 tokens each; each path's launch counters, zeroed just before
                 it, must show that it went through its kernels; then each is
                 profiled over one prefill and 3 decode steps.
   6. train   -- the training half: (a) each kernel's autograd Function
-                (kernel forward, explicit torch backward) at olmo_1b's
-                train shapes: its output against the plain version, its
-                gradients against autograd of the plain version, with its
-                backward's time; (b) at full width and 2 layers, one train
-                step's loss, gradient norm and every gradient leaf on the
-                card in bf16 through the kernels against the port's CPU fp32
-                path; (c) full-width, full-depth olmo_1b (fp32 params and
-                AdamW moments, bf16 compute, remat "full") trains 8 steps of
-                4 x 2048 tokens through the port's Trainer: finite,
-                decreasing loss, both kernels in every step (forward and
-                remat recompute), step time, tokens/s, peak memory, model-
-                FLOP share, a profiled step and its forward/backward/
-                optimizer split; (d) checkpoint: a failed run resumes
-                bitwise from its checkpoint, which also restores on the CPU.
+                (kernel forward, explicit torch backward) at the train
+                shapes (flash and fused_mlp at olmo_1b's, SSDScan at
+                mamba2_780m's): its output against the plain version, its
+                gradients against autograd of the plain version (SSDScan:
+                of the chunked form ``ssd_chunked``), with its backward's
+                time; (b) one train step's loss, gradient norm and every
+                gradient leaf on the card in bf16 through the kernels
+                against the port's CPU fp32 path, at full width: olmo_1b
+                and mamba2_780m at 2 layers, zamba2_1_2b at 6, the ssm pair
+                at S = 512 (the real chunk of 256); (c) full-width,
+                full-depth olmo_1b, mamba2_780m and zamba2_1_2b (fp32
+                params and AdamW moments, bf16 compute, remat "full") train
+                8 steps of 4 x 2048 tokens each through the port's Trainer:
+                finite, decreasing loss, every kernel of the model in every
+                step (forward and remat recompute), step time, tokens/s,
+                peak memory, model-FLOP share, a profiled step and its
+                forward/backward/optimizer split; (d) checkpoint: a failed
+                run resumes bitwise from its checkpoint, which also
+                restores on the CPU.
+  7. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
+                their defaults (the smoke config on cuda) for olmo_1b,
+                mamba2_780m and zamba2_1_2b, each through its kernels.
 The last two lines of output are a JSON ``kernels`` line and the JSON result
 line. Exits non-zero, printing no result, without a GPU or without the repo.
 """
@@ -74,8 +86,10 @@ from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
 from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
-from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
-                                          ssd_scan, to_pallas_layout)
+from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
+                                          ssd_ref, ssd_scan, to_pallas_layout)
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models.common import (keeps_fp32, tree_get,  # noqa: E402
@@ -87,8 +101,10 @@ from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          adamw_update, global_norm)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
-# H100 SXM data sheet: dense bf16 tensor rate and HBM3 bandwidth.
+# H100 SXM data sheet: dense bf16 tensor rate, float32 rate outside the
+# tensor cores, and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BF16 = torch.bfloat16
 SEED = 0
@@ -131,9 +147,32 @@ GRAD_ATOL = GRAD_RTOL = 2e-2
 # about ln(vocab) whatever the layers compute, and one leaf moves the
 # global norm little, so those two limits only catch a broken loss or a
 # gross fault; each sits about 10x above the larger spread seen.
+# SSDScan's gradients vs autograd of the fp32 chunked form, same inputs,
+# each scaled by its largest magnitude: the backward reads no kernel output,
+# so the two differ by fp32 sums in another order, and dx, dB, dC (bf16, as
+# x, B, C) by at most one bf16 step where those sums round to neighbouring
+# values: below 2^-7 = 7.8e-3 of the largest magnitude. Measured on an H100
+# at mamba2_780m's train shape (PERF.md): dx 1.19e-3, dB 5.78e-3, dC 5.81e-3
+# (one step at the top binade), ddt 7.9e-6, dA 2.3e-5 to 3.2e-5.
+SSD_GRAD_BF16 = 8e-3    # one bf16 step of the largest magnitude
+SSD_GRAD_FP32 = 1e-4    # ~4x the larger fp32 error measured
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GNORM_REL = 3e-4
 TRAIN_LEAF_REL_RMS = 5e-2   # ~4x the worst calibrated leaf
+# The ssm and hybrid steps, at full width and S = 512 (the real chunk of
+# 256), set by the same rule (loss and grad_norm ~10x, each leaf ~4x the
+# spread) from the same script's bf16-vs-fp32 spread on the CPU: mamba2_780m
+# at 2 layers, 2 x 512 tokens: loss rel 9.4e-6, grad_norm rel 2.2e-4, worst
+# leaf (layers/ssm/wC) 2.1e-2; zamba2_1_2b at 6 layers: 5.5e-5, 1.7e-4 and
+# 4.2e-2 (shared_attn/attn/wk). Both sit above olmo_1b's spread (more bf16
+# roundings a layer, and six layers), so olmo's limits would leave little
+# or no room: zamba2's loss and worst leaf alone are at half and 85% of
+# them. A wrong kernel is still O(1) on its leaves.
+TRAIN_LIMITS = {  # arch: (loss rel, grad_norm rel, leaf rel RMS)
+    "olmo_1b": (TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL_RMS),
+    "mamba2_780m": (1e-4, 2.5e-3, 9e-2),
+    "zamba2_1_2b": (6e-4, 2e-3, 1.7e-1),
+}
 
 
 def phase(name):
@@ -393,6 +432,58 @@ def ssd_launch_profile(args, chunk):
             for m, e in zip(names, evts)}
 
 
+def check_smoke_shapes(gen):
+    """Each kernel at the registry's smoke shapes, which its op zero-pads
+    to the kernel's native sizes (flash hd 16 -> 64, fused_mlp K 64 ->
+    128, ssd_scan P 16 -> 64), against its plain version: the serve
+    launcher's prefill (4 x 16 tokens) and a smoke train step's forward
+    (8 x 128). Each call must launch its kernel once. Returns {op: entry}
+    with the worst error and the launches counted."""
+    ocfg = get_config("olmo_1b", smoke=True)
+    mcfg = get_config("mamba2_780m", smoke=True)
+    h, hd = ocfg.n_heads, ocfg.hd
+    k, f = ocfg.d_model, ocfg.d_ff
+    hs, p, n, chunk = (mcfg.ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state,
+                       mcfg.ssm_chunk)
+    out = {}
+    reset_launch_counts()
+    for b, s in ((4, 16), (8, 128)):
+        q, kk, v = (randn(gen, b, s, h, hd) for _ in range(3))
+        err = compare(f"flash_attention [smoke B={b} S={s} H={h} hd={hd}, "
+                      "padded to 64]", flash_attention(q, kk, v),
+                      attention_ref(q, kk, v))
+        out["flash_attention"] = max(out.get("flash_attention", 0.0), err)
+        w1, w3 = (randn(gen, k, f, scale=k ** -0.5) for _ in range(2))
+        w2 = randn(gen, f, k, scale=f ** -0.5)
+        x = randn(gen, b * s, k)
+        err = compare(f"fused_mlp [smoke M={b * s} K={k} F={f}, K padded to "
+                      f"128, {regime(b * s)} kernels]",
+                      fused_mlp(x, w1, w3, w2), fused_mlp_ref(x, w1, w3, w2))
+        out["fused_mlp"] = max(out.get("fused_mlp", 0.0), err)
+        args = ssd_inputs(gen, b, s, hs, mcfg.ssm_groups, n, p)
+        y, state = ssd_scan(*args, chunk=chunk)
+        want_y, want_state = from_pallas_layout(
+            *ssd_ref(*to_pallas_layout(*args)), b)
+        err = compare(f"ssd_scan y [smoke B={b} S={s} H={hs} P={p} N={n} "
+                      f"chunk {chunk}, P padded to 64]", y, want_y,
+                      SSD_ATOL, SSD_RTOL)
+        compare(f"ssd_scan state [smoke B={b} S={s}]", state, want_state,
+                SSD_ATOL, SSD_RTOL)
+        out["ssd_scan"] = max(out.get("ssd_scan", 0.0), err)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  smoke-shape launches {counts} (2 calls of each op)", flush=True)
+    if counts != {op: 2 for op in counts}:
+        raise RuntimeError("a smoke-shape call did not launch its kernel")
+    shapes = {"flash_attention": f"B=4 S=16 and B=8 S=128, H={h} hd={hd}",
+              "fused_mlp": f"M=64 and M=1024, K={k} F={f}",
+              "ssd_scan": f"B=4 S=16 and B=8 S=128, H={hs} P={p} N={n} "
+                          f"chunk {chunk}"}
+    return {op: {"max_abs_err": err, "launches": counts[op],
+                 "shape": shapes[op] + ", padded inside the op"}
+            for op, err in out.items()}
+
+
 def _cuobjdump():
     """The toolkit's cuobjdump, else the copy Triton bundles, else None."""
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -593,6 +684,16 @@ def report(prof, label, wall, top=8):
     print("    port kernels: " + (", ".join(
         f"{op} {ms:.3f} ms ({100 * ms / busy:.1f}%, {n} launches)"
         for op, (ms, n) in sorted(ops.items())) or "none"), flush=True)
+    # the Functions' explicit torch backwards: device time of every kernel
+    # launched under each autograd node
+    bwd = [e for e in prof.key_averages() if e.key.startswith(
+        "autograd::engine::evaluate_function: ") and e.key.endswith(
+        ("FlashAttentionBackward", "FusedMLPBackward", "SSDScanBackward"))]
+    if bwd:
+        print("    Function backwards: " + ", ".join(
+            f"{e.key.rsplit(' ', 1)[-1]} {e.device_time_total / 1e3:.3f} ms "
+            f"({100 * e.device_time_total / 1e3 / busy:.1f}%, x{e.count})"
+            for e in bwd), flush=True)
 
 
 def profile(eng, prompts):
@@ -673,13 +774,20 @@ def check_train_kernels(gen, flush):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
     y_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     lib = backward_ms(y_lib, (q, kk, v), do.transpose(1, 2), flush)
+    # five products over the causal pairs (S, dV, dP, dQ, dK; the row sums
+    # rowsum(dO o O) = rowsum(P o dP) need no sixth); q, k, v, dO read and
+    # dq, dk, dv written once, bf16
+    pairs = s * (s + 1) / 2
+    bms, by = bound_ms(10.0 * b * h * hd * pairs, 7 * 2.0 * b * s * h * hd)
     print(f"  FlashAttention backward: {ms:.4f} ms (explicit torch: bf16 "
           f"cuBLAS products, materialised fp32 softmax), plain autograd "
-          f"{plain:.4f} ms, SDPA backward {lib:.4f} ms", flush=True)
+          f"{plain:.4f} ms, SDPA backward {lib:.4f} ms, bound {bms:.4f} ms "
+          f"({by})", flush=True)
     out["flash_attention"] = {
         "max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
         "plain_backward_ms": plain,
-        "library_backward_ms": lib,
+        "library_backward_ms": lib, "backward_bound_ms": bms,
+        "backward_bound_by": by,
         "shape": f"B={b} S={s} H={h} KV={h} hd={hd} causal bf16"}
     del y, y_lib, got, q, kk, v, do, qt, kt, vt
     torch.cuda.empty_cache()
@@ -704,33 +812,122 @@ def check_train_kernels(gen, flush):
     del y_ref, want
     y_lib = (F.silu(x @ w1) * (x @ w3)) @ w2
     lib = backward_ms(y_lib, args, dy, flush)
+    # eight products of 2 M K F (g and u recomputed, dW2, dh, dx's two,
+    # dW1, dW3); x, W1, W3, W2, dy read and dx, dW1, dW3, dW2 written once
+    bms, by = bound_ms(16.0 * m * k * f, 2.0 * (3 * m * k + 6 * k * f))
     print(f"  FusedMLP backward: {ms:.4f} ms (explicit torch, bf16 cuBLAS "
           f"products), plain autograd {plain:.4f} ms, cuBLAS-chain autograd "
-          f"{lib:.4f} ms", flush=True)
+          f"{lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
     out["fused_mlp"] = {
         "max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
         "plain_backward_ms": plain,
-        "library_backward_ms": lib, "shape": f"M={m} K={k} F={f} bf16"}
+        "library_backward_ms": lib, "backward_bound_ms": bms,
+        "backward_bound_by": by, "shape": f"M={m} K={k} F={f} bf16"}
     del y, y_lib, got, args, x, w1, w3, w2, dy
     torch.cuda.empty_cache()
+    out["ssd_scan"] = check_ssd_train(gen, flush)
     return out
 
 
+def check_ssd_train(gen, flush):
+    """SSDScan at mamba2_780m's train shape (B=4 S=2048 H=48 P=64 N=128,
+    chunk 256): its forward (the kernel) against the plain version, its
+    gradients (the final state unused, as in training) against autograd
+    of the chunked form ``ssd_chunked`` in fp32 on the card, each scaled
+    by its largest magnitude, all finite; the backward's time against that
+    autograd's and the plain version's."""
+    cfg = get_config("mamba2_780m")
+    b, s, h, p = 4, 2048, cfg.ssm_heads, cfg.ssm_head_dim
+    g, n, chunk = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
+    label = f"B={b} S={s} H={h} P={p} N={n} G={g} chunk {chunk}"
+    args = [t.requires_grad_() for t in ssd_inputs(gen, b, s, h, g, n, p)]
+    dy = randn(gen, b, s, h, p)
+    y, _ = SSDScan.apply(*args, chunk)
+    y_ref, _ = from_pallas_layout(*ssd_ref(*to_pallas_layout(*args)), b)
+    torch.cuda.synchronize()
+    fwd_err = compare(f"SSDScan forward [{label}]", y, y_ref, SSD_ATOL,
+                      SSD_RTOL)
+    got = torch.autograd.grad(y, args, dy, retain_graph=True)
+    y_chain, _ = ssd_chunked(*args, chunk)
+    want = torch.autograd.grad(y_chain, args, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, gt, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        if not bool(torch.isfinite(gt).all()):
+            raise RuntimeError(f"SSDScan {name} is not finite")
+        top = float(w.float().abs().max())
+        limit = SSD_GRAD_BF16 if gt.dtype == BF16 else SSD_GRAD_FP32
+        errs[name] = compare(f"SSDScan {name} {str(gt.dtype)[6:]} (scaled "
+                             f"by max {top:.3e})", gt.float() / top,
+                             w.float() / top, limit, 0.0)
+    del got, want
+    ms = backward_ms(y, args, dy, flush)
+    lib = backward_ms(y_chain, args, dy, flush)
+    del y_chain
+    plain = backward_ms(y_ref, args, dy, flush, reps=2)
+    del y_ref
+    # per (batch, head, chunk): C B^T recomputed, dM = dy x^T, M^T dy,
+    # dscores B, dscores^T C (L x L); the chunk state, C S_prev, dC's and
+    # dS_prev's off-diagonal terms, B dS, x dS^T (L x N x P); the inputs
+    # and dy read and the five gradients written once
+    nc = s // chunk
+    flops = 2.0 * b * h * nc * (chunk * chunk * (3 * n + 2 * p)
+                                + 6 * chunk * n * p)
+    nbytes = (3 * 2 * b * s * h * p + 2 * 4 * b * s * h + 2 * 4 * h
+              + 4 * 2 * b * s * g * n)
+    bms, by = bound_ms(flops, nbytes)
+    print(f"  SSDScan backward: {ms:.4f} ms (explicit torch, fp32 cuBLAS "
+          f"products), autograd of ssd_chunked {lib:.4f} ms, plain autograd "
+          f"(sequential ssd_ref) {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
+          f"{flops / 1e9:.2f} GFLOP at the bf16 rate, "
+          f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 rate of the "
+          f"products it runs; {nbytes / 1e6:.2f} MB)", flush=True)
+    del y, args, dy
+    torch.cuda.empty_cache()
+    return {"max_abs_err": fwd_err, "grad_max_err": errs, "backward_ms": ms,
+            "plain_backward_ms": plain, "library_backward_ms": lib,
+            "library_backward": "autograd of the torch chain ssd_chunked",
+            "backward_bound_ms": bms, "backward_bound_by": by,
+            "shape": label + ", bf16 x/B/C, fp32 dt/A"}
+
+
 def expected_train_launches(cfg, steps: int):
-    """Kernel launches of ``steps`` dense train steps under remat "full":
-    each attention and MLP runs its kernel in the forward and again in
-    the backward's recompute; ssd_scan never (dense)."""
-    per = 2 * cfg.n_layers * steps
-    return {"flash_attention": per, "fused_mlp": per, "ssd_scan": 0}
+    """Kernel launches of ``steps`` train steps under remat "full": each
+    attention block, SwiGLU MLP and Mamba-2 layer runs its kernel in the
+    forward and again in the backward's recompute (the hybrid's shared
+    block once per firing)."""
+    if cfg.is_ssm_family:
+        blocks = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        ssd = cfg.n_layers
+    else:
+        blocks, ssd = cfg.n_layers, 0
+    return {"flash_attention": 2 * blocks * steps,
+            "fused_mlp": 2 * blocks * steps, "ssd_scan": 2 * ssd * steps}
 
 
-def check_train_numerics(n_layers=2, batch=2, seq=256):
-    """olmo_1b at full width and ``n_layers`` layers: one train step's
+def dead_leaves(grads, grads32, n_layers):
+    """Gradient leaves (per layer for stacked ones) that are zero on the
+    card where the CPU fp32 step's are not."""
+    dead = []
+
+    def one(path, w):
+        g = tree_get(grads, path)
+        parts = ([(f"{path}[{i}]", g[i], w[i]) for i in range(n_layers)]
+                 if path.startswith("layers/") else [(path, g, w)])
+        dead.extend(name for name, gi, wi in parts
+                    if bool(wi.abs().sum() > 0) and not bool(
+                        gi.abs().sum() > 0))
+    tree_map(one, grads32)
+    return dead
+
+
+def check_train_numerics(arch, n_layers, batch, seq):
+    """``arch`` at full width and ``n_layers`` layers: one train step's
     loss, gradient norm and every gradient leaf, card bf16 through the
     kernels vs the port's CPU fp32 path from the same weights and batch;
-    every projection and MLP weight of every layer gets a non-zero
-    gradient on the card."""
-    cfg = get_config("olmo_1b").with_(n_layers=n_layers)
+    every leaf is finite on the card, and non-zero wherever the CPU
+    step's is."""
+    cfg = get_config(arch).with_(n_layers=n_layers)
     params = model_zoo.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
     toks = np.random.RandomState(SEED).randint(
@@ -755,31 +952,31 @@ def check_train_numerics(n_layers=2, batch=2, seq=256):
     worst = max(rel, key=rel.get)
     loss_rel = abs(float(loss) - float(loss32)) / abs(float(loss32))
     gn_rel = abs(gn - gn32) / gn32
-    print(f"  olmo_1b {n_layers} layers, {batch} x {seq} tokens: launches "
+    lim_loss, lim_gn, lim_leaf = TRAIN_LIMITS[arch]
+    print(f"  {arch} {n_layers} layers, {batch} x {seq} tokens: launches "
           f"{counts} (as expected); CPU fp32 step {cpu_s:.1f} s", flush=True)
     print(f"  loss card {float(loss):.6f} cpu {float(loss32):.6f} rel "
-          f"{loss_rel:.3e} (limit {TRAIN_LOSS_REL}); grad_norm card "
-          f"{gn:.6f} cpu {gn32:.6f} rel {gn_rel:.3e} (limit "
-          f"{TRAIN_GNORM_REL})", flush=True)
+          f"{loss_rel:.3e} (limit {lim_loss}); grad_norm card "
+          f"{gn:.6f} cpu {gn32:.6f} rel {gn_rel:.3e} (limit {lim_gn})",
+          flush=True)
     for path, r in sorted(rel.items(), key=lambda kv: kv[1]):
         print(f"    {path}: rel RMS {r:.3e}", flush=True)
     print(f"  worst leaf {worst}: rel RMS {rel[worst]:.3e} (limit "
-          f"{TRAIN_LEAF_REL_RMS})", flush=True)
-    dead = [f"{path}[{i}]" for path in (
-        "layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
-        "layers/attn/wo", "layers/mlp/w1", "layers/mlp/w3", "layers/mlp/w2")
-        for i in range(n_layers)
-        if not bool(tree_get(grads, path)[i].abs().sum() > 0)]
-    print(f"  per-layer projection and MLP weights with a zero gradient: "
-          f"{dead or 'none'}", flush=True)
-    finite = np.isfinite(float(loss)) and all(
-        bool(torch.isfinite(tree_get(grads, p)).all()) for p in rel)
-    if (dead or not finite or loss_rel > TRAIN_LOSS_REL
-            or gn_rel > TRAIN_GNORM_REL
-            or rel[worst] > TRAIN_LEAF_REL_RMS):
-        raise RuntimeError("train step on the card disagrees with the fp32 "
-                           "CPU path")
+          f"{lim_leaf})", flush=True)
+    dead = dead_leaves(grads, grads32, n_layers)
+    nonfinite = []
+    tree_map(lambda path, g: None if bool(torch.isfinite(g).all())
+             else nonfinite.append(path), grads)
+    print(f"  leaves zero on the card but not on the CPU: {dead or 'none'}; "
+          f"not finite: {nonfinite or 'none'}", flush=True)
+    if (dead or nonfinite or not np.isfinite(float(loss))
+            or loss_rel > lim_loss or gn_rel > lim_gn
+            or rel[worst] > lim_leaf):
+        raise RuntimeError(f"{arch} train step on the card disagrees with "
+                           "the fp32 CPU path")
     del params, grads, cpu_params, grads32
+    return {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+            "worst_leaf": worst, "worst_leaf_rel_rms": rel[worst]}
 
 
 def _timed(fn):
@@ -808,10 +1005,10 @@ def _step_split(cfg, opt_cfg, params, opt, batch):
     return {"forward": fwd, "backward": fwd_bwd - fwd, "optimizer": opt_ms}
 
 
-def train_full(steps=8, batch=4, seq=2048):
-    """Full-width, full-depth olmo_1b through the port's Trainer (module
+def train_full(arch, steps=8, batch=4, seq=2048):
+    """Full-width, full-depth ``arch`` through the port's Trainer (module
     docstring, phase 6c). Returns the kernels' launch counts of the run."""
-    cfg = get_config("olmo_1b")
+    cfg = get_config(arch)
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
     tr = Trainer(cfg, opt_cfg, TrainerConfig(steps=steps, log_every=1),
                  DataConfig(batch=batch, seq=seq), device="cuda")
@@ -826,7 +1023,7 @@ def train_full(steps=8, batch=4, seq=2048):
     losses = [h["loss"] for h in tr.metrics_history]
     params, opt = tr.final_state
     n_params = cfg.params_count(params)
-    print(f"  olmo_1b {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"  {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.4f} B params (fp32, AdamW moments fp32), bf16 "
           f"compute, remat {cfg.remat_policy!r}; {steps} steps of {batch} x "
           f"{seq} tokens in {wall:.1f} s (init included)", flush=True)
@@ -860,7 +1057,8 @@ def train_full(steps=8, batch=4, seq=2048):
           f"inclusive; backward = value_and_grad less the forward): {parts}",
           flush=True)
     profile_train_step(tr, params, opt, batch_t)
-    del tr, params, opt
+    del tr, params, opt, batch_t
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -880,15 +1078,12 @@ def profile_train_step(tr, params, opt, batch):
 
 
 def check_checkpoint():
-    """Resume and restore: olmo_1b_smoke widened to the kernels' sizes
-    (d_model 256, 4 heads of 64, d_ff 512: its own 16-wide heads and
-    64-wide model are below what the kernels take, and the card path
-    does not fall back) trains on the card, fails at step 9, and a fresh
-    Trainer resumes from the step-8 checkpoint to step 12; the restored
-    params and moments are bitwise those saved, and the last checkpoint
-    restores on the CPU bitwise."""
-    cfg = get_config("olmo_1b", smoke=True).with_(
-        d_model=256, n_heads=4, n_kv_heads=4, d_ff=512)
+    """Resume and restore: olmo_1b_smoke (its 16-wide heads and K 64
+    padded inside the kernels' ops) trains on the card, fails at step 9,
+    and a fresh Trainer resumes from the step-8 checkpoint to step 12; the
+    restored params and moments are bitwise those saved, and the last
+    checkpoint restores on the CPU bitwise."""
+    cfg = get_config("olmo_1b", smoke=True)
     saved = {}
     with tempfile.TemporaryDirectory() as d:
         def trainer():
@@ -922,8 +1117,8 @@ def check_checkpoint():
         res = ckpt_lib.restore(d, final, device="cpu")
         on_cpu = res is not None and res[0] == 12 and _bitwise(
             {"params": res[1]["params"], "opt": res[1]["opt"]}, final)
-        print(f"  {cfg.arch_id} widened (d_model 256, hd 64, d_ff 512) on "
-              f"the card: failed at step 9, checkpoints {sorted(saved)}, "
+        print(f"  {cfg.arch_id} on the card: failed at step 9, "
+              f"checkpoints {sorted(saved)}, "
               f"restored step {restored} bitwise equal "
               f"to the saved state: {same}; resumed to step {t2.step}; "
               f"step-12 checkpoint restores on the CPU bitwise: {on_cpu}",
@@ -931,6 +1126,33 @@ def check_checkpoint():
         if not (same and on_cpu and restored == 8 and t2.step == 12
                 and ckpt_lib.latest_step(d) == 12):
             raise RuntimeError("checkpoint resume or restore failed")
+
+
+def run_launchers(arch):
+    """``python -m repro_torch.launch.train`` (2 steps) and ``...serve``
+    with their defaults (the smoke config, on cuda), in this process so
+    that their kernel launches are counted: each must launch the kernels
+    of its model, training each in every step's forward and recompute."""
+    cfg = get_config(arch, smoke=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    train_launcher.main(["--arch", arch, "--steps", "2"])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    trained = launch_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    serve_launcher.main(["--arch", arch])
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    served = launch_counts()
+    want = expected_train_launches(cfg, 2)
+    print(f"  launch.train --arch {arch} --steps 2 ({cfg.arch_id} on cuda): "
+          f"{t_train:.1f} s, launches {trained} (expected {want}); "
+          f"launch.serve --arch {arch}: {t_serve:.1f} s, launches {served}",
+          flush=True)
+    if trained != want or any(served[op] == 0 for op, n in want.items() if n):
+        raise RuntimeError(f"{arch}: a launcher did not run the kernels")
 
 
 def _bitwise(got, want):
@@ -976,6 +1198,9 @@ def main():
     entries = [check_flash(gen, flush), check_fused_mlp(gen, flush),
                check_ssd(gen, flush)]
     del flush
+    smoke = check_smoke_shapes(gen)
+    for e in entries:
+        e["smoke"] = smoke[e["name"]]
     torch.cuda.empty_cache()
 
     phase("numerics")
@@ -988,13 +1213,16 @@ def main():
     # each kernel's launches come from the path that runs it
     path_of = {"flash_attention": "granite_8b", "fused_mlp": "granite_8b",
                "ssd_scan": "mamba2_780m"}
-    launches = {"granite_8b": serve("granite_8b", 4, 512, 32)}
-    torch.cuda.empty_cache()
-    launches["mamba2_780m"] = serve("mamba2_780m", 4, 2048, 32)
+    launches = {}
+    for arch, batch, prompt in (("granite_8b", 4, 512),
+                                ("mamba2_780m", 4, 2048),
+                                ("zamba2_1_2b", 4, 2048)):
+        launches[arch] = serve(arch, batch, prompt, 32)
+        torch.cuda.empty_cache()
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
         e["launches_path"] = path_of[e["name"]]
-    torch.cuda.empty_cache()
+        e["zamba2_1_2b_serve_launches"] = launches["zamba2_1_2b"][e["name"]]
 
     phase("train")
     t_train = time.perf_counter()
@@ -1002,19 +1230,34 @@ def main():
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     train_entries = check_train_kernels(gen, flush)
     del flush
-    check_train_numerics()
+    torch.cuda.empty_cache()
+    numerics = {"olmo_1b": check_train_numerics("olmo_1b", 2, 2, 256),
+                "mamba2_780m": check_train_numerics("mamba2_780m", 2, 2, 512),
+                "zamba2_1_2b": check_train_numerics("zamba2_1_2b", 6, 2, 512)}
     torch.cuda.empty_cache()
     steps = 8
-    train_launches = train_full(steps=steps)
-    torch.cuda.empty_cache()
+    train_launches = {arch: train_full(arch, steps=steps)
+                      for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b")}
     check_checkpoint()
+    # flash and fused_mlp's train entries from olmo_1b, ssd_scan's from
+    # mamba2_780m: the paths that each carry the kernel at its train shape
+    train_path = {"flash_attention": "olmo_1b", "fused_mlp": "olmo_1b",
+                  "ssd_scan": "mamba2_780m"}
     for e in entries:
+        arch = train_path[e["name"]]
         e["train"] = {"launches_per_step":
-                      train_launches[e["name"]] // steps,
-                      "path": "olmo_1b train, remat full",
+                      train_launches[arch][e["name"]] // steps,
+                      "path": f"{arch} train, remat full",
+                      "zamba2_1_2b_launches_per_step":
+                      train_launches["zamba2_1_2b"][e["name"]] // steps,
+                      "step_numerics": numerics[arch],
                       **train_entries.get(e["name"], {})}
     print(f"  train phase wall {time.perf_counter() - t_train:.1f} s",
           flush=True)
+
+    phase("launchers")
+    for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b"):
+        run_launchers(arch)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

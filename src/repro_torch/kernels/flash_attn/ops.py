@@ -4,6 +4,13 @@ tensors, its plain version (``ref.attention_ref``) on CPU tensors.
 Replaces ``repro/kernels/flash_attn/flash_attn.py:flash_attention``.
 ``flash_attention.launches`` counts kernel launches (forwards only).
 
+Head dims the kernel does not take natively (any multiple of 8 up to 128,
+e.g. the smoke configs' 16) are zero-padded inside the op to the next
+size in ``HEAD_DIMS`` (``padded_head_dim``), with the softmax scale of
+the real head dim; the padded lanes add exact zeros to q k^T and give
+zero output columns, which are sliced off. The full configs' head dims
+are native, so their path never pads.
+
 ``FlashAttention`` puts the op under autograd: its forward is the op
 (the kernel on the card, in every forward, the recompute under remat
 included), its backward is explicit torch (``attention_bwd``). The raw
@@ -15,11 +22,22 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import attention_ref
 
 HEAD_DIMS = (64, 80, 96, 128)
+
+
+def padded_head_dim(hd: int) -> int:
+    """The head dim the kernel runs for a real head dim ``hd``: ``hd``
+    itself when native, else the smallest of ``HEAD_DIMS`` above it.
+    Raises ValueError unless ``hd`` is a multiple of 8 up to 128."""
+    if hd % 8 or not 0 < hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {hd} not a multiple of 8 in "
+                         f"[8, {HEAD_DIMS[-1]}]")
+    return next(d for d in HEAD_DIMS if d >= hd)
 
 
 def _bind(lib):
@@ -77,6 +95,12 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError("q, k, v must all be 3-D or all 4-D")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal)
+    _build.refuse_grad("flash_attention", (q, k, v),
+                       "call FlashAttention.apply, which has a backward")
+    hd = q.shape[-1]
+    pad = padded_head_dim(hd) - hd
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
     pallas_layout = q.dim() == 3
     if pallas_layout:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -84,21 +108,19 @@ def flash_attention(q, k, v, causal: bool = True):
     else:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         q4, k4, v4, o4 = q, k, v, out
-    _build.refuse_grad("flash_attention", (q, k, v),
-                       "call FlashAttention.apply, which has a backward")
     _check(q4, k4, v4)
-    b, sq, h, hd = q4.shape
+    b, sq, h, hdp = q4.shape
     skv, kv = k4.shape[1], k4.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
     lib = _build.load("flash_attn")
     with _build.on_device(q):
         rc = _bind(lib)(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                        o4.data_ptr(), b, h, kv, sq, skv, hd, int(causal),
+                        o4.data_ptr(), b, h, kv, sq, skv, hdp, int(causal),
                         1.0 / (hd ** 0.5), strides, _build.stream_ptr(q))
     _build.check(lib, "flash_attn", rc)
     flash_attention.launches += 1
-    return out
+    return out[..., :hd].contiguous() if pad else out
 
 
 flash_attention.launches = 0

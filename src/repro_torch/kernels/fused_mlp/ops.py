@@ -10,6 +10,14 @@ kernels on the card, in every forward, the recompute under remat
 included), its backward is explicit torch (``fused_mlp_bwd``). The raw
 op refuses to launch when autograd would record it (``_build.refuse_grad``).
 
+K and F that are multiples of 64 but not of the kernels' 128-wide tiles
+(the smoke configs' K = 64) are zero-padded inside the op
+(``padded_dims``): zero columns of x and W1/W3 rows and W2 columns for
+K, zero W1/W3 columns and W2 rows for F. silu(0) * 0 = 0, so h gains
+exact zeros and y's real columns do not change; the padded columns are
+sliced off. The full configs' K and F are multiples of 128, so their
+path never pads.
+
 Two regimes, chosen by M here: ``decode`` (M <= 64) runs the swap-AB
 cluster kernels, whose reduction is split over ``decode_split`` blocks;
 ``prefill`` runs the persistent wgmma kernels over ``row_chunks``, which
@@ -21,17 +29,28 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import fused_mlp_ref
 
-TILE = 128          # K and F must be multiples of the kernels' tiles
+TILE = 128          # K and F the kernels take are multiples of their tiles
+PAD_UNIT = 64       # K and F the op takes (padded to TILE) are multiples
 DECODE_MAX_M = 64   # M at or below which the decode kernels run
 SPLITS = (1, 2, 4, 8)  # cluster sizes of the decode kernels
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def padded_dims(k: int, f: int):
+    """(K, F) the kernels run for the real ``k`` and ``f``: each rounded
+    up to a multiple of ``TILE``. Raises ValueError unless both are
+    positive multiples of ``PAD_UNIT``."""
+    if k % PAD_UNIT or f % PAD_UNIT or k < 1 or f < 1:
+        raise ValueError(f"K={k} and F={f} must be multiples of {PAD_UNIT}")
+    return _cdiv(k, TILE) * TILE, _cdiv(f, TILE) * TILE
 
 
 def regime(m: int) -> str:
@@ -100,6 +119,8 @@ def _bound():
 
 
 def _check(x, w1, w3, w2):
+    """Raise ValueError unless the op takes these operands; returns the
+    (K, F) the kernels run (``padded_dims``)."""
     _build.require_cuda(x, w1, w3, w2)
     if any(t.dtype != torch.bfloat16 for t in (x, w1, w3, w2)):
         raise ValueError("fused_mlp kernel takes bfloat16 only, got "
@@ -110,12 +131,11 @@ def _check(x, w1, w3, w2):
         raise ValueError(f"shape mismatch x {tuple(x.shape)} w1 "
                          f"{tuple(w1.shape)} w3 {tuple(w3.shape)} w2 "
                          f"{tuple(w2.shape)}")
-    if k % TILE or f % TILE:
-        raise ValueError(f"K={k} and F={f} must be multiples of {TILE}")
     for t in (x, w1, w3, w2):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("fused_mlp needs contiguous, 16-byte aligned "
                              "operands")
+    return padded_dims(k, f)
 
 
 def fused_mlp(x, w1, w3, w2):
@@ -127,7 +147,12 @@ def fused_mlp(x, w1, w3, w2):
         return fused_mlp_ref(x, w1, w3, w2)
     _build.refuse_grad("fused_mlp", (x, w1, w3, w2),
                        "call FusedMLP.apply, which has a backward")
-    _check(x, w1, w3, w2)
+    kp, fp = _check(x, w1, w3, w2)
+    k0, f0 = x.shape[1], w1.shape[1]
+    if (kp, fp) != (k0, f0):
+        x = F.pad(x, (0, kp - k0))
+        w1, w3 = (F.pad(w, (0, fp - f0, 0, kp - k0)) for w in (w1, w3))
+        w2 = F.pad(w2, (0, kp - k0, 0, fp - f0))
     m, k = x.shape
     f = w1.shape[1]
     sms = _sm_count(x.device.index)
@@ -146,7 +171,7 @@ def fused_mlp(x, w1, w3, w2):
             if rc:
                 _build.check(_build.load("fused_mlp"), "fused_mlp", rc)
     fused_mlp.launches += 1
-    return y
+    return y[:, :k0].contiguous() if k != k0 else y
 
 
 fused_mlp.launches = 0

@@ -5,21 +5,42 @@ Replaces ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan``; like
 ``models.ssm.ssd_chunked`` it also returns the final state. One call of
 the op is one call of the C entry, which issues three kernel launches
 (chunk states, state passing, chunk scan) into a workspace this wrapper
-allocates; ``ssd_scan.launches`` counts calls of the op. The kernels
-have no backward yet: on CUDA tensors the op raises when autograd would
-record it (``_build.refuse_grad``) rather than drop the gradient.
+allocates; ``ssd_scan.launches`` counts calls of the op (forwards only).
+
+Head dims below the kernel's 64 (any multiple of 8, e.g. the smoke
+configs' 16) are zero-padded on P inside the op (``padded_head_dim``):
+the channels along P are independent, so y and the final state are the
+real channels' values, sliced. The full configs have P = 64 and never
+pad.
+
+``SSDScan`` puts the op under autograd: its forward is the op (the
+kernel on the card, in every forward, the recompute under remat
+included), its backward is explicit torch (``ssd_scan_bwd``), the
+chain rule of the chunked form ``models.ssm.ssd_chunked``. The raw op
+refuses to launch when autograd would record it (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import from_pallas_layout, ssd_ref, to_pallas_layout
 
 HEAD_DIM = 64     # P the kernel takes
 MAX_STATE = 128   # largest N the kernel takes (a multiple of 8)
+
+
+def padded_head_dim(p: int) -> int:
+    """The head dim the kernel runs for a real head dim ``p``: always
+    ``HEAD_DIM``. Raises ValueError unless ``p`` is a multiple of 8 up to
+    ``HEAD_DIM``."""
+    if p % 8 or not 0 < p <= HEAD_DIM:
+        raise ValueError(f"ssd_scan kernel takes a head dim that is a "
+                         f"multiple of 8 up to {HEAD_DIM}, got P={p}")
+    return HEAD_DIM
 
 
 def _bind(lib):
@@ -86,11 +107,12 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
             return ssd_ref(x, dt, a, bm, cm)
         y, state = ssd_ref(*to_pallas_layout(x, dt, a, bm, cm))
         return from_pallas_layout(y, state, x.shape[0])
-    _build.refuse_grad(
-        "ssd_scan", (x, dt, a, bm, cm),
-        "training the ssm and hybrid families on the card waits for "
-        "ROADMAP Queue 1's 'SSM and hybrid training' item (ssd_scan's "
-        "gradient); on CPU tensors the plain version keeps autograd")
+    _build.refuse_grad("ssd_scan", (x, dt, a, bm, cm),
+                       "call SSDScan.apply, which has a backward")
+    p0 = x.shape[-1]
+    pad = padded_head_dim(p0) - p0
+    if pad:
+        x = F.pad(x, (0, pad))
     if pallas_layout:  # as B = 1, H = G = BH: permuted views, no copy
         bh, _, p = x.shape
         y = torch.empty((bh, s, p), dtype=x.dtype, device=x.device)
@@ -125,7 +147,178 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
                 _build.stream_ptr(x))
     _build.check(lib, "ssd_scan", rc)
     ssd_scan.launches += 1
+    if pad:
+        return y[..., :p0].contiguous(), state[..., :p0].contiguous()
     return y, state
 
 
 ssd_scan.launches = 0
+
+
+BWD_BYTES = 1 << 30  # bound of one [rows, S/L, H, L, L] tensor of the backward
+
+
+def ssd_scan_bwd(x, dt, a, bm, cm, dy, dstate, chunk: int):
+    """Gradients (dx, ddt, dA, dB, dC) of the SSD scan in the model layout
+    (x [B,S,H,P], dt [B,S,H], a [H], bm/cm [B,S,G,N]) for the output's
+    gradient dy [B,S,H,P] and the final state's dstate [B,H,N,P] (None
+    when the state is unused, as in training).
+
+    Explicit torch: the chain rule of the chunked form
+    (``models.ssm.ssd_chunked``), recomputed from the inputs in ``acc``
+    (fp32; float64 for float64 inputs), as the reference's fp32 einsums.
+    Per chunk of L steps, with cum = cumsum(dt A), e = exp(cum):
+    y = [(C B^T) * exp(cum_i - cum_j) * dt_j]_(i>=j) x + e * (C S_prev),
+    S_next = S_prev * exp(cum_L) + B^T (w * x), w = exp(cum_L - cum) dt.
+    The backward runs y's inter-chunk term, the state recurrence in
+    reverse (g, the gradient of the state after a chunk: dS_c = g,
+    d exp(cum_L) = <g, S_prev>, g <- g exp(cum_L) + dS_prev), the chunk
+    states, then the intra-chunk term, and the reverse cumsum of d cum,
+    which is d(dt A). The decay is masked to -inf above the diagonal
+    before its exp, so no inf meets a zero gradient (the reference's
+    ``where(causal, exp(seg), 0)`` gives NaN there once a chunk's span of
+    dt |A| passes ~88.7 in fp32). The intra-chunk term's gradients come
+    from four [L, L] tensors: decay, SD = (C B^T) * decay, dM = dy x^T
+    and dscores = dM * decay * dt_j; dM * SD, whose column sums are
+    d dt_j and whose products with dt give d seg's row and column sums,
+    reuses dM's memory. dx comes back in x.dtype, ddt [B,S,H] and dA [H]
+    in ``acc``, dB and dC in B's dtype, summed over the H/G heads of each
+    group. Batch rows go in groups whose [rows, S/L, H, L, L] tensors
+    stay within ``BWD_BYTES`` (mamba2_780m's train batch of 4 is one
+    group of 403 MB tensors in fp32)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    rep = h // g
+    chunk = min(chunk, s)
+    nc = s // chunk
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    A = a.to(acc)[:, None]                                # [H, 1]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ddt = torch.empty((b, s, h), dtype=acc, device=x.device)
+    db = torch.empty(bm.shape, dtype=bm.dtype, device=x.device)
+    dc = torch.empty(cm.shape, dtype=cm.dtype, device=x.device)
+    da = torch.zeros((h,), dtype=acc, device=x.device)
+    row_bytes = nc * h * chunk * chunk * (torch.finfo(acc).bits // 8)
+    rows = max(1, BWD_BYTES // row_bytes)
+
+    def chunked(t, k):  # [r, S, K, *] -> [r, nc, K, L, *] view
+        return t.reshape(t.shape[0], nc, chunk, k, -1).transpose(2, 3)
+
+    def heads(t):  # [r, S, H, P] -> [r, nc, H, L, P] in acc, contiguous
+        return chunked(t, h).to(acc, memory_format=torch.contiguous_format)
+
+    def groups(t):  # [r, S, G, N] -> [r, nc, H, L, N], group per head
+        t = chunked(t, g).to(acc, memory_format=torch.contiguous_format)
+        return t.repeat_interleave(rep, dim=2) if rep > 1 else t
+
+    def group_sum(t):  # [r, nc, H, L, N] -> [r, nc, G, L, N]
+        return t.reshape(t.shape[0], nc, g, rep, chunk, n).sum(3)
+
+    for i0 in range(0, b, rows):
+        rs = slice(i0, i0 + rows)
+        xi, dyi = heads(x[rs]), heads(dy[rs])             # [r,nc,H,L,P]
+        bi, ci = groups(bm[rs]), groups(cm[rs])           # [r,nc,H,L,N]
+        dti = chunked(dt[rs], h)[..., 0].to(acc)          # [r,nc,H,L]
+        cum = torch.cumsum(dti * A, dim=-1)
+        cum_l = cum[..., -1:]
+        w = torch.exp(cum_l - cum) * dti
+        s_c = bi.transpose(-1, -2) @ (w[..., None] * xi)  # [r,nc,H,N,P]
+        d_c = torch.exp(cum_l[..., 0])                    # [r,nc,H]
+        prev = torch.empty_like(s_c)                      # state before c
+        state = torch.zeros_like(s_c[:, 0])
+        for c in range(nc):
+            prev[:, c] = state
+            state = torch.addcmul(s_c[:, c], state, d_c[:, c, :, None, None])
+        del s_c, state
+
+        # y_off = e * (C S_prev)
+        e = torch.exp(cum)
+        dcum = (dyi * (ci @ prev)).sum(-1).mul_(e)
+        dye = dyi * e[..., None]
+        dci = dye @ prev.transpose(-1, -2)
+        dprev = ci.transpose(-1, -2) @ dye
+        del e, dye
+        # the state recurrence in reverse
+        gst = (torch.zeros_like(prev[:, 0]) if dstate is None
+               else dstate[rs].to(acc))
+        ds = torch.empty_like(prev)
+        dd = torch.empty_like(d_c)
+        for c in reversed(range(nc)):
+            ds[:, c] = gst
+            dd[:, c] = (gst * prev[:, c]).sum((-1, -2))
+            gst = torch.addcmul(dprev[:, c], gst, d_c[:, c, :, None, None])
+        del prev, dprev, gst
+        # S_c = B^T (w * x), w = exp(cum_L - cum) dt
+        bds = bi @ ds                                     # [r,nc,H,L,P]
+        dxi = w[..., None] * bds
+        dbi = (xi @ ds.transpose(-1, -2)).mul_(w[..., None])
+        dw = (bds * xi).sum(-1)
+        del bds, ds
+        ddti = dw * torch.exp(cum_l - cum)
+        dw.mul_(w)
+        dcum -= dw
+        dcum[..., -1] += dw.sum(-1) + dd * d_c            # d cum_L
+        del dw, w
+        # y_diag = M x, M = (C B^T) * decay * dt_j
+        decay = ((cum[..., :, None] - cum[..., None, :])
+                 .masked_fill_(~causal, float("-inf")).exp_())
+        sd = (ci @ bi.transpose(-1, -2)).mul_(decay)      # scores * decay
+        dxi += dti[..., None] * (sd.transpose(-1, -2) @ dyi)  # M^T dy
+        dscores = dyi @ xi.transpose(-1, -2)              # dM
+        dsu = dscores * sd                                # dM * scores * decay
+        del sd
+        dscores.mul_(decay.mul_(dti[..., None, :]))       # dM * decay * dt_j
+        del decay
+        col = dsu.sum(-2)                                 # d dt_j
+        ddti += col
+        dcum += (dsu @ dti[..., None])[..., 0] - dti * col  # d seg's sums
+        del dsu, col
+        dci += dscores @ bi
+        dbi += dscores.transpose(-1, -2) @ ci
+        del dscores
+        # cum = cumsum(dt A): d(dt A) is the reverse cumsum of d cum
+        dda = dcum.flip(-1).cumsum(-1).flip(-1)
+        ddti += dda * A
+        da += (dda * dti).sum((0, 1, 3))
+
+        chunked(dx[rs], h).copy_(dxi)
+        chunked(ddt[rs], h)[..., 0].copy_(ddti)
+        chunked(db[rs], g).copy_(group_sum(dbi))
+        chunked(dc[rs], g).copy_(group_sum(dci))
+    return dx, ddt, da, db, dc
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` under autograd, in the model layout (x [B,S,H,P], dt
+    [B,S,H], a [H], bm/cm [B,S,G,N]); returns (y, final state), as the op
+    does.
+
+    Forward is the op as it is: the hand-written kernels on CUDA tensors
+    (so the kernel runs in every forward, including the recompute under
+    remat), the plain version on CPU tensors. Backward is explicit torch
+    recomputed from the saved inputs (``ssd_scan_bwd``): the TPU kernel
+    is forward-only, and the reference's gradients come from XLA's
+    autodiff of its chunked einsums outside any Pallas kernel, so there
+    is no backward kernel to port. This is not a fallback; a Hopper
+    backward kernel is later speed work (ROADMAP Queue 2). An unused
+    output's gradient arrives as None (the final state, in training)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm, chunk=128):
+        if x.dim() != 4:
+            raise ValueError(f"SSDScan takes the model layout x [B,S,H,P], "
+                             f"got {tuple(x.shape)}")
+        ctx.save_for_backward(x, dt, a, bm, cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, bm, cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return (*ssd_scan_bwd(x, dt, a, bm, cm, dy, dstate, ctx.chunk),
+                None)

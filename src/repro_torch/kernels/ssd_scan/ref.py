@@ -9,12 +9,14 @@ def ssd_ref(x, dt, a, bm, cm):
     """x [BH, S, P]; dt [BH, S, 1]; a [BH, 1, 1]; bm/cm [BH, S, N].
 
     h_t = exp(dt_t * a) h_{t-1} + dt_t * B_t (x) x_t ; y_t = C_t . h_t,
-    in fp32. Returns (y [BH, S, P] in x.dtype, h_S [BH, N, P] fp32)."""
+    in fp32 (float64 for float64 inputs). Returns (y [BH, S, P] in
+    x.dtype, h_S [BH, N, P] in that accumulation type)."""
     bh, s, p = x.shape
     n = bm.shape[-1]
-    xf, dtf, bf, cf = (t.float() for t in (x, dt[..., 0], bm, cm))
-    af = a.float()[:, 0, 0]
-    h = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, bf, cf = (t.to(acc) for t in (x, dt[..., 0], bm, cm))
+    af = a.to(acc)[:, 0, 0]
+    h = torch.zeros((bh, n, p), dtype=acc, device=x.device)
     ys = []
     for t in range(s):
         da = torch.exp(dtf[:, t] * af)

@@ -108,12 +108,14 @@ SSM_FP32_LEAVES = ("dt_bias", "A_log", "D", "gn_scale")
 
 def keeps_fp32(path: str) -> bool:
     """True for the leaves that stay fp32 when the weights are cast: the
-    norm scales and the SSM's ``dt_bias``, ``A_log``, ``D`` and
-    ``gn_scale``, as the reference creates them in fp32 regardless of
-    ``param_dtype``. ``path`` is a '/'-joined ``tree_map`` path."""
+    norm scales, the SSM's ``dt_bias``, ``A_log``, ``D`` and
+    ``gn_scale``, and the MoE ``router`` (``repro/models/mlp.py:52``), as
+    the reference creates them in fp32 regardless of ``param_dtype``.
+    ``path`` is a '/'-joined ``tree_map`` path."""
     keys = path.split("/")
-    return "norm" in keys[-1] or ("ssm" in keys[:-1]
-                                  and keys[-1] in SSM_FP32_LEAVES)
+    return ("norm" in keys[-1]
+            or ("ssm" in keys[:-1] and keys[-1] in SSM_FP32_LEAVES)
+            or ("moe" in keys[:-1] and keys[-1] == "router"))
 
 
 def tree_leaves(tree: PyTree):

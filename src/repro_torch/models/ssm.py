@@ -1,11 +1,13 @@
 """Mamba-2 (SSD -- state-space duality, arXiv:2405.21060) block.
 
-PyTorch counterpart of ``repro.models.ssm``. Prefill runs the chunked
-SSD scan: on CUDA tensors the hand-written kernel (``kernels.ssd_scan``),
-on CPU tensors ``ssd_chunked`` below, the reference's chunked dual form
-(intra-chunk quadratic term plus the inter-chunk state recurrence). Both
-return the final state, so prefill fills the decode cache from the same
-scan that gives its output.
+PyTorch counterpart of ``repro.models.ssm``. Prefill and training run
+the chunked SSD scan: on CUDA tensors the hand-written kernel through
+its autograd Function (``kernels.ssd_scan.SSDScan``: the kernel forward,
+an explicit torch backward), on CPU tensors ``ssd_chunked`` below, the
+reference's chunked dual form (intra-chunk quadratic term plus the
+inter-chunk state recurrence) under plain autograd. Both return the
+final state, so prefill fills the decode cache from the same scan that
+gives its output.
 
 Decode is the O(1)-per-token recurrence on the [H, N, P] state, in torch
 (no Pallas kernel stands behind it). Like the KV cache, the SSM cache is
@@ -63,9 +65,20 @@ def _causal_dw_conv(x, w):
     return sum(xp[:, i:i + s, :] * w[i] for i in range(k))
 
 
+def _causal_decay(seg, causal):
+    """exp(seg) where ``causal``, else 0, with seg masked to -inf before
+    the exp. The reference's ``where(causal, exp(seg), 0)``
+    (repro/models/ssm.py:80) gives the same values, but above the
+    diagonal seg = cum_i - cum_j > 0 overflows to inf once a chunk's span
+    of dt |A| passes ~88.7 in fp32, and its gradient, 0 * inf, is NaN."""
+    return torch.exp(seg.masked_fill(~causal, float("-inf")))
+
+
 def ssd_chunked(x, dt, A, B, C, chunk: int):
     """SSD scan. x [B,S,H,P]; dt [B,S,H] (>0); A [H] (<0);
-    B,C [B,S,G,N]. Returns (y [B,S,H,P], final state [B,H,N,P])."""
+    B,C [B,S,G,N]. Returns (y [B,S,H,P], final state [B,H,N,P]), summed
+    in fp32 (float64 for float64 inputs)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -74,10 +87,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
                          f"SSD chunk {chunk}")
     nc = s // chunk
 
-    xc = x.reshape(b, nc, chunk, h, p).float()
+    xc = x.reshape(b, nc, chunk, h, p).to(acc)
     dtc = dt.reshape(b, nc, chunk, h)
-    Bc = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
-    Cc = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).float()
+    Bc = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).to(acc)
+    Cc = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3).to(acc)
 
     dA = dtc * A                                      # [b,nc,L,h] (<0)
     cum = torch.cumsum(dA, dim=2)                     # inclusive cumsum
@@ -87,7 +100,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     seg = cum_h[..., :, None] - cum_h[..., None, :]   # [b,nc,h,i,j]
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()
-    decay = torch.where(causal, torch.exp(seg), 0.0)
+    decay = _causal_decay(seg, causal)
     M = scores * decay * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
     y_diag = torch.einsum("bchij,bcjhp->bcihp", M, xc)
 
@@ -96,7 +109,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     Sc = torch.einsum("bcjhn,bcjh,bcjhp->bchnp", Bc, dec_state * dtc, xc)
     chunk_decay = torch.exp(cum[:, :, -1, :])         # [b,nc,h]
 
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, n, p), dtype=acc, device=x.device)
     prev = []                                         # state BEFORE chunk
     for c in range(nc):
         prev.append(state)
@@ -110,9 +123,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
 
 def _ssd(x, dt, A, B, C, chunk: int):
-    """Kernel on CUDA, ``ssd_chunked`` on CPU; (y, final state)."""
+    """Kernel on CUDA (under autograd), ``ssd_chunked`` on CPU; (y, final
+    state)."""
     if x.is_cuda:
-        return ssd_kernel.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        return ssd_kernel.SSDScan.apply(x, dt, A, B, C, chunk)
     return ssd_chunked(x, dt, A, B, C, chunk)
 
 

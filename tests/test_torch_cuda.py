@@ -19,10 +19,13 @@ from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
                                             attention_ref, flash_attention)
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
-from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
-                                          ssd_scan, to_pallas_layout)
+from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
+                                          ssd_ref, ssd_scan, to_pallas_layout)
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
@@ -187,22 +190,96 @@ def test_ssd_kernel_is_deterministic(cuda, n, chunk):
 
 
 def test_kernels_raise_for_unsupported_input(cuda):
+    """What no padding makes fit is refused with ValueError: non-bf16
+    inputs, flash head dims above 128 or off the multiples of 8, fused_mlp
+    K or F off the multiples of 64, ssd_scan head dims above 64, chunks
+    that do not divide S, tensors off the card."""
     x = torch.zeros(4, 128, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         fused_mlp(x, x.T.contiguous(), x.T.contiguous(), x)
-    q = torch.zeros(1, 8, 2, 48, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q, q, q)
+    xb = torch.zeros(4, 96, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(96, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_mlp(xb, w, w, w.T.contiguous())
+    for hd in (136, 20):
+        q = torch.zeros(1, 8, 2, hd, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q, q, q)
     gen = torch.Generator(device=cuda).manual_seed(0)
     x, dt, a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 1, 16)
     with pytest.raises(ValueError, match="bfloat16"):
         ssd_scan(x.float(), dt, a, bm, cm)
+    x72, *_ = _ssd_inputs(gen, 1, 64, 2, 1, 16, p=72)
     with pytest.raises(ValueError, match="head dim"):
-        ssd_scan(x[..., :32], dt, a, bm, cm)
+        ssd_scan(x72, dt, a, bm, cm)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ssd_scan(x, dt, a, bm, cm, chunk=48)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan(x, dt.cpu(), a, bm, cm)
+
+
+# the smoke configs' shapes (hd 16, K 64, P 16) and others off the kernels'
+# native sizes run the kernels on zero-padded operands
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal", [
+    (4, 16, 16, 4, 4, 16, True),     # the serve launcher's smoke prefill
+    (8, 128, 128, 4, 2, 16, True),   # a smoke train step
+    (1, 8, 8, 2, 2, 48, True),
+    (2, 70, 130, 4, 2, 72, True),
+    (1, 33, 33, 2, 1, 8, False),
+])
+def test_flash_kernel_pads_small_head_dims(cuda, b, sq, skv, h, kv, hd,
+                                           causal):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = _randn(gen, b, sq, h, hd)
+    k, v = _randn(gen, b, skv, kv, hd), _randn(gen, b, skv, kv, hd)
+    before = flash_attention.launches
+    y = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert y.shape == q.shape and y.is_contiguous()
+    torch.testing.assert_close(y.float(),
+                               attention_ref(q, k, v, causal).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("m,k,f", [(64, 64, 128), (1024, 64, 128),
+                                   (4, 64, 64), (200, 192, 320)])
+def test_fused_mlp_kernel_pads_k_and_f(cuda, m, k, f):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _randn(gen, m, k)
+    w1 = _randn(gen, k, f, scale=k ** -0.5)
+    w3 = _randn(gen, k, f, scale=k ** -0.5)
+    w2 = _randn(gen, f, k, scale=f ** -0.5)
+    before = fused_mlp.launches
+    y = fused_mlp(x, w1, w3, w2)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    assert y.shape == (m, k) and y.is_contiguous()
+    torch.testing.assert_close(y.float(),
+                               fused_mlp_ref(x, w1, w3, w2).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk", [
+    (4, 16, 8, 1, 16, 16, 16),     # the serve launcher's smoke prefill
+    (8, 128, 8, 1, 16, 16, 16),    # a smoke train step
+    (2, 192, 4, 2, 64, 32, 64),
+    (1, 100, 2, 1, 24, 8, 100),
+])
+def test_ssd_kernel_pads_small_head_dims(cuda, b, s, h, g, n, p, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, dt, a, bm, cm = _ssd_inputs(gen, b, s, h, g, n, p=p)
+    before = ssd_scan.launches
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.shape == x.shape and state.shape == (b, h, n, p)
+    want_y, want_state = from_pallas_layout(
+        *ssd_ref(*to_pallas_layout(x, dt, a, bm, cm)), b)
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL)
+    torch.testing.assert_close(state, want_state, **SSD_TOL)
 
 
 def test_dense_lm_card_path_matches_cpu_path(cuda):
@@ -273,14 +350,6 @@ def test_mamba2_card_path_matches_cpu_path(cuda):
 # training: the kernels under autograd
 # ---------------------------------------------------------------------------
 
-def _olmo_card_smoke():
-    """olmo_1b_smoke widened to the kernels' sizes: its own 16-wide heads
-    and 64-wide model are below what flash (hd 64..128) and fused_mlp (K
-    and F multiples of 128) take, and the card path does not fall back."""
-    return get_config("olmo_1b", smoke=True).with_(
-        d_model=256, n_heads=4, n_kv_heads=4, d_ff=512)
-
-
 def _scaled_close(got, want):
     """The repo's bf16 tolerance on gradients scaled by their largest
     magnitude (tests/test_torch_kernels.py's bf16 backward test)."""
@@ -335,7 +404,7 @@ def test_raw_kernels_refuse_to_drop_gradients(cuda):
     with pytest.raises(NotImplementedError, match="FlashAttention.apply"):
         flash_attention(q, q, q)
     xs, dt, a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 1, 16)
-    with pytest.raises(NotImplementedError, match="SSM and hybrid training"):
+    with pytest.raises(NotImplementedError, match="SSDScan.apply"):
         ssd_scan(xs.requires_grad_(), dt, a, bm, cm)
     with torch.no_grad():
         fused_mlp(x, w, w, w)
@@ -343,26 +412,87 @@ def test_raw_kernels_refuse_to_drop_gradients(cuda):
         ssd_scan(xs, dt, a, bm, cm)
 
 
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk", [
+    (2, 512, 4, 1, 128, 64, 256),   # mamba2_780m's head geometry and chunk
+    (1, 256, 8, 2, 64, 64, 64),     # grouped, zamba2's state size
+    (2, 64, 4, 1, 16, 16, 16),      # the smoke configs' padded P = 16
+])
+def test_ssd_function_grads_match_plain(cuda, b, s, h, g, n, p, chunk):
+    """SSDScan (kernel forward, explicit torch backward) against autograd
+    of the plain chunked form ``ssd_chunked`` on the same inputs: the
+    backward reads no kernel output, so it differs from that autograd only
+    by fp32 sums in another order (and one bf16 rounding of dx, dB, dC);
+    every gradient is finite (dt ~ softplus(N(0,1)) at chunk 256 overflows
+    exp above the diagonal, which the masked decay never reaches)."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    args = [t.requires_grad_() for t in _ssd_inputs(gen, b, s, h, g, n, p=p)]
+    dy = _randn(gen, b, s, h, p)
+    dstate = torch.randn((b, h, n, p), generator=gen, device=cuda)
+    before = ssd_scan.launches
+    y, state = SSDScan.apply(*args, chunk)
+    got = torch.autograd.grad((y, state), args, (dy, dstate))
+    assert ssd_scan.launches == before + 1   # the backward is torch
+    y_ref, state_ref = ssd_chunked(*args, chunk)
+    want = torch.autograd.grad((y_ref, state_ref), args, (dy, dstate))
+    for g_, w in zip(got, want):
+        assert g_.dtype == w.dtype and bool(torch.isfinite(g_).all())
+    _scaled_close(got, want)
+
+
+def _train_launches(cfg, policy="full"):
+    """Kernel launches of one train step: every attention block, MLP and
+    Mamba-2 layer runs its kernel in the forward and again in the remat
+    recompute, except the MLP under "mlp", which keeps its input."""
+    if cfg.is_ssm_family:
+        blocks = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        ssd = 2 * cfg.n_layers
+    else:
+        blocks, ssd = cfg.n_layers, 0
+    return {"flash": 2 * blocks, "mlp": (1 if policy == "mlp" else 2) * blocks,
+            "ssd": ssd}
+
+
+def _counts():
+    return {"flash": flash_attention.launches, "mlp": fused_mlp.launches,
+            "ssd": ssd_scan.launches}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
 def test_mamba2_train_step_raises_on_card(cuda):
-    """Training the ssm family on the card waits for ssd_scan's gradient:
-    the loss's forward raises rather than train without it."""
+    """The ssm family's train step on the card: mamba2_780m at one layer
+    and d_model 256 (4 heads of 64, N = 128), at its own chunk 256 and S =
+    512, where the reference's chunked gradient is NaN: SSDScan runs the
+    kernel in the forward and the remat recompute, and every gradient leaf
+    is finite and non-zero."""
     cfg = get_config("mamba2_780m").with_(n_layers=1, d_model=256,
-                                          ssm_state=64, vocab=1000)
+                                          vocab=1000)
     params = model_zoo.init_params(cfg, torch.Generator(
         device=cuda).manual_seed(0))
-    toks = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        value_and_grad(cfg, params, {"tokens": toks, "labels": toks})
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 513)).astype(np.int32)).to(cuda)
+    before = _counts()
+    loss, _, grads = value_and_grad(cfg, params, {"tokens": toks[:, :-1],
+                                                  "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    assert _delta(before) == _train_launches(cfg)
+    assert torch.isfinite(loss)
+    tree_map(lambda path, g: None if (bool(torch.isfinite(g).all()) and bool(
+        g.abs().sum() > 0)) else pytest.fail(f"{path}: {g.abs().sum()}"),
+        grads)
 
 
 @pytest.mark.parametrize("policy,mlp_per_layer", [("full", 2), ("dots", 2),
                                                   ("mlp", 1)])
 def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
-    """One card train step runs flash twice per layer (forward and remat
+    """One card train step of olmo_1b_smoke (hd 16, K 64: padded inside
+    the kernels' ops) runs flash twice per layer (forward and remat
     recompute) and the fused MLP twice (once under "mlp", which keeps the
     MLP's input); every projection and MLP weight of every layer gets a
     non-zero gradient; the policies agree."""
-    cfg = _olmo_card_smoke().with_(remat_policy=policy)
+    cfg = get_config("olmo_1b", smoke=True).with_(remat_policy=policy)
     params = tree_map(lambda _, t: t.to(cuda), model_zoo.init_params(
         cfg, torch.Generator().manual_seed(0)))
     toks = torch.from_numpy(np.random.RandomState(0).randint(
@@ -382,10 +512,35 @@ def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
                 > 0).all(), name
 
 
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
+@pytest.mark.parametrize("policy", ["full", "dots", "mlp"])
+def test_ssm_train_step_launches_under_each_policy(cuda, arch, policy):
+    """The smoke ssm and hybrid configs' card train step (P 16, hd 16,
+    K 64: padded inside the ops): ssd_scan runs twice per Mamba-2 layer
+    under every policy (the Mamba-2 sublayer is always recomputed), the
+    hybrid's shared block as the dense layers do; the loss and gradients
+    are finite, and the policies give the same loss."""
+    cfg = get_config(arch, smoke=True).with_(remat_policy=policy)
+    params = tree_map(lambda _, t: t.to(cuda), model_zoo.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 65)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = _counts()
+    loss, _, grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert _delta(before) == _train_launches(cfg, policy)
+    full, _, _ = value_and_grad(cfg.with_(remat_policy="full"), params,
+                                batch)
+    assert torch.isfinite(loss) and float(loss) == float(full)
+    tree_map(lambda path, g: None if bool(torch.isfinite(g).all())
+             else pytest.fail(path), grads)
+
+
 def test_olmo_smoke_trains_on_card(cuda):
-    """Two Trainer steps on the card (kernel-sized olmo smoke) lower the
-    loss, through both kernels in each step."""
-    cfg = _olmo_card_smoke()
+    """Two Trainer steps on the card (olmo_1b_smoke as registered) lower
+    the loss, through both kernels in each step."""
+    cfg = get_config("olmo_1b", smoke=True)
     tr = Trainer(cfg, OptimizerConfig(lr=3e-3, warmup_steps=0,
                                       total_steps=2),
                  TrainerConfig(steps=2, log_every=1),
@@ -397,3 +552,41 @@ def test_olmo_smoke_trains_on_card(cuda):
     assert losses[1] < losses[0]
     assert flash_attention.launches - f0 == 2 * 2 * cfg.n_layers
     assert fused_mlp.launches - m0 == 2 * 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
+def test_ssm_smoke_trains_on_card(cuda, arch):
+    """Two Trainer steps on the card of the ssm and hybrid smoke configs
+    as registered lower the loss, through their kernels in each step."""
+    cfg = get_config(arch, smoke=True)
+    tr = Trainer(cfg, OptimizerConfig(lr=3e-3, warmup_steps=0,
+                                      total_steps=2),
+                 TrainerConfig(steps=2, log_every=1),
+                 DataConfig(batch=4, seq=64), device=cuda)
+    before = _counts()
+    tr.run()
+    losses = [h["loss"] for h in tr.metrics_history]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert losses[1] < losses[0]
+    assert _delta(before) == {k: 2 * v for k, v in
+                              _train_launches(cfg).items()}
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b"])
+def test_launchers_defaults_run_on_card(cuda, arch, capsys):
+    """``launch.train`` and ``launch.serve`` with their defaults (the
+    smoke config on cuda) train 2 steps and serve 4 prompts through the
+    kernels."""
+    cfg = get_config(arch, smoke=True)
+    before = _counts()
+    train_launcher.main(["--arch", arch, "--steps", "2"])
+    assert _delta(before) == {k: 2 * v for k, v in
+                              _train_launches(cfg).items()}
+    capsys.readouterr()
+    before = _counts()
+    serve_launcher.main(["--arch", arch])
+    out = capsys.readouterr().out
+    assert out.count("seq") == 4
+    launched = _delta(before)
+    assert all(launched[k] > 0 for k, v in _train_launches(cfg).items()
+               if v), launched

@@ -299,10 +299,12 @@ def test_hybrid_kv_slot_layout_matches_jax():
     assert used == [True] * 6 + [False]
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM)
+@pytest.mark.parametrize("arch", DENSE + SSM + ["deepseek_moe_16b",
+                                                 "granite_moe_1b_a400m"])
 def test_keeps_fp32_is_the_reference_rule(arch):
     """keeps_fp32 names exactly the leaves the reference creates in fp32
-    when param_dtype is bfloat16, and the converter keeps them so."""
+    when param_dtype is bfloat16, and the converter keeps them so; for
+    the moe archs that includes the router (repro/models/mlp.py:52)."""
     jcfg = jax_configs.get_config(arch, smoke=True).with_(
         param_dtype="bfloat16")
     cfg = configs.get_config(arch, smoke=True).with_(param_dtype="bfloat16")
@@ -320,6 +322,9 @@ def test_keeps_fp32_is_the_reference_rule(arch):
         assert {p.rsplit("/", 1)[-1] for p in flat
                 if common.keeps_fp32(p) and "/ssm/" in p} == \
             {"dt_bias", "A_log", "D", "gn_scale"}
+    if cfg.family == "moe":
+        assert common.keeps_fp32("layers/moe/router")
+        assert flat["layers/moe/router"].dtype == np.float32
 
 
 @pytest.mark.parametrize("arch", SSM)

@@ -1,0 +1,261 @@
+"""The SSD scan under autograd (``SSDScan``, ``ssd_scan_bwd``) against
+finite differences and the JAX reference on the CPU; the reference's
+NaN gradient at the full configs' chunk, which the port does not copy;
+and the kernels' admission of the smoke configs' shapes by padding,
+which the full configs never pay for.
+
+The Function's forward on CPU tensors is the op's plain version
+(``ssd_ref``); its backward is the explicit torch chain rule that runs
+after the kernel on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import padded_head_dim as flash_pad  # noqa: E402
+from repro_torch.kernels.fused_mlp.ops import padded_dims as mlp_pad  # noqa: E402
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_bwd  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import padded_head_dim as ssd_pad  # noqa: E402
+from repro_torch.launch.steps import value_and_grad  # noqa: E402
+from repro_torch.models import model_zoo, ssm  # noqa: E402
+from repro_torch.models.common import tree_map  # noqa: E402
+
+FULL = ["granite_8b", "olmo_1b", "phi3_mini_3_8b", "stablelm_3b",
+        "zamba2_1_2b", "mamba2_780m", "llava_next_34b"]
+
+
+def _ssd_arrays(rng, b, s, h, g, n, p):
+    """Model-layout SSD inputs as float64 numpy arrays: x, B, C normal,
+    dt = softplus(normal) > 0, A = -exp(0.2 normal) < 0."""
+    return (rng.randn(b, s, h, p), np.log1p(np.exp(rng.randn(b, s, h))),
+            -np.exp(rng.randn(h) * 0.2), rng.randn(b, s, g, n),
+            rng.randn(b, s, g, n))
+
+
+def _t(arrs, dtype=torch.float64, grad=False):
+    return [torch.from_numpy(np.asarray(a)).to(dtype).requires_grad_(grad)
+            for a in arrs]
+
+
+# ---------------------------------------------------------------------------
+# the Function against finite differences (float64)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("groups,chunk,outputs", [(2, 4, "both"),
+                                                 (2, 4, "y"),
+                                                 (4, 12, "both")])
+def test_ssd_scan_function_gradcheck(groups, chunk, outputs):
+    """SSDScan's explicit backward against finite differences of its
+    forward (the plain version on CPU tensors), in float64: two groups
+    over four heads (dB and dC summed over each group's heads) and three
+    chunks (the state recurrence run in reverse), or a group per head and
+    one chunk; a gradient on the final state, or with ``outputs="y"`` the
+    state unused and its gradient arriving as None, as in training."""
+    arrs = _ssd_arrays(np.random.RandomState(0), 2, 12, 4, groups, 2, 2)
+    args = _t(arrs, grad=True)
+
+    def fn(*a):
+        y, state = SSDScan.apply(*a, chunk)
+        return (y, state) if outputs == "both" else y
+
+    out = fn(*args)
+    assert (out[0] if outputs == "both" else out).grad_fn.name() == \
+        "SSDScanBackward"
+    assert torch.autograd.gradcheck(fn, args)
+
+
+# ---------------------------------------------------------------------------
+# against jax.vjp of the reference's chunked form (fp32)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk,with_state", [
+    (2, 32, 4, 2, 8, 16, 8, True),
+    (1, 48, 2, 1, 16, 8, 16, True),
+    (2, 32, 4, 1, 8, 8, 32, False),
+    (1, 64, 6, 3, 4, 8, 16, False),
+])
+def test_ssd_scan_bwd_matches_jax_vjp(b, s, h, g, n, p, chunk, with_state):
+    """ssd_scan_bwd in fp32 against jax.vjp of the reference
+    ``repro.models.ssm.ssd_chunked`` on the same inputs and cotangents (y
+    and the final state, or y alone), at shapes where the reference's
+    gradient is finite, within the repo's fp32 model tolerance (1e-4)."""
+    rng = np.random.RandomState(s + h)
+    arrs = [a.astype(np.float32) for a in _ssd_arrays(rng, b, s, h, g, n, p)]
+    dy = rng.randn(b, s, h, p).astype(np.float32)
+    dstate = (rng.randn(b, h, n, p).astype(np.float32) if with_state
+              else np.zeros((b, h, n, p), np.float32))
+    _, vjp = jax.vjp(lambda *a: jax_ssd_chunked(*a, chunk=chunk),
+                     *(jnp.asarray(a) for a in arrs))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dstate)))
+    got = ssd_scan_bwd(*_t(arrs, torch.float32), torch.from_numpy(dy),
+                       torch.from_numpy(dstate) if with_state else None,
+                       chunk)
+    for name, gt, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        w = np.asarray(w)
+        assert gt.dtype == torch.float32 and gt.shape == w.shape, name
+        assert np.isfinite(w).all(), name
+        np.testing.assert_allclose(gt.numpy(), w, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_ssd_scan_bwd_row_groups(monkeypatch):
+    """Batch rows taken in groups (one row at a time when the byte bound
+    is small) give the one-group gradients."""
+    rng = np.random.RandomState(9)
+    args = _t(_ssd_arrays(rng, 3, 32, 4, 2, 8, 8), torch.float32)
+    dy, dstate = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                  for shape in ((3, 32, 4, 8), (3, 4, 8, 8)))
+    whole = ssd_scan_bwd(*args, dy, dstate, 8)
+    monkeypatch.setattr(ssd_ops, "BWD_BYTES", 1)
+    rows = ssd_scan_bwd(*args, dy, dstate, 8)
+    for w, r in zip(whole, rows):
+        torch.testing.assert_close(r, w, rtol=1e-6, atol=1e-6)
+
+
+def _nan_shape_inputs():
+    """The full configs' chunk (256) at the init's dt = softplus(0) and
+    A = -1: a chunk's span of dt |A| is 177, past fp32's exp overflow."""
+    rng = np.random.RandomState(3)
+    b, s, h, g, n, p = 1, 256, 2, 1, 4, 4
+    x, bm, cm = (rng.randn(*shape) for shape in
+                 ((b, s, h, p), (b, s, g, n), (b, s, g, n)))
+    dt = np.full((b, s, h), np.log(2.0))
+    a = -np.ones(h)
+    dy = rng.randn(b, s, h, p)
+    return (x, dt, a, bm, cm), dy
+
+
+def test_reference_grad_is_nan_at_full_chunk_port_is_finite():
+    """F3, a reference quirk the port does not copy: at chunk 256 with
+    the init's dt and A, jax.vjp of the reference's ssd_chunked gives NaN
+    in dt and A (its ``where(causal, exp(seg), 0)`` meets inf above the
+    diagonal), while x, B and C stay finite. The port's fp32 gradient is
+    finite everywhere and agrees with its float64 gradient, which
+    gradcheck holds to finite differences at that shape."""
+    arrs, dy = _nan_shape_inputs()
+    f32 = [a.astype(np.float32) for a in arrs]
+    y, vjp = jax.vjp(lambda *a: jax_ssd_chunked(*a, chunk=256)[0],
+                     *(jnp.asarray(a) for a in f32))
+    assert np.isfinite(np.asarray(y)).all()
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(dy, jnp.float32))]
+    finite = [bool(np.isfinite(g).all()) for g in ref]
+    assert finite == [True, False, False, True, True]   # x dt A B C
+
+    got = ssd_scan_bwd(*_t(f32, torch.float32),
+                       torch.from_numpy(dy.astype(np.float32)), None, 256)
+    exact = ssd_scan_bwd(*_t(arrs), torch.from_numpy(dy), None, 256)
+    for name, g, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, exact):
+        assert bool(torch.isfinite(g).all()), name
+        top = float(e.abs().max())
+        np.testing.assert_allclose(g.double().numpy() / top,
+                                   e.numpy() / top, rtol=0, atol=1e-5,
+                                   err_msg=name)
+    args = _t(arrs, grad=True)
+    assert torch.autograd.gradcheck(
+        lambda *a: SSDScan.apply(*a, 256)[0], args, fast_mode=True)
+
+
+# ---------------------------------------------------------------------------
+# the repaired chunked form (models/ssm.py::ssd_chunked)
+# ---------------------------------------------------------------------------
+
+def _where_decay(seg, causal):
+    """The reference's decay (repro/models/ssm.py:80), the port's
+    formula before the repair."""
+    return torch.where(causal, torch.exp(seg), 0.0)
+
+
+@pytest.mark.parametrize("s,chunk,init_dt", [(64, 16, False),
+                                             (256, 256, True),
+                                             (512, 128, True)])
+def test_ssd_chunked_forward_bitwise_unchanged(monkeypatch, s, chunk,
+                                               init_dt):
+    """Masking seg before the exp gives the forward bitwise the values of
+    the old ``where`` formula (exp(-inf) is 0), y and final state, also
+    where the old one overflowed above the diagonal."""
+    rng = np.random.RandomState(5)
+    arrs = list(_ssd_arrays(rng, 2, s, 3, 1, 8, 8))
+    if init_dt:
+        arrs[1], arrs[2] = np.full((2, s, 3), np.log(2.0)), -np.ones(3)
+    args = _t(arrs, torch.float32)
+    y, state = ssm.ssd_chunked(*args, chunk)
+    monkeypatch.setattr(ssm, "_causal_decay", _where_decay)
+    y_old, state_old = ssm.ssd_chunked(*args, chunk)
+    assert torch.equal(y, y_old) and torch.equal(state, state_old)
+    assert bool(torch.isfinite(y).all())
+
+
+def _nan_leaves(cfg, params, batch):
+    _, _, grads = value_and_grad(cfg, params, batch)
+    out = []
+    tree_map(lambda path, g: out.append(path) if not bool(
+        torch.isfinite(g).all()) else None, grads)
+    return sorted(out)
+
+
+def test_mamba2_grads_finite_at_full_chunk(monkeypatch):
+    """One mamba2_780m layer narrowed to d_model 128 (4 heads of 64,
+    N = 128) and a 1000-token vocab, at its own chunk 256 and S = 256 in
+    fp32 on the CPU: every gradient leaf is finite. With the old decay
+    formula the same call puts NaN into five leaves."""
+    cfg = get_config("mamba2_780m").with_(
+        n_layers=1, d_model=128, vocab=1000, compute_dtype="float32")
+    assert cfg.ssm_chunk == 256
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = np.random.RandomState(0).randint(0, cfg.vocab, (1, 257))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
+    assert _nan_leaves(cfg, params, batch) == []
+    monkeypatch.setattr(ssm, "_causal_decay", _where_decay)
+    assert _nan_leaves(cfg, params, batch) == [
+        "embed", "layers/ssm/A_log", "layers/ssm/dt_bias", "layers/ssm/wdt",
+        "layers/ssm_norm"]
+
+
+# ---------------------------------------------------------------------------
+# kernel admission: the smoke shapes by padding, the full ones unpadded
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", FULL)
+def test_padded_shapes_are_identity_at_full_configs(arch):
+    """The kernels run every full registry config at its own shape: the
+    ops' padding functions are the identity there, so the full-width
+    paths never pay for padding."""
+    cfg = get_config(arch)
+    if cfg.n_heads:
+        assert flash_pad(cfg.hd) == cfg.hd
+    if cfg.d_ff and cfg.mlp == "swiglu":
+        assert mlp_pad(cfg.d_model, cfg.d_ff) == (cfg.d_model, cfg.d_ff)
+    if cfg.is_ssm_family:
+        assert ssd_pad(cfg.ssm_head_dim) == cfg.ssm_head_dim
+
+
+@pytest.mark.parametrize("kind,dims,want", [
+    ("flash", 16, 64), ("flash", 8, 64), ("flash", 64, 64),
+    ("flash", 72, 80), ("flash", 88, 96), ("flash", 104, 128),
+    ("flash", 136, None), ("flash", 20, None), ("flash", 0, None),
+    ("mlp", (64, 128), (128, 128)), ("mlp", (64, 64), (128, 128)),
+    ("mlp", (2048, 8192), (2048, 8192)), ("mlp", (192, 320), (256, 384)),
+    ("mlp", (96, 128), None), ("mlp", (128, 100), None),
+    ("ssd", 16, 64), ("ssd", 32, 64), ("ssd", 64, 64),
+    ("ssd", 72, None), ("ssd", 12, None),
+])
+def test_padded_shapes(kind, dims, want):
+    """The shape each kernel runs for a smoke shape: flash pads hd (a
+    multiple of 8 up to 128) to the next native head dim, fused_mlp K
+    and F (multiples of 64) to multiples of 128, ssd_scan P (a multiple
+    of 8 up to 64) to 64; anything else is refused with ValueError."""
+    fn = {"flash": flash_pad, "mlp": lambda d: mlp_pad(*d),
+          "ssd": ssd_pad}[kind]
+    if want is None:
+        with pytest.raises(ValueError):
+            fn(dims)
+    else:
+        assert fn(dims) == want
