@@ -11,28 +11,38 @@ Phases, each raising on failure:
                 and a SASS census (HGMMA = wgmma, UTMALDG = TMA loads).
   3. kernels -- each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (flash_attention and fused_mlp at
-                granite_8b's, ssd_scan at mamba2_780m's), with its time, the
-                plain version's time, a library yardstick's time and its
-                bound; also flash at head dims 80/96 (stablelm_3b, phi3),
-                fused_mlp at M 4/100/2048 (both regimes, a ragged M),
-                ssd_scan at chunk 64, grouped, in the Pallas layout and at
-                zamba2_1_2b's geometry; fused_mlp's and ssd_scan's bitwise
-                determinism; the device time of each of ssd_scan's three
-                kernel launches (torch.profiler); and each kernel at the
-                registry's smoke shapes (flash hd 16, fused_mlp K 64 / F
-                128, ssd_scan P 16 / N 16), which its op zero-pads to the
-                kernel's native sizes, with each call's launch counted.
+                granite_8b's, ssd_scan at mamba2_780m's; flash also at
+                granite_moe_1b_a400m's prefill, hd 64 GQA 16/8 4 x 2048, and
+                fused_mlp at deepseek_moe_16b's shared experts, K 2048 F
+                2816, M 2048 and 4), with its time, the plain version's
+                time, a library yardstick's time and its bound; also flash
+                at head dims 80/96 (stablelm_3b, phi3), fused_mlp at M
+                4/100/2048 (both regimes, a ragged M), ssd_scan at chunk 64,
+                grouped, in the Pallas layout and at zamba2_1_2b's geometry;
+                fused_mlp's and ssd_scan's bitwise determinism; the device
+                time of each of ssd_scan's three kernel launches
+                (torch.profiler); and each kernel at the registry's smoke
+                shapes (flash hd 16, fused_mlp K 64 / F 128, ssd_scan P 16 /
+                N 16), which its op zero-pads to the kernel's native sizes,
+                with each call's launch counted.
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
-                CPU in fp32, on the same weights: granite_8b and mamba2_780m
-                at 2 layers, zamba2_1_2b at 6 (its shared block fires once);
-                each kernel's launches per step are checked.
-  5. serve   -- full-width, full-depth Engines: granite_8b serves 4 requests
-                of 512 prompt tokens, mamba2_780m and zamba2_1_2b (38
-                layers, its shared block 6 times) 4 of 2048, 32 greedy new
-                tokens each; each path's launch counters, zeroed just before
-                it, must show that it went through its kernels; then each is
-                profiled over one prefill and 3 decode steps.
+                CPU in fp32, on the same weights: granite_8b, mamba2_780m,
+                granite_moe_1b_a400m and deepseek_moe_16b at 2 layers,
+                zamba2_1_2b at 6 (its shared block fires once); each
+                kernel's launches per step are checked; for the MoE pair,
+                the share of (token, choice) routes that differ per layer
+                is printed, and the logits limit is calibrated per arch.
+  5. serve   -- full-width bf16 Engines (``SERVE``): full-depth granite_8b
+                serves 4 requests of 512 prompt tokens, mamba2_780m (cut to
+                24 of 48 layers), zamba2_1_2b (cut to 19 of 38 layers, its
+                shared block 3 times) and full-depth granite_moe_1b_a400m
+                (24 layers) 4 of 2048, full-depth deepseek_moe_16b (28
+                layers, ~31 GiB of weights) 4 of 512, 32 greedy new tokens
+                each; each path's launch counters, zeroed just before
+                it, must show that it went through its kernels; the decode
+                step's weight-read bound is printed beside its time; then
+                each is profiled over one prefill and 3 decode steps.
   6. train   -- the training half: (a) each kernel's autograd Function
                 (kernel forward, explicit torch backward) at the train
                 shapes (flash and fused_mlp at olmo_1b's, SSDScan at
@@ -41,23 +51,29 @@ Phases, each raising on failure:
                 of the chunked form ``ssd_chunked``), with its backward's
                 time; (b) one train step's loss, gradient norm and every
                 gradient leaf on the card in bf16 through the kernels
-                against the port's CPU fp32 path, at full width: olmo_1b
-                and mamba2_780m at 2 layers, zamba2_1_2b at 6, the ssm pair
-                at S = 512 (the real chunk of 256); (c) full-width,
-                full-depth olmo_1b, mamba2_780m and zamba2_1_2b (fp32
-                params and AdamW moments, bf16 compute, remat "full") train
-                8 steps of 4 x 2048 tokens each through the port's Trainer:
-                finite, decreasing loss, every kernel of the model in every
-                step (forward and remat recompute), step time, tokens/s,
-                peak memory, model-FLOP share, a profiled step and its
+                against the port's CPU fp32 path, at full width: olmo_1b,
+                mamba2_780m and granite_moe_1b_a400m (also its aux, and two
+                card steps bitwise equal) at 2 layers, zamba2_1_2b at 6, all
+                but olmo at S = 512; (c) full-width olmo_1b and
+                granite_moe_1b_a400m at full depth, mamba2_780m (24 of 48
+                layers) and zamba2_1_2b (19 of 38) (``TRAIN``; fp32 params
+                and AdamW moments, bf16 compute, remat "full")
+                train 8 steps of 4 x 2048 tokens each through the port's
+                Trainer: finite, decreasing loss (and the MoE's aux), every
+                kernel of the model in every step (forward and remat
+                recompute), step time, tokens/s, peak memory, model-FLOP
+                share on active params, a profiled step and its
                 forward/backward/optimizer split; (d) checkpoint: a failed
                 run resumes bitwise from its checkpoint, which also
                 restores on the CPU.
   7. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
                 their defaults (the smoke config on cuda) for olmo_1b,
-                mamba2_780m and zamba2_1_2b, each through its kernels.
-The last two lines of output are a JSON ``kernels`` line and the JSON result
-line. Exits non-zero, printing no result, without a GPU or without the repo.
+                mamba2_780m, zamba2_1_2b, granite_moe_1b_a400m and
+                deepseek_moe_16b, each through its kernels.
+The depth cuts of mamba2_780m and zamba2_1_2b (``SERVE``, ``TRAIN``) keep the
+run within the time it took before the MoE paths came. The last two lines of
+output are a JSON ``kernels`` line and the JSON result line. Exits non-zero,
+printing no result, without a GPU or without the repo.
 """
 from __future__ import annotations
 
@@ -79,7 +95,8 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from calibrate_train_numerics import leaf_rel_rms  # noqa: E402
+from calibrate_train_numerics import (leaf_rel_rms,  # noqa: E402
+                                      record_routes, route_flips)
 from repro_torch.data.synthetic import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
                                             attention_ref, flash_attention)
@@ -126,6 +143,22 @@ SSD_ATOL = SSD_RTOL = 2e-2
 # bf16 operations per layer (2^-9 relative each) compound to ~1% of the
 # logits' RMS; 3% leaves room without hiding a wrong kernel (which is O(1)).
 NUMERICS_REL_RMS = 3e-2
+# The moe family's limits, from scripts/calibrate_train_numerics.py
+# --no-step at the same setting (full width, 2 layers, 2 x 512 tokens; CPU
+# bf16 vs fp32, same weights): prefill and decode logits rel RMS, and the
+# share of (token, choice) routes that differ per layer in the prefill and
+# the decode step. A route that flips between the two (a near-tie in the
+# fp32 router under bf16 activations, or a queue position a flip moved past
+# the capacity) changes that token's output by O(gate), so the logits
+# spread over 2 layers is larger than rounding alone would give, and
+# varies with the data; each limit is ~4x the larger calibrated spread. A
+# wrong kernel or a wrong dispatch is O(1).
+CALIBRATED = {  # arch: (prefill rel RMS, decode rel RMS, routes differ)
+    "granite_moe_1b_a400m": (5.445e-3, 5.677e-3, [0.0199, 0.0313],
+                             [0.0, 0.0]),
+    "deepseek_moe_16b": (7.092e-3, 7.169e-3, [0.0171, 0.0327], [0.0, 0.0]),
+}
+LOGITS_REL_RMS = {"granite_moe_1b_a400m": 2.3e-2, "deepseek_moe_16b": 2.9e-2}
 # Gradients of a kernel's Function (kernel forward, explicit torch backward)
 # vs autograd of its plain version, same bf16 inputs: the fused MLP's
 # backward rounds g, u, dg and du to bf16 where autograd of the fp32 plain
@@ -168,15 +201,53 @@ TRAIN_LEAF_REL_RMS = 5e-2   # ~4x the worst calibrated leaf
 # roundings a layer, and six layers), so olmo's limits would leave little
 # or no room: zamba2's loss and worst leaf alone are at half and 85% of
 # them. A wrong kernel is still O(1) on its leaves.
+# granite_moe_1b_a400m at 2 layers, 2 x 512 tokens, same rule: loss rel
+# 8.1e-6, grad_norm rel 5.3e-5, aux rel 5.3e-6, worst leaf
+# (layers/moe/router) 5.0e-2, with 2-3% of the prefill routes differing
+# per layer (above). The router leaf is the one routing flips move most:
+# its gradient is the gates' and the aux term's only.
 TRAIN_LIMITS = {  # arch: (loss rel, grad_norm rel, leaf rel RMS)
     "olmo_1b": (TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL_RMS),
     "mamba2_780m": (1e-4, 2.5e-3, 9e-2),
     "zamba2_1_2b": (6e-4, 2e-3, 1.7e-1),
+    "granite_moe_1b_a400m": (1e-4, 6e-4, 2e-1),
 }
+TRAIN_AUX_REL = 1e-4    # ~20x the calibrated aux spread
+
+
+T0 = time.perf_counter()
+# (arch, batch, prompt tokens, depth) of the serve phase: full width, 32
+# greedy new tokens each; depth None is full depth. The run's time is held
+# to what it was before the MoE paths came (PERF.md), so two earlier paths
+# run at half depth: mamba2_780m at 24 of 48 layers, zamba2_1_2b at 19 of
+# 38 (its shared block fires 3 times), here and in ``TRAIN``.
+SERVE = (("granite_8b", 4, 512, None), ("mamba2_780m", 4, 2048, 24),
+         ("zamba2_1_2b", 4, 2048, 19),
+         ("granite_moe_1b_a400m", 4, 2048, None),
+         ("deepseek_moe_16b", 4, 512, None))
+# (arch, depth, tokens a row) of the full-width numerics checks, batch 2:
+# the card's bf16 path against the CPU's fp32 path, serving and one step
+NUMERICS = (("granite_8b", 2, 64), ("mamba2_780m", 2, 512),
+            ("zamba2_1_2b", 6, 512), ("granite_moe_1b_a400m", 2, 512),
+            ("deepseek_moe_16b", 2, 512))
+TRAIN_NUMERICS = (("olmo_1b", 2, 256), ("mamba2_780m", 2, 512),
+                  ("zamba2_1_2b", 6, 512), ("granite_moe_1b_a400m", 2, 512))
+# (arch, depth) of the full-width training runs, 8 steps of 4 x 2048; None
+# is full depth
+TRAIN = (("olmo_1b", None), ("mamba2_780m", 24), ("zamba2_1_2b", 19),
+         ("granite_moe_1b_a400m", None))
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
+
+
+def clocked(label, fn, *args, **kw):
+    """``fn(*args, **kw)``, printing its wall time (the run's budget)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"  [{label}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
 
 
 def cuda_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -225,37 +296,11 @@ def randn(gen, *shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(BF16)
 
 
-def check_flash(gen, flush):
-    """Flash kernel vs attention_ref; returns the kernel's JSON entry."""
-    cfg = get_config("granite_8b")
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    cases = [  # (label, b, sq, skv, h, kv, hd, causal, layout)
-        ("prefill B=4 S=512 causal", 4, 512, 512, h, kv, hd, True, "bshd"),
-        ("ragged S=500 causal", 4, 500, 500, h, kv, hd, True, "bshd"),
-        ("non-causal S=512", 4, 512, 512, h, kv, hd, False, "bshd"),
-        ("end-aligned Sq=100 Skv=300 hd=64, Pallas layout", 2, 100, 300, 8,
-         2, 64, True, "pallas"),
-    ]
-    for arch in ("stablelm_3b", "phi3_mini_3_8b"):
-        c = get_config(arch)
-        cases.append((f"{arch} B=2 S=512 H={c.n_heads} KV={c.n_kv_heads} "
-                      f"hd={c.hd} causal", 2, 512, 512, c.n_heads,
-                      c.n_kv_heads, c.hd, True, "bshd"))
-    main = None
-    for label, b, sq, skv, nh, nkv, d, causal, layout in cases:
-        if layout == "bshd":
-            q = randn(gen, b, sq, nh, d)
-            k, v = randn(gen, b, skv, nkv, d), randn(gen, b, skv, nkv, d)
-        else:
-            q = randn(gen, b * nh, sq, d)
-            k, v = randn(gen, b * nkv, skv, d), randn(gen, b * nkv, skv, d)
-        out = flash_attention(q, k, v, causal=causal)
-        ref = attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = compare(f"flash_attention [{label}]", out, ref)
-        if main is None:
-            main = (q, k, v, b, sq, skv, nh, nkv, d, err)
-    q, k, v, b, sq, skv, nh, nkv, d, err = main
+def flash_times(q, k, v, flush):
+    """ms of the flash kernel, the plain version and SDPA on bshd inputs
+    (causal), and the bound for the causal pairs."""
+    b, sq, nh, d = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20, flush)
     plain = cuda_ms(lambda: attention_ref(q, k, v, causal=True), 5, flush)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -268,26 +313,69 @@ def check_flash(gen, flush):
     print(f"  flash_attention B={b} S={sq} H={nh} KV={nkv} hd={d}: kernel "
           f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
           f"{bms:.4f} ms ({by})", flush=True)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attn.cu",
-            "replaces": "src/repro/kernels/flash_attn/flash_attn.py:73",
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib,
-            "library": "F.scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True)",
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib,
             "shape": f"B={b} S={sq} H={nh} KV={nkv} hd={d} causal bf16"}
 
 
-def check_fused_mlp(gen, flush):
-    """fused_mlp kernel vs fused_mlp_ref at prefill and decode shapes;
-    returns the kernel's JSON entry (prefill) with the decode case nested."""
+def check_flash(gen, flush):
+    """Flash kernel vs attention_ref; returns the kernel's JSON entry
+    (granite_8b's prefill shape) with granite_moe_1b_a400m's prefill shape
+    (hd 64, GQA 16/8, 4 x 2048) nested under "moe"."""
     cfg = get_config("granite_8b")
-    k, f = cfg.d_model, cfg.d_ff
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gm = get_config("granite_moe_1b_a400m")
+    cases = [  # (label, b, sq, skv, h, kv, hd, causal, layout)
+        ("prefill B=4 S=512 causal", 4, 512, 512, h, kv, hd, True, "bshd"),
+        ("ragged S=500 causal", 4, 500, 500, h, kv, hd, True, "bshd"),
+        ("non-causal S=512", 4, 512, 512, h, kv, hd, False, "bshd"),
+        ("end-aligned Sq=100 Skv=300 hd=64, Pallas layout", 2, 100, 300, 8,
+         2, 64, True, "pallas"),
+        (f"granite_moe_1b_a400m prefill B=4 S=2048 H={gm.n_heads} "
+         f"KV={gm.n_kv_heads} hd={gm.hd} causal", 4, 2048, 2048, gm.n_heads,
+         gm.n_kv_heads, gm.hd, True, "bshd"),
+    ]
+    for arch in ("stablelm_3b", "phi3_mini_3_8b"):
+        c = get_config(arch)
+        cases.append((f"{arch} B=2 S=512 H={c.n_heads} KV={c.n_kv_heads} "
+                      f"hd={c.hd} causal", 2, 512, 512, c.n_heads,
+                      c.n_kv_heads, c.hd, True, "bshd"))
+    timed = {}
+    for label, b, sq, skv, nh, nkv, d, causal, layout in cases:
+        if layout == "bshd":
+            q = randn(gen, b, sq, nh, d)
+            k, v = randn(gen, b, skv, nkv, d), randn(gen, b, skv, nkv, d)
+        else:
+            q = randn(gen, b * nh, sq, d)
+            k, v = randn(gen, b * nkv, skv, d), randn(gen, b * nkv, skv, d)
+        out = flash_attention(q, k, v, causal=causal)
+        ref = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = compare(f"flash_attention [{label}]", out, ref)
+        del out, ref
+        if not timed or label.startswith("granite_moe"):
+            key = "moe" if timed else "main"
+            timed[key] = {"max_abs_err": err, **flash_times(q, k, v, flush)}
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn/flash_attn.py:73",
+            "launches": None, **timed["main"],
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)",
+            "moe": {"path": "granite_moe_1b_a400m prefill", "launches": None,
+                    **timed["moe"]}}
+
+
+def mlp_case(gen, flush, k, f, cases):
+    """fused_mlp kernel vs fused_mlp_ref at K x F for each (label, M) in
+    ``cases``: error, two calls bit-identical, and (except "ragged") the
+    kernel's, plain version's and cuBLAS chain's ms and the bound.
+    Returns {label: entry}."""
     w1 = randn(gen, k, f, scale=k ** -0.5)
     w3 = randn(gen, k, f, scale=k ** -0.5)
     w2 = randn(gen, f, k, scale=f ** -0.5)
     entries = {}
-    for label, m in (("prefill", 2048), ("decode", 4), ("ragged", 100)):
+    for label, m in cases:
         x = randn(gen, m, k)
         out = fused_mlp(x, w1, w3, w2)
         ref = fused_mlp_ref(x, w1, w3, w2)
@@ -306,18 +394,36 @@ def check_fused_mlp(gen, flush):
         plain = cuda_ms(lambda: fused_mlp_ref(x, w1, w3, w2), 3, flush)
         lib = cuda_ms(lambda: (F.silu(x @ w1) * (x @ w3)) @ w2, 10, flush)
         bms, by = bound_ms(6.0 * m * k * f, 2.0 * (2 * m * k + 3 * k * f))
-        print(f"  fused_mlp {label} M={m}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, cuBLAS chain {lib:.4f} ms, bound {bms:.4f} "
-              f"ms ({by})", flush=True)
+        print(f"  fused_mlp {label} M={m} K={k} F={f}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, cuBLAS chain {lib:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
         entries[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                           "bound_ms": bms, "bound_by": by, "library_ms": lib,
                           "shape": f"M={m} K={k} F={f} bf16"}
+    return entries
+
+
+def check_fused_mlp(gen, flush):
+    """fused_mlp kernel vs fused_mlp_ref at granite_8b's prefill and
+    decode shapes and at deepseek_moe_16b's shared experts' (K 2048, F 2 x
+    1408, prefill M 2048 and decode M 4); returns the kernel's JSON entry
+    (granite_8b prefill) with its decode case and the deepseek cases
+    nested."""
+    cfg = get_config("granite_8b")
+    dense = mlp_case(gen, flush, cfg.d_model, cfg.d_ff,
+                     (("prefill", 2048), ("decode", 4), ("ragged", 100)))
+    ds = get_config("deepseek_moe_16b")
+    moe = mlp_case(gen, flush, ds.d_model, ds.n_shared_experts * ds.d_ff,
+                   (("prefill", 2048), ("decode", 4)))
     return {"name": "fused_mlp", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_mlp.cu",
             "replaces": "src/repro/kernels/fused_mlp/fused_mlp.py:52",
-            "launches": None, **entries["prefill"],
+            "launches": None, **dense["prefill"],
             "library": "cuBLAS chain: (silu(x@w1) * (x@w3)) @ w2, 3 matmuls",
-            "decode": entries["decode"]}
+            "decode": dense["decode"],
+            "moe": {"path": "deepseek_moe_16b shared experts",
+                    "launches": None, **moe["prefill"],
+                    "decode": moe["decode"]}}
 
 
 def ssd_inputs(gen, b, s, h, g, n, p):
@@ -529,24 +635,35 @@ def reset_launch_counts():
         fn.launches = 0
 
 
+def fused_mlps(cfg):
+    """SwiGLU MLPs a token passes through (the fused MLP kernel's calls per
+    step): one per dense layer, one per MoE layer with a shared expert
+    (the routed experts are torch products), one per firing of the
+    hybrid's shared block."""
+    if cfg.is_ssm_family:
+        return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    if cfg.family == "moe":
+        return cfg.n_layers if cfg.n_shared_experts else 0
+    return cfg.n_layers
+
+
 def expected_launches(cfg, prefills: int, decode_steps: int):
     """Kernel launches for ``prefills`` prefills and ``decode_steps`` decode
     steps: flash once per attention block in prefill, fused_mlp once per
     SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill."""
     L = cfg.n_layers
-    if cfg.is_ssm_family:
-        shared = L // cfg.attn_every if cfg.family == "hybrid" else 0
-        return {"flash_attention": shared * prefills,
-                "fused_mlp": shared * (prefills + decode_steps),
-                "ssd_scan": L * prefills}
-    return {"flash_attention": L * prefills,
-            "fused_mlp": L * (prefills + decode_steps), "ssd_scan": 0}
+    blocks = L if not cfg.is_ssm_family else fused_mlps(cfg)
+    return {"flash_attention": blocks * prefills,
+            "fused_mlp": fused_mlps(cfg) * (prefills + decode_steps),
+            "ssd_scan": L * prefills if cfg.is_ssm_family else 0}
 
 
 def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
     """``arch`` at full width and ``n_layers`` layers: card bf16 kernel
     path vs the port's plain path on the CPU in fp32, on the same
-    weights; each step's kernel launches checked."""
+    weights; each step's kernel launches checked. For the moe family, the
+    share of (token, choice) routes that differ in each layer is printed,
+    and the logits limit is the arch's own (``LOGITS_REL_RMS``)."""
     cfg = get_config(arch).with_(n_layers=n_layers)
     params = model_zoo.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
@@ -555,7 +672,7 @@ def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
     card = tree_map(lambda p, t: t if keeps_fp32(p) else t.to(BF16), params)
     toks = torch.from_numpy(np.random.RandomState(SEED).randint(
         0, cfg.vocab, (batch, seq)).astype(np.int32))
-    with torch.inference_mode():
+    with torch.inference_mode(), record_routes() as routes:
         want, cpu_cache = model_zoo.prefill(cpu_cfg, cpu_params, toks,
                                             seq + 16)
         reset_launch_counts()
@@ -566,8 +683,8 @@ def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
         want_d, _ = model_zoo.decode_step(cpu_cfg, cpu_params, cpu_cache, nxt)
         reset_launch_counts()
         got_d, _ = model_zoo.decode_step(cfg, card, cache, nxt.cuda())
-    torch.cuda.synchronize()
-    step_counts.append(launch_counts())
+        torch.cuda.synchronize()
+        step_counts.append(launch_counts())
     for counts, want_counts in zip(step_counts, (
             expected_launches(cfg, 1, 0), expected_launches(cfg, 0, 1))):
         if counts != want_counts:
@@ -577,15 +694,27 @@ def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
     print(f"  {arch} {n_layers} layers, batch {batch} x {seq}: launches "
           f"prefill {step_counts[0]}, decode step {step_counts[1]} (as "
           "expected)", flush=True)
+    limit = LOGITS_REL_RMS.get(arch, NUMERICS_REL_RMS)
+    if cfg.family == "moe":
+        # routes in call order: CPU prefill, card prefill, CPU decode,
+        # card decode; n_layers each
+        run = [routes[i * n_layers:(i + 1) * n_layers] for i in range(4)]
+        cal = CALIBRATED[arch]
+        print(f"  {arch} routes that differ, card vs CPU, per layer: "
+              f"prefill {route_flips(run[1], run[0])}, decode "
+              f"{route_flips(run[3], run[2])} (CPU bf16 vs fp32: prefill "
+              f"{cal[2]}, decode {cal[3]}); logits limit {limit} from the "
+              f"calibrated rel RMS {cal[0]:.3e} / {cal[1]:.3e}, dense "
+              f"limit {NUMERICS_REL_RMS}", flush=True)
     # real vocab only: the padded logits are -1e9 on both sides and would
     # swamp the RMS
     v = cfg.vocab
     for label, g, w in (("prefill", got[:, :v], want[:, :v]),
                         ("decode", got_d[:, :v], want_d[:, :v])):
         r = rel_rms(g.cpu(), w)
-        ok = r <= NUMERICS_REL_RMS and bool(torch.isfinite(g).all())
+        ok = r <= limit and bool(torch.isfinite(g).all())
         print(f"  {arch} {n_layers} layers {label} logits {tuple(g.shape)}: "
-              f"rel RMS {r:.3e} (limit {NUMERICS_REL_RMS}), max abs "
+              f"rel RMS {r:.3e} (limit {limit}), max abs "
               f"{float((g.cpu().float() - w).abs().max()):.3e}, argmax "
               f"agree {int((g.argmax(-1).cpu() == w.argmax(-1)).sum())}/"
               f"{g.shape[0]} -> {'ok' if ok else 'FAIL'}", flush=True)
@@ -595,12 +724,14 @@ def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
     del params, card
 
 
-def serve(arch: str, batch: int, prompt_len: int, new: int):
-    """Full-width, full-depth ``arch`` Engine on the card: ``batch``
-    prompts of ``prompt_len`` tokens, ``new`` greedy new tokens. Returns
-    the kernels' launch counts of that run."""
-    cfg = get_config(arch).with_(param_dtype="bfloat16")
-    n_layers = cfg.n_layers
+def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
+    """Full-width ``arch`` Engine on the card, at full depth unless
+    ``n_layers`` cuts it: ``batch`` prompts of ``prompt_len`` tokens,
+    ``new`` greedy new tokens. Returns the kernels' launch counts of that
+    run."""
+    cfg = get_config(arch)
+    n_layers = n_layers or cfg.n_layers
+    cfg = cfg.with_(param_dtype="bfloat16", n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model_zoo.init_params(
@@ -641,11 +772,18 @@ def serve(arch: str, batch: int, prompt_len: int, new: int):
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("prefill logits are not finite")
     t_decode = total - t_prefill
+    # a decode step reads every weight once but the embedding table (one
+    # row a token); an MoE's experts all run, each on at least min(k, B)
+    # slots
+    step_bytes = sum(t.numel() * t.element_size() for p, t in _leaves(
+        eng.params) if p != "embed")
     print(f"  served {batch} x {prompt_len} prompt tokens + {new} new: total "
           f"{total:.3f} s; prefill {t_prefill:.4f} s "
           f"({batch * prompt_len / t_prefill:.1f} tok/s); decode "
           f"{t_decode:.4f} s ({batch * new / t_decode:.1f} tok/s, "
-          f"{t_decode / new * 1e3:.2f} ms/step); peak memory "
+          f"{t_decode / new * 1e3:.2f} ms/step; bound "
+          f"{step_bytes / PEAK_BYTES * 1e3:.2f} ms/step: "
+          f"{step_bytes / 1e9:.2f} GB of weights at 3.35 TB/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  launches {launches} (expected {want}: per prefill "
           f"{expected_launches(cfg, 1, 0)}, per decode step "
@@ -664,7 +802,8 @@ def report(prof, label, wall, top=8):
     """Print a profiler window: wall and device busy/idle, the ``top``
     device ops by self time, and the port's kernels by op."""
     from torch.autograd import DeviceType
-    evts = [e for e in prof.key_averages()  # kernels, memsets, copies
+    averages = prof.key_averages()
+    evts = [e for e in averages  # kernels, memsets, copies
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evts) / 1e3
     print(f"  profile {label}: wall {wall:.2f} ms, device busy "
@@ -686,7 +825,7 @@ def report(prof, label, wall, top=8):
         for op, (ms, n) in sorted(ops.items())) or "none"), flush=True)
     # the Functions' explicit torch backwards: device time of every kernel
     # launched under each autograd node
-    bwd = [e for e in prof.key_averages() if e.key.startswith(
+    bwd = [e for e in averages if e.key.startswith(
         "autograd::engine::evaluate_function: ") and e.key.endswith(
         ("FlashAttentionBackward", "FusedMLPBackward", "SSDScanBackward"))]
     if bwd:
@@ -698,7 +837,9 @@ def report(prof, label, wall, top=8):
 
 def profile(eng, prompts):
     """Where the device time goes: torch.profiler over one prefill and over
-    3 decode steps of the served model (run after the counted main path)."""
+    3 decode steps of the served model (run after the counted main path).
+    Device activity only: ``report`` reads nothing of the host's ops here,
+    and recording them costs seconds of processing a window."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     tokens = torch.as_tensor(prompts).cuda()
@@ -707,8 +848,7 @@ def profile(eng, prompts):
         tok = torch.argmax(logits, -1).to(torch.int32)
         for label, steps in (("prefill", None), ("decode x3", 3)):
             torch.cuda.synchronize()
-            with torch_profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA]) as prof:
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 if steps is None:
                     eng._prefill(eng.params, {"tokens": tokens})
@@ -893,16 +1033,11 @@ def check_ssd_train(gen, flush):
 
 def expected_train_launches(cfg, steps: int):
     """Kernel launches of ``steps`` train steps under remat "full": each
-    attention block, SwiGLU MLP and Mamba-2 layer runs its kernel in the
-    forward and again in the backward's recompute (the hybrid's shared
-    block once per firing)."""
-    if cfg.is_ssm_family:
-        blocks = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
-        ssd = cfg.n_layers
-    else:
-        blocks, ssd = cfg.n_layers, 0
-    return {"flash_attention": 2 * blocks * steps,
-            "fused_mlp": 2 * blocks * steps, "ssd_scan": 2 * ssd * steps}
+    attention block, SwiGLU MLP (an MoE layer's shared expert) and
+    Mamba-2 layer runs its kernel in the forward and again in the
+    backward's recompute (the hybrid's shared block once per firing)."""
+    per_step = expected_launches(cfg, 1, 0)
+    return {op: 2 * n * steps for op, n in per_step.items()}
 
 
 def dead_leaves(grads, grads32, n_layers):
@@ -935,17 +1070,27 @@ def check_train_numerics(arch, n_layers, batch, seq):
     host = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
             "labels": torch.from_numpy(toks[:, 1:].copy())}
     reset_launch_counts()
-    loss, _, grads = value_and_grad(
-        cfg, params, {k: v.cuda() for k, v in host.items()})
+    dev = {k: v.cuda() for k, v in host.items()}
+    loss, metrics, grads = value_and_grad(cfg, params, dev)
     torch.cuda.synchronize()
     counts = launch_counts()
     if counts != expected_train_launches(cfg, 1):
         raise RuntimeError(f"train step launches {counts}, expected "
                            f"{expected_train_launches(cfg, 1)}")
+    if cfg.family == "moe":
+        # the dispatch's backward is a gather (no atomics): the step is
+        # bitwise deterministic
+        again = value_and_grad(cfg, params, dev)
+        same = torch.equal(again[0], loss) and _bitwise(again[2], grads)
+        print(f"  {arch}: two card steps bitwise equal (loss and every "
+              f"gradient): {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"{arch} train step is not deterministic")
+        del again
     t0 = time.perf_counter()
     cpu_params = tree_map(lambda _, t: t.cpu(), params)
-    loss32, _, grads32 = value_and_grad(cfg.with_(compute_dtype="float32"),
-                                        cpu_params, host)
+    loss32, metrics32, grads32 = value_and_grad(
+        cfg.with_(compute_dtype="float32"), cpu_params, host)
     cpu_s = time.perf_counter() - t0
     gn, gn32 = float(global_norm(grads)), float(global_norm(grads32))
     rel = leaf_rel_rms(grads, grads32)
@@ -963,6 +1108,12 @@ def check_train_numerics(arch, n_layers, batch, seq):
         print(f"    {path}: rel RMS {r:.3e}", flush=True)
     print(f"  worst leaf {worst}: rel RMS {rel[worst]:.3e} (limit "
           f"{lim_leaf})", flush=True)
+    aux_rel = 0.0
+    if cfg.family == "moe":
+        aux, aux32 = float(metrics["aux"]), float(metrics32["aux"])
+        aux_rel = abs(aux - aux32) / abs(aux32)
+        print(f"  aux card {aux:.6f} cpu {aux32:.6f} rel {aux_rel:.3e} "
+              f"(limit {TRAIN_AUX_REL})", flush=True)
     dead = dead_leaves(grads, grads32, n_layers)
     nonfinite = []
     tree_map(lambda path, g: None if bool(torch.isfinite(g).all())
@@ -971,7 +1122,7 @@ def check_train_numerics(arch, n_layers, batch, seq):
           f"not finite: {nonfinite or 'none'}", flush=True)
     if (dead or nonfinite or not np.isfinite(float(loss))
             or loss_rel > lim_loss or gn_rel > lim_gn
-            or rel[worst] > lim_leaf):
+            or rel[worst] > lim_leaf or aux_rel > TRAIN_AUX_REL):
         raise RuntimeError(f"{arch} train step on the card disagrees with "
                            "the fp32 CPU path")
     del params, grads, cpu_params, grads32
@@ -1005,10 +1156,12 @@ def _step_split(cfg, opt_cfg, params, opt, batch):
     return {"forward": fwd, "backward": fwd_bwd - fwd, "optimizer": opt_ms}
 
 
-def train_full(arch, steps=8, batch=4, seq=2048):
-    """Full-width, full-depth ``arch`` through the port's Trainer (module
-    docstring, phase 6c). Returns the kernels' launch counts of the run."""
+def train_full(arch, steps=8, batch=4, seq=2048, n_layers=None):
+    """Full-width ``arch`` through the port's Trainer (module docstring,
+    phase 6c), at full depth unless ``n_layers`` cuts it. Returns the
+    kernels' launch counts of the run."""
     cfg = get_config(arch)
+    cfg = cfg.with_(n_layers=n_layers or cfg.n_layers)
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
     tr = Trainer(cfg, opt_cfg, TrainerConfig(steps=steps, log_every=1),
                  DataConfig(batch=batch, seq=seq), device="cuda")
@@ -1028,6 +1181,9 @@ def train_full(arch, steps=8, batch=4, seq=2048):
           f"compute, remat {cfg.remat_policy!r}; {steps} steps of {batch} x "
           f"{seq} tokens in {wall:.1f} s (init included)", flush=True)
     print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
+    if cfg.family == "moe":
+        print(f"  aux {[round(h['aux'], 6) for h in tr.metrics_history]}",
+              flush=True)
     print(f"  launches {launches} (expected {want}: per step "
           f"{expected_train_launches(cfg, 1)})", flush=True)
     if launches != want:
@@ -1039,15 +1195,19 @@ def train_full(arch, steps=8, batch=4, seq=2048):
                            "decreasing")
     step_s = float(np.median(tr.step_seconds[1:]))
     tokens = batch * seq
-    mfu = 6.0 * n_params * tokens / (step_s * PEAK_BF16_FLOPS)
+    # N: the parameters a token runs through (an MoE's routed experts at
+    # their top_k / n_experts share)
+    n_active = model_zoo.active_params_count(cfg, params)
+    mfu = 6.0 * n_active * tokens / (step_s * PEAK_BF16_FLOPS)
     print(f"  step times (s) {[round(t, 4) for t in tr.step_seconds]}; "
           f"median of steps 2-{steps} {step_s:.4f} s, "
           f"{tokens / step_s:.1f} tokens/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"  model-FLOP share 6*N*T/(t*989 TFLOP/s) = 6 x {n_params} x "
-          f"{tokens} / ({step_s:.4f} s x 989e12) = {100 * mfu:.2f}% (989 "
-          "TFLOP/s: H100 SXM data sheet, bf16 dense; remat's recompute "
-          "is not counted)", flush=True)
+    print(f"  model-FLOP share 6*N*T/(t*989 TFLOP/s) = 6 x {n_active} x "
+          f"{tokens} / ({step_s:.4f} s x 989e12) = {100 * mfu:.2f}% (N = "
+          f"active params, {n_active} of {n_params}; 989 TFLOP/s: H100 SXM "
+          "data sheet, bf16 dense; remat's recompute is not counted)",
+          flush=True)
     batch_t = tr._device_batch(tr.stream.batch_at(steps))
     split = _step_split(cfg, opt_cfg, params, opt, batch_t)
     total = sum(split.values())
@@ -1155,6 +1315,13 @@ def run_launchers(arch):
         raise RuntimeError(f"{arch}: a launcher did not run the kernels")
 
 
+def _leaves(tree):
+    """[(path, leaf)] of a nested dict."""
+    out = []
+    tree_map(lambda path, t: out.append((path, t)), tree)
+    return out
+
+
 def _bitwise(got, want):
     """Every leaf of ``got`` equals ``want``'s bitwise (same dtype)."""
     ok = []
@@ -1195,8 +1362,9 @@ def main():
     phase("kernels")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    entries = [check_flash(gen, flush), check_fused_mlp(gen, flush),
-               check_ssd(gen, flush)]
+    entries = [clocked("flash", check_flash, gen, flush),
+               clocked("fused_mlp", check_fused_mlp, gen, flush),
+               clocked("ssd_scan", check_ssd, gen, flush)]
     del flush
     smoke = check_smoke_shapes(gen)
     for e in entries:
@@ -1204,41 +1372,43 @@ def main():
     torch.cuda.empty_cache()
 
     phase("numerics")
-    check_numerics("granite_8b", 2, 2, 64)
-    check_numerics("mamba2_780m", 2, 2, 512)
-    check_numerics("zamba2_1_2b", 6, 2, 512)
+    for arch, depth, seq in NUMERICS:
+        clocked(arch, check_numerics, arch, depth, 2, seq)
     torch.cuda.empty_cache()
 
     phase("serve")
     # each kernel's launches come from the path that runs it
     path_of = {"flash_attention": "granite_8b", "fused_mlp": "granite_8b",
                "ssd_scan": "mamba2_780m"}
+    moe_path = {"flash_attention": "granite_moe_1b_a400m",
+                "fused_mlp": "deepseek_moe_16b"}
     launches = {}
-    for arch, batch, prompt in (("granite_8b", 4, 512),
-                                ("mamba2_780m", 4, 2048),
-                                ("zamba2_1_2b", 4, 2048)):
-        launches[arch] = serve(arch, batch, prompt, 32)
+    for arch, batch, prompt, depth in SERVE:
+        launches[arch] = clocked(arch, serve, arch, batch, prompt, 32, depth)
         torch.cuda.empty_cache()
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
         e["launches_path"] = path_of[e["name"]]
         e["zamba2_1_2b_serve_launches"] = launches["zamba2_1_2b"][e["name"]]
+        if e["name"] in moe_path:
+            e["moe"]["launches"] = launches[moe_path[e["name"]]][e["name"]]
 
     phase("train")
     t_train = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    train_entries = check_train_kernels(gen, flush)
+    train_entries = clocked("Functions", check_train_kernels, gen, flush)
     del flush
     torch.cuda.empty_cache()
-    numerics = {"olmo_1b": check_train_numerics("olmo_1b", 2, 2, 256),
-                "mamba2_780m": check_train_numerics("mamba2_780m", 2, 2, 512),
-                "zamba2_1_2b": check_train_numerics("zamba2_1_2b", 6, 2, 512)}
+    numerics = {arch: clocked(f"{arch} step", check_train_numerics, arch,
+                              depth, 2, seq)
+                for arch, depth, seq in TRAIN_NUMERICS}
     torch.cuda.empty_cache()
     steps = 8
-    train_launches = {arch: train_full(arch, steps=steps)
-                      for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b")}
-    check_checkpoint()
+    train_launches = {arch: clocked(f"{arch} train", train_full, arch,
+                                    steps=steps, n_layers=depth)
+                      for arch, depth in TRAIN}
+    clocked("checkpoint", check_checkpoint)
     # flash and fused_mlp's train entries from olmo_1b, ssd_scan's from
     # mamba2_780m: the paths that each carry the kernel at its train shape
     train_path = {"flash_attention": "olmo_1b", "fused_mlp": "olmo_1b",
@@ -1250,15 +1420,23 @@ def main():
                       "path": f"{arch} train, remat full",
                       "zamba2_1_2b_launches_per_step":
                       train_launches["zamba2_1_2b"][e["name"]] // steps,
+                      "granite_moe_1b_a400m_launches_per_step":
+                      train_launches["granite_moe_1b_a400m"][e["name"]]
+                      // steps,
                       "step_numerics": numerics[arch],
                       **train_entries.get(e["name"], {})}
+    e = entries[0]
+    e["moe"]["train"] = {"path": "granite_moe_1b_a400m train, remat full",
+                         "step_numerics": numerics["granite_moe_1b_a400m"]}
     print(f"  train phase wall {time.perf_counter() - t_train:.1f} s",
           flush=True)
 
     phase("launchers")
-    for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b"):
+    for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b",
+                 "granite_moe_1b_a400m", "deepseek_moe_16b"):
         run_launchers(arch)
 
+    print(f"  chip_smoke wall {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

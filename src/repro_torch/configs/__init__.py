@@ -2,7 +2,7 @@
 
 A data-only copy of ``repro.configs`` for the PyTorch port (the port
 imports nothing of the JAX package). Every family is registered; the
-port's models run the dense, ssm and hybrid families and raise
+port's models run the dense, moe, ssm and hybrid families and raise
 ``NotImplementedError`` for the others.
 
 Every config cites its public source (see per-file docstrings). Use

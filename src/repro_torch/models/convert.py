@@ -3,9 +3,10 @@
 jax.random and torch generators draw different numbers from one seed,
 so parity tests build weights once with the reference ``init_params``
 and convert them here. The reference tree (nested dicts, per-layer
-leaves stacked on a leading layer axis, weights ``[d_in, d_out]``, norm
-scales and the SSM's ``dt_bias``/``A_log``/``D``/``gn_scale`` fp32)
-keeps its layout; only the leaf type changes.
+leaves stacked on a leading layer axis, weights ``[d_in, d_out]``, the
+MoE's expert stacks ``[L, E, D, F]``, norm scales, the SSM's
+``dt_bias``/``A_log``/``D``/``gn_scale`` and the MoE router fp32) keeps
+its layout; only the leaf type changes.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ def params_from_numpy(cfg: ModelConfig, tree: PyTree, device,
     """The reference parameter tree (numpy leaves, bfloat16 as ml_dtypes)
     as torch tensors on ``device``. Lossless when ``dtype`` is None;
     otherwise leaves are cast to ``dtype``, except those ``keeps_fp32``
-    names (norm scales, the SSM's fp32 leaves). Raises if the tree's
-    shapes are not ``cfg``'s."""
+    names (norm scales, the SSM's fp32 leaves, the MoE router). Raises if
+    the tree's shapes are not ``cfg``'s."""
     want = (cfg.padded_vocab, cfg.d_model)
     if tuple(np.shape(tree["embed"])) != want:
         raise ValueError(f"embed is {np.shape(tree['embed'])}, {cfg.arch_id} "

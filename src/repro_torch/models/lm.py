@@ -1,8 +1,10 @@
-"""Decoder-only language models: dense, ssm and hybrid families.
+"""Decoder-only language models: dense, moe, ssm and hybrid families.
 
 PyTorch counterpart of ``repro.models.lm`` for ``family`` in ("dense",
-"ssm", "hybrid"): dense is GQA attention with RoPE, RMSNorm or
-non-parametric LayerNorm, SwiGLU or GELU; ssm is Mamba-2 (``ssm``); the
+"moe", "ssm", "hybrid"): dense is GQA attention with RoPE, RMSNorm or
+non-parametric LayerNorm, SwiGLU or GELU; moe replaces the MLP with
+top-k routed experts (``mlp.moe``), whose load-balancing aux loss the
+forward sums over the layers in fp32; ssm is Mamba-2 (``ssm``); the
 hybrid (Zamba-2) adds ONE shared attention+MLP block (shared weights)
 applied after every ``attn_every``-th Mamba-2 layer, with one KV-cache
 slot per invocation. Per-layer parameters are stacked on a leading
@@ -26,7 +28,12 @@ gradients:
   - ``"mlp"``: the residual sublayers other than the MLP (attention,
     Mamba-2) are recomputed; each MLP keeps what its backward needs (its
     input), so it is not run again in the recompute (the reference keeps
-    the MLP's hidden ``h``, ``save_only_these_names("mlp_hidden")``).
+    the MLP's hidden ``h``, ``save_only_these_names("mlp_hidden")``). In
+    an MoE layer only the shared expert is such an MLP: the router and
+    the routed experts are recomputed, as the reference names no hidden
+    of theirs.
+The MoE sublayer's aux loss is an output of the recomputed function, so
+its gradient reaches the router under every policy.
 """
 from __future__ import annotations
 
@@ -41,16 +48,15 @@ from .attention import (attention, decode_attention, init_attn,
                         init_kv_cache, prefill_into_cache)
 from .common import (ModelConfig, apply_norm, dense_init, torch_dtype,
                      tree_get, tree_leaves, tree_map)
-from .mlp import init_mlp, mlp
+from .mlp import init_mlp, init_moe, mlp, moe
 from .ssm import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode, \
     mamba2_prefill
 
 PyTree = Any
 
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 _LATER_SLICE = {
-    "moe": "Slice D (MoE)", "audio": "Slice D (encoder-decoder)",
-    "vlm": "Slice D (VLM)",
+    "audio": "Slice D (encoder-decoder)", "vlm": "Slice D (VLM)",
 }
 
 
@@ -91,8 +97,21 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Dict:
 
     if cfg.is_ssm_family:
         return {"ssm_norm": ones(), "ssm": init_mamba2(cfg, gen, dtype=dtype)}
-    return {"attn_norm": ones(), "attn": init_attn(cfg, gen, dtype=dtype),
-            "ffn_norm": ones(), "mlp": init_mlp(cfg, gen, dtype=dtype)}
+    p = {"attn_norm": ones(), "attn": init_attn(cfg, gen, dtype=dtype),
+         "ffn_norm": ones()}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(cfg, gen, dtype=dtype)
+    else:
+        p["mlp"] = init_mlp(cfg, gen, dtype=dtype)
+    return p
+
+
+def _ffn(cfg: ModelConfig, lp: Dict, h):
+    """The layer's feed-forward on normed ``h``: the MLP, or the MoE
+    without its aux loss (prefill and decode drop it)."""
+    if cfg.family == "moe":
+        return moe(cfg, lp["moe"], h)[0]
+    return mlp(cfg, lp["mlp"], h)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
@@ -156,8 +175,28 @@ def _shared_attn_apply(cfg: ModelConfig, shared: Dict, x, attend):
     return x + mlp(cfg, shared["mlp"], h)
 
 
-# A residual sublayer: (is it an MLP, x -> x + f(norm(x))).
-Sublayer = Tuple[bool, Callable]
+# A residual sublayer: (kind, fn). ``kind`` is "mlp" (a dense MLP), "moe"
+# (fn(x, split) -> (x, aux); ``split`` recomputes only its routed half) or
+# "mix" (attention, Mamba-2); fn(x) -> x + f(norm(x)).
+Sublayer = Tuple[str, Callable]
+
+
+def _moe_sublayer(cfg: ModelConfig, norm, p: Dict) -> Sublayer:
+    routed = {k: v for k, v in p.items() if k != "shared"}
+
+    def fn(x, split=False):
+        h = apply_norm(cfg, x, norm)
+        if not split:
+            y, aux = moe(cfg, p, h)
+            return x + y, aux
+        # "mlp" remat: the router and routed experts are recomputed, the
+        # shared expert (an MLP) is not
+        y, aux = checkpoint(functools.partial(moe, cfg, routed), h,
+                            use_reentrant=False)
+        if "shared" in p:
+            y = y + mlp(cfg, p["shared"], h)
+        return x + y, aux
+    return "moe", fn
 
 
 def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
@@ -167,17 +206,36 @@ def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
         return lambda x: x + fn(apply_norm(cfg, x, norm))
 
     if cfg.is_ssm_family:
-        subs = [(False, residual(lp["ssm_norm"], lambda h: mamba2_block(
+        subs = [("mix", residual(lp["ssm_norm"], lambda h: mamba2_block(
             cfg, lp["ssm"], h)))]
         if _shared_fires(cfg, shared, idx):
-            subs += [(False, residual(shared["norm"], lambda h: attention(
+            subs += [("mix", residual(shared["norm"], lambda h: attention(
                 cfg, shared["attn"], h, causal=True))),
-                (True, residual(shared["mlp_norm"], lambda h: mlp(
+                ("mlp", residual(shared["mlp_norm"], lambda h: mlp(
                     cfg, shared["mlp"], h)))]
         return subs
-    return [(False, residual(lp["attn_norm"], lambda h: attention(
-        cfg, lp["attn"], h, causal=True))),
-        (True, residual(lp["ffn_norm"], lambda h: mlp(cfg, lp["mlp"], h)))]
+    attn = ("mix", residual(lp["attn_norm"], lambda h: attention(
+        cfg, lp["attn"], h, causal=True)))
+    if cfg.family == "moe":
+        return [attn, _moe_sublayer(cfg, lp["ffn_norm"], lp["moe"])]
+    return [attn, ("mlp", residual(lp["ffn_norm"], lambda h: mlp(
+        cfg, lp["mlp"], h)))]
+
+
+def _run(subs: List[Sublayer], x, mlp_policy: bool = False):
+    """Apply the sublayers in order -> (x, [aux of each MoE sublayer]).
+    Under ``mlp_policy`` (remat "mlp") the "mix" sublayers and the routed
+    experts are checkpointed."""
+    aux = []
+    for kind, fn in subs:
+        if kind == "moe":
+            x, a = fn(x, mlp_policy)
+            aux.append(a)
+        elif kind == "mix" and mlp_policy:
+            x = checkpoint(fn, x, use_reentrant=False)
+        else:
+            x = fn(x)
+    return x, aux
 
 
 # outputs the "dots" policy keeps: 2-D matrix products (no batch dims)
@@ -185,23 +243,16 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
 def _remat(policy: str, subs: List[Sublayer], x):
-    """Run one layer's sublayers under ``policy`` (module docstring)."""
-    def run(fns, x):
-        for fn in fns:
-            x = fn(x)
-        return x
-
-    fns = [fn for _, fn in subs]
+    """Run one layer's sublayers under ``policy`` (module docstring) ->
+    (x, [aux])."""
     if policy == "full":
-        return checkpoint(run, fns, x, use_reentrant=False)
+        return checkpoint(_run, subs, x, use_reentrant=False)
     if policy == "dots":
-        return checkpoint(run, fns, x, use_reentrant=False,
+        return checkpoint(_run, subs, x, use_reentrant=False,
                           context_fn=functools.partial(
                               create_selective_checkpoint_contexts, _DOTS))
     if policy == "mlp":
-        for is_mlp, fn in subs:
-            x = fn(x) if is_mlp else checkpoint(fn, x, use_reentrant=False)
-        return x
+        return _run(subs, x, mlp_policy=True)
     raise ValueError(f"unknown remat_policy {policy!r}; have 'full', "
                      "'dots', 'mlp'")
 
@@ -217,21 +268,22 @@ def _unstacked(layers: PyTree, n: int) -> List[PyTree]:
 
 def forward(cfg: ModelConfig, params: PyTree,
             tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,S] -> (logits [B,S,Vp], aux_loss scalar). Each layer is
-    recomputed in the backward when autograd records (``_remat``)."""
+    """tokens [B,S] -> (logits [B,S,Vp], aux_loss scalar fp32: the MoE
+    layers' load-balancing terms summed in layer order, 0 for the other
+    families). Each layer is recomputed in the backward when autograd
+    records (``_remat``)."""
     require_ported(cfg)
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
     x = _embed(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared_attn")
     for i, lp in enumerate(_unstacked(params["layers"], cfg.n_layers)):
         subs = _sublayers(cfg, lp, shared, i)
-        if remat:
-            x = _remat(cfg.remat_policy, subs, x)
-        else:
-            for _, fn in subs:
-                x = fn(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, layer_aux = (_remat(cfg.remat_policy, subs, x) if remat
+                        else _run(subs, x))
+        for a in layer_aux:
+            aux = aux + a
     return _unembed(cfg, params, x), aux
 
 
@@ -258,10 +310,10 @@ def loss_fn(cfg: ModelConfig, params: PyTree,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> PyTree:
     """Layer-stacked caches in compute dtype (the SSM state in fp32):
-    dense: KV [L, B, max_seq, KV, hd]; ssm: the Mamba-2 cache [L, B, ...];
-    hybrid: the Mamba-2 cache per layer plus the shared block's KV with
-    ONE slot per invocation, ceil(L / attn_every) slots, as the
-    reference lays it out."""
+    dense and moe: KV [L, B, max_seq, KV, hd]; ssm: the Mamba-2 cache
+    [L, B, ...]; hybrid: the Mamba-2 cache per layer plus the shared
+    block's KV with ONE slot per invocation, ceil(L / attn_every) slots,
+    as the reference lays it out."""
     require_ported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     L = cfg.n_layers
@@ -304,7 +356,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens,
         y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
         x = x + y
         h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + mlp(cfg, lp["mlp"], h)
+        x = x + _ffn(cfg, lp, h)
     cache["pos"] = s
     return _unembed(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
@@ -333,6 +385,6 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
         y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
         x = x + y
         h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + mlp(cfg, lp["mlp"], h)
+        x = x + _ffn(cfg, lp, h)
     logits = _unembed(cfg, params, x)[:, 0, :]
     return logits, {**cache, "pos": pos + 1}

@@ -1,16 +1,27 @@
-"""Dense FFN (SwiGLU / GELU).
+"""Dense FFN (SwiGLU / GELU) and MoE (top-k routing, capacity-bounded
+dispatch).
 
-PyTorch counterpart of ``repro.models.mlp`` (dense part). On CUDA
-tensors SwiGLU runs the hand-written fused MLP kernel through its
-autograd Function (``kernels.fused_mlp.FusedMLP``: the kernel forward,
-an explicit torch backward), which forms h in fp32 and rounds it once;
-on CPU tensors it runs the reference's formula, which rounds each
-product to x.dtype, under plain autograd. In bf16 the two round
-differently.
+PyTorch counterpart of ``repro.models.mlp``. On CUDA tensors SwiGLU runs
+the hand-written fused MLP kernel through its autograd Function
+(``kernels.fused_mlp.FusedMLP``: the kernel forward, an explicit torch
+backward), which forms h in fp32 and rounds it once; on CPU tensors it
+runs the reference's formula, which rounds each product to x.dtype,
+under plain autograd. In bf16 the two round differently.
+
+MoE: the router and the routed experts have no Pallas kernel in the
+reference (jnp einsums), so here they are torch ops: an fp32 router
+product and softmax, ``torch.topk``, and batched expert products. The
+shared expert (deepseek) goes through ``mlp``, so on the card it runs
+the fused MLP kernel. Routing keeps the reference's static shapes (a
+capacity-padded slot table, no ``nonzero``), so it never waits on the
+device. The reference's sharding hints ``moe_data_axes`` and
+``moe_expert_axis`` (``with_sharding_constraint``) change no value on
+one device and are ignored here; the multi-GPU slice ports them.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,9 +30,10 @@ from ..kernels import fused_mlp as fused_kernel
 from .common import ModelConfig, dense_init
 
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator,
-             dtype=torch.float32) -> Dict:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model=None,
+             d_ff=None, dtype=torch.float32) -> Dict:
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
     if cfg.mlp == "swiglu":
         return {"w1": dense_init(gen, d, f, dtype),
                 "w3": dense_init(gen, d, f, dtype),
@@ -42,3 +54,210 @@ def mlp(cfg: ModelConfig, params: Dict, x):
         return y.reshape(x.shape)
     h = F.silu(x @ params["w1"].to(x.dtype)) * (x @ params["w3"].to(x.dtype))
     return h @ params["w2"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator,
+             dtype=torch.float32) -> Dict:
+    """router [D, E] (fp32 whatever ``dtype`` is), w1/w3 [E, D, F], w2
+    [E, F, D], and with ``n_shared_experts`` a SwiGLU ``shared`` expert of
+    width ``n_shared_experts * d_ff``; drawn in fp32 on the generator's
+    device, then cast."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=gen.device)
+
+    p = {"router": dense_init(gen, d, e, torch.float32),
+         "w1": (normal(e, d, f) / math.sqrt(d)).to(dtype),
+         "w3": (normal(e, d, f) / math.sqrt(d)).to(dtype),
+         "w2": (normal(e, f, d) / math.sqrt(f)).to(dtype)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(cfg, gen, d_model=d,
+                               d_ff=cfg.n_shared_experts * f, dtype=dtype)
+    return p
+
+
+def _shards(cfg: ModelConfig, t: int) -> int:
+    """Routing shards: ``moe_shards`` when it divides the ``t`` tokens,
+    else 1 (the reference's fallback)."""
+    return cfg.moe_shards if t % cfg.moe_shards == 0 else 1
+
+
+def capacity(cfg: ModelConfig, tl: int) -> int:
+    """Slots per expert for ``tl`` shard-local tokens: int(tl*k/E*cf),
+    at least min(k, tl)."""
+    k = cfg.top_k
+    cap = int(tl * k / cfg.n_experts * cfg.capacity_factor)
+    return max(cap, min(k, tl))
+
+
+def _route(cfg: ModelConfig, params: Dict, xt):
+    """Shared router (``repro/models/mlp.py::_route``): xt [ns, tl, D] ->
+    (probs [ns, tl, E] fp32, gates [ns, tl, k] fp32 (renormalised, 0 where
+    dropped), gate_idx [ns, tl, k], pos [ns, tl, k], keep [ns, tl, k],
+    cap, counts [ns, E] (choices per expert)). ``pos`` is a choice's place
+    in its expert's queue: the exclusive cumsum of the one-hot over the
+    token-major flattening of (token, choice); ``keep`` is pos < cap."""
+    ns, tl, _ = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xt.float() @ params["router"].float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    cap = capacity(cfg, tl)
+    # the one-hot expert-major, [ns*E, tl*k], scanned as one flat sequence:
+    # a 1-D scan runs in parallel on the card, where a scan down the
+    # tl*k-long dim of [ns, tl*k, E] runs E columns one element at a time
+    # (14.6 ms a call at granite_moe_1b_a400m's 8192 tokens on an H100).
+    # Each row's running count less the rows before it is the cumsum.
+    idx = gate_idx.reshape(ns, 1, tl * k)
+    onehot = (idx == torch.arange(e, device=xt.device)[:, None]).to(
+        torch.int32).view(ns * e, tl * k)
+    run = onehot.view(-1).cumsum(0, dtype=torch.int32).view(ns * e, tl * k)
+    total = run[:, -1]
+    counts = torch.diff(total, prepend=total.new_zeros(1))  # per expert
+    before = run - (total - counts)[:, None] - onehot
+    pos = before.view(ns, e, tl * k).gather(1, idx).view(ns, tl, k).long()
+    keep = pos < cap
+    return (probs, gate_vals * keep, gate_idx, pos, keep, cap,
+            counts.view(ns, e))
+
+
+def _aux_loss(cfg: ModelConfig, probs, counts):
+    """GShard load balance: sum_e mean(probs_e) * mean(choices_e) * E *
+    router_aux_coef, the means over every token of every shard."""
+    ns, tl, _ = probs.shape
+    me = probs.mean(dim=(0, 1))
+    ce = counts.float().sum(0) / (ns * tl)
+    return (me * ce).sum() * cfg.n_experts * cfg.router_aux_coef
+
+
+def _experts(params: Dict, xe, dtype):
+    """xe [ns, E, cap, D] -> [ns, E, cap, D] through each expert's
+    SwiGLU (batched products, one per weight)."""
+    h = F.silu(torch.einsum("secd,edf->secf", xe, params["w1"].to(dtype)))
+    h = h * torch.einsum("secd,edf->secf", xe, params["w3"].to(dtype))
+    return torch.einsum("secf,efd->secd", h, params["w2"].to(dtype))
+
+
+def _take_rows(src, idx):
+    """out[s, i] = src[s, idx[s, i]], or zeros where idx[s, i] equals
+    src.shape[1] (the sentinel); src [ns, n, D], idx [ns, m]."""
+    ns, n, d = src.shape
+    pad = F.pad(src, (0, 0, 0, 1)).reshape(ns * (n + 1), d)
+    base = torch.arange(ns, device=idx.device)[:, None] * (n + 1)
+    return pad.index_select(0, (idx + base).reshape(-1)).view(
+        ns, idx.shape[1], d)
+
+
+class _RowGather(torch.autograd.Function):
+    """``_take_rows(src, idx)`` whose backward is a gather too:
+    dsrc[s, r] is the sum over j of dout[s, inv[s, r, j]] (zeros at the
+    sentinel dout.shape[1]), in a fixed order. ``inv`` lists, for each
+    row of src, the outputs that read it. autograd of the forward gather
+    would scatter-add, with atomics in no fixed order on CUDA."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return _take_rows(src, idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inv, = ctx.saved_tensors
+        ns, n, j = inv.shape
+        g = _take_rows(dout, inv.reshape(ns, n * j)).view(ns, n, j, -1)
+        return g.sum(dim=2), None, None
+
+
+def _add_shared(cfg: ModelConfig, params: Dict, x, y):
+    """The routed output ``y`` [ns, tl, D] as [B, S, D], plus the shared
+    expert's ``mlp`` of x [B, S, D] (row-wise, so the reference's [ns, tl,
+    D] view gives the same rows). Taking x itself, not its [ns, tl, D]
+    view, sums x's gradient as lm's "mlp" remat policy does, where the
+    routed half is a checkpoint of its own: bitwise the same."""
+    y = y.reshape(x.shape)
+    if "shared" in params:
+        y = y + mlp(cfg, params["shared"], x)
+    return y
+
+
+def moe_gather(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """Gather dispatch (``repro/models/mlp.py::moe_gather``): each kept
+    (token, choice) is copied into its expert slot, the experts run on
+    [ns, E, cap, D], and each (token, choice) reads its slot back (a
+    dropped one reads slot 0 with gate 0), combined with fp32 gates.
+    x [B, S, D] -> (y [B, S, D], aux). Both gathers' backwards are
+    gathers (``_RowGather``), so the step is deterministic on the card."""
+    b, s_len, d = x.shape
+    t = b * s_len
+    ns = _shards(cfg, t)
+    tl = t // ns
+    e, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(ns, tl, d)
+    probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
+
+    flat_slot = (gate_idx * cap + pos).reshape(ns, tl * k)
+    kept = keep.reshape(ns, tl * k)
+    slot_or_drop = torch.where(kept, flat_slot, e * cap)
+    # slot -> (token, choice) index, tl*k for an empty slot; dropped
+    # choices go to an extra column that is sliced off (an out-of-range
+    # scatter index is a device-side assert on CUDA)
+    filled = torch.full((ns, e * cap + 1), tl * k, dtype=torch.long,
+                        device=x.device)
+    filled.scatter_(1, slot_or_drop,
+                    torch.arange(tl * k, device=x.device).expand(ns, -1))
+    filled = filled[:, :e * cap]
+    # dispatch: slot <- its token (tl: the zero sentinel row); each token
+    # gets back the sum of its kept slots' gradients
+    xe = _RowGather.apply(xt, torch.div(filled, k, rounding_mode="floor"),
+                          slot_or_drop.view(ns, tl, k))
+    ye = _experts(params, xe.view(ns, e, cap, d), x.dtype)
+    # combine: (token, choice) <- its slot (slot 0 where dropped, gate 0);
+    # a slot's gradient comes from the choice that filled it (a dropped
+    # choice's is dy * 0 = 0)
+    back = _RowGather.apply(ye.reshape(ns, e * cap, d),
+                            torch.where(kept, flat_slot, 0),
+                            filled[..., None]).view(ns, tl, k, d)
+    y = (back.float() * gates[..., None]).sum(dim=2).to(x.dtype)
+    return _add_shared(cfg, params, x, y), _aux_loss(cfg, probs, counts)
+
+
+def moe_einsum(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """GShard one-hot dispatch (``repro/models/mlp.py::moe_einsum``), the
+    reference formulation: dispatch and combine tensors [ns, tl, E, cap].
+    At train shapes those are gigabytes (granite_moe_1b_a400m's combine
+    at 8192 tokens: [1, 8192, 32, 2560] fp32), so the card runs
+    ``moe_gather``."""
+    b, s_len, d = x.shape
+    t = b * s_len
+    ns = _shards(cfg, t)
+    tl = t // ns
+    e = cfg.n_experts
+    xt = x.reshape(ns, tl, d)
+    probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
+    onehot = F.one_hot(gate_idx, e)                          # [ns,tl,k,E]
+    pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
+    disp = torch.einsum("stke,stkc->stec", onehot.to(x.dtype),
+                        pos_oh.to(x.dtype))
+    comb = torch.einsum("stke,stkc,stk->stec", onehot.float(),
+                        pos_oh.float(), gates).to(x.dtype)
+    xe = torch.einsum("stec,std->secd", disp, xt)
+    ye = _experts(params, xe, x.dtype)
+    y = torch.einsum("stec,secd->std", comb, ye)
+    return _add_shared(cfg, params, x, y), _aux_loss(cfg, probs, counts)
+
+
+def moe(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Dispatch by ``cfg.moe_impl``: "gather" (the default) or "einsum"."""
+    if cfg.moe_impl == "gather":
+        return moe_gather(cfg, params, x)
+    return moe_einsum(cfg, params, x)

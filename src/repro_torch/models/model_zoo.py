@@ -1,8 +1,8 @@
 """Family dispatch: the reference's one API across architectures.
 
 PyTorch counterpart of ``repro.models.model_zoo``. The port runs the
-dense, ssm and hybrid families (all in ``lm``); ``lm.require_ported``
-raises for the others.
+dense, moe, ssm and hybrid families (all in ``lm``);
+``lm.require_ported`` raises for the others.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Any, Dict
 import torch
 
 from . import lm
-from .common import ModelConfig
+from .common import ModelConfig, tree_map
 
 PyTree = Any
 
@@ -39,3 +39,20 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, tokens):
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int):
     return lm.prefill(cfg, params, tokens, max_seq)
+
+
+def active_params_count(cfg: ModelConfig, params: PyTree) -> int:
+    """Parameters one token runs through (``repro/launch/dryrun.py::
+    _active_params``): all of them, less the routed experts' w1/w3/w2
+    except their top_k / n_experts share. A shared expert runs for every
+    token and counts in full (the reference's rule scales it too: its
+    path also holds "moe")."""
+    sizes = {}
+    tree_map(lambda path, t: sizes.__setitem__(path, t.numel()), params)
+    total = sum(sizes.values())
+    if cfg.family != "moe":
+        return total
+    expert = sum(n for path, n in sizes.items()
+                 if path.split("/")[-2:] in (["moe", "w1"], ["moe", "w2"],
+                                             ["moe", "w3"]))
+    return total - expert + expert * cfg.top_k // cfg.n_experts

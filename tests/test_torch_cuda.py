@@ -1,7 +1,7 @@
 """The PyTorch port on a CUDA GPU: each hand-written kernel against its
-plain version, the dense and Mamba-2 LMs' card path against their CPU
-path, and training: the kernels' autograd Functions against autograd of
-their plain versions, the gradient guard, and train steps on the card.
+plain version, the dense, MoE and Mamba-2 LMs' card path against their
+CPU path, and training: the kernels' autograd Functions against autograd
+of their plain versions, the gradient guard, and train steps on the card.
 
 Every test here needs a GPU and skips without one; the file imports no
 JAX, so it runs on a machine with only PyTorch:
@@ -24,7 +24,7 @@ from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: 
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
-from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models import mlp, model_zoo  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
@@ -442,13 +442,15 @@ def test_ssd_function_grads_match_plain(cuda, b, s, h, g, n, p, chunk):
 def _train_launches(cfg, policy="full"):
     """Kernel launches of one train step: every attention block, MLP and
     Mamba-2 layer runs its kernel in the forward and again in the remat
-    recompute, except the MLP under "mlp", which keeps its input."""
+    recompute, except the MLP under "mlp", which keeps its input. An MoE
+    layer's only fused MLP is its shared expert (deepseek)."""
     if cfg.is_ssm_family:
         blocks = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
-        ssd = 2 * cfg.n_layers
+        mlps, ssd = blocks, 2 * cfg.n_layers
     else:
         blocks, ssd = cfg.n_layers, 0
-    return {"flash": 2 * blocks, "mlp": (1 if policy == "mlp" else 2) * blocks,
+        mlps = blocks if cfg.family != "moe" or cfg.n_shared_experts else 0
+    return {"flash": 2 * blocks, "mlp": (1 if policy == "mlp" else 2) * mlps,
             "ssd": ssd}
 
 
@@ -572,7 +574,8 @@ def test_ssm_smoke_trains_on_card(cuda, arch):
                               _train_launches(cfg).items()}
 
 
-@pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b"])
+@pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b",
+                                  "granite_moe_1b_a400m", "deepseek_moe_16b"])
 def test_launchers_defaults_run_on_card(cuda, arch, capsys):
     """``launch.train`` and ``launch.serve`` with their defaults (the
     smoke config on cuda) train 2 steps and serve 4 prompts through the
@@ -590,3 +593,98 @@ def test_launchers_defaults_run_on_card(cuda, arch, capsys):
     launched = _delta(before)
     assert all(launched[k] > 0 for k, v in _train_launches(cfg).items()
                if v), launched
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+MOE = ["granite_moe_1b_a400m", "deepseek_moe_16b"]
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_layer_card_matches_cpu(cuda, arch):
+    """One MoE layer of the smoke config (deepseek's shared expert K 64 F
+    64, padded inside the fused MLP op): the card's bf16 path against the
+    CPU's fp32 path on the same bf16 inputs and weights. The fp32 router
+    sees the same x on both, so the routes are equal; y within the repo's
+    bf16 tolerance, aux within 1e-5 relative. The shared expert is the
+    layer's one kernel launch."""
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(0)
+    params = mlp.init_moe(cfg, gen, dtype=torch.bfloat16)
+    x = torch.randn((2, 96, cfg.d_model), generator=gen).to(torch.bfloat16)
+    card = tree_map(lambda _, t: t.to(cuda), params)
+    before = _counts()
+    with torch.inference_mode():
+        y, aux = mlp.moe(cfg, card, x.to(cuda))
+        torch.cuda.synchronize()
+        launched = _delta(before)
+        route = mlp._route(cfg, card, x.to(cuda).reshape(1, -1, cfg.d_model))
+        cpu = tree_map(lambda _, t: t.float(), params)
+        want_y, want_aux = mlp.moe(cfg, cpu, x.float())
+        want_route = mlp._route(cfg, cpu, x.float().reshape(
+            1, -1, cfg.d_model))
+    assert launched == {"flash": 0, "mlp": int(bool(cfg.n_shared_experts)),
+                        "ssd": 0}
+    for i in (2, 3, 4):             # gate_idx, pos, keep
+        assert torch.equal(route[i].cpu(), want_route[i])
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float().cpu(), want_y, **BF16_TOL)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_smoke_serves_on_card(cuda, arch):
+    """The smoke MoE Engine on the card: flash once per layer in prefill,
+    deepseek's shared expert once per layer in prefill and in every
+    decode step; greedy tokens in range."""
+    cfg = get_config(arch, smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(cfg, params, ServeConfig(max_seq=40, max_new_tokens=4),
+                 device=cuda)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, (3, 32)).astype(
+        np.int32)
+    before = _counts()
+    out = eng.generate(prompts)
+    torch.cuda.synchronize()
+    shared = int(bool(cfg.n_shared_experts))
+    # one prefill and 4 decode steps (the Engine runs one per new token)
+    assert _delta(before) == {"flash": cfg.n_layers,
+                              "mlp": shared * cfg.n_layers * 5, "ssd": 0}
+    assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab)).all()
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("policy", ["full", "dots", "mlp"])
+def test_moe_train_step_on_card(cuda, arch, policy):
+    """One card train step of the MoE smoke configs: flash twice per layer
+    (forward and recompute), the shared expert's fused MLP twice (once
+    under "mlp"); the loss and every gradient are finite, every
+    kernel-fed weight (attention, the shared expert) and the router and
+    experts of every layer get a non-zero gradient, and the policies give
+    the same loss."""
+    cfg = get_config(arch, smoke=True).with_(remat_policy=policy)
+    params = tree_map(lambda _, t: t.to(cuda), model_zoo.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 65)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = _counts()
+    loss, metrics, grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert _delta(before) == _train_launches(cfg, policy)
+    full, _, _ = value_and_grad(cfg.with_(remat_policy="full"), params,
+                                batch)
+    assert torch.isfinite(loss) and float(loss) == float(full)
+    assert float(metrics["aux"]) > 0
+    tree_map(lambda path, g: None if bool(torch.isfinite(g).all())
+             else pytest.fail(path), grads)
+    fed = {f"attn/{n}": grads["layers"]["attn"][n]
+           for n in ("wq", "wk", "wv", "wo")}
+    fed.update({f"moe/{n}": g for n, g in grads["layers"]["moe"].items()
+                if n != "shared"})
+    fed.update({f"moe/shared/{n}": g for n, g in
+                grads["layers"]["moe"].get("shared", {}).items()})
+    for name, g in fed.items():
+        assert (g.flatten(1).abs().sum(1) > 0).all(), name

@@ -39,7 +39,8 @@ def _prompts(vocab, b=2, s=16):
 
 
 @pytest.mark.parametrize("arch", ["granite_8b", "olmo_1b", "mamba2_780m",
-                                  "zamba2_1_2b"])
+                                  "zamba2_1_2b", "granite_moe_1b_a400m",
+                                  "deepseek_moe_16b"])
 def test_greedy_tokens_match_jax_engine(arch):
     jeng, eng = _engines(arch, max_seq=40, max_new_tokens=8)
     prompts = _prompts(eng.cfg.vocab)

@@ -1,5 +1,5 @@
-"""PyTorch port's LMs (dense, ssm, hybrid) vs the JAX reference on the
-CPU.
+"""PyTorch port's LMs (dense, moe, ssm, hybrid) vs the JAX reference on
+the CPU.
 
 Weights are built once by the reference ``init_params`` and carried
 across with ``params_from_numpy``; tokens come from numpy. Logits are
@@ -23,6 +23,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import common, convert, inputs, model_zoo  # noqa: E402
 
 DENSE = ["granite_8b", "olmo_1b"]
+MOE = ["granite_moe_1b_a400m", "deepseek_moe_16b"]
 SSM = ["mamba2_780m", "zamba2_1_2b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -86,16 +87,21 @@ def test_params_from_numpy_rejects_other_config():
             convert.params_from_numpy(other, tree, "cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_prefill_decode_match_jax(arch):
+    """Logits and aux (0 for dense; the layers' summed load-balancing
+    terms for moe) of forward, then prefill and two decode steps."""
     jcfg, cfg, jparams, params = _pair(arch)
     toks = np.random.RandomState(0).randint(0, cfg.vocab,
                                             (2, 12)).astype(np.int32)
-    want, _ = jax_zoo.forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    want, want_aux = jax_zoo.forward(jcfg, jparams,
+                                     {"tokens": jnp.asarray(toks)})
     got, aux = model_zoo.forward(cfg, params,
                                  {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+    assert (float(aux) > 0) == (cfg.family == "moe")
     if cfg.padded_vocab != cfg.vocab:
         assert (_np(got)[..., cfg.vocab:] == -1e9).all()
 
@@ -184,8 +190,7 @@ def test_inputs_bit_identical():
         np.asarray(jax_inputs.make_decode_tokens(jcfg, 4, seed=6)))
 
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "granite_moe_1b_a400m",
-                                  "whisper_base", "llava_next_34b"])
+@pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
 def test_other_families_raise(arch):
     cfg = configs.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

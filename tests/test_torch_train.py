@@ -96,7 +96,9 @@ def _flat_torch(tree):
                                        ("olmo_1b", False),
                                        ("olmo_1b", True),
                                        ("mamba2_780m", False),
-                                       ("zamba2_1_2b", False)])
+                                       ("zamba2_1_2b", False),
+                                       ("granite_moe_1b_a400m", False),
+                                       ("deepseek_moe_16b", True)])
 def test_loss_and_grads_match_jax(arch, mask):
     """loss, metrics and every gradient leaf against
     jax.value_and_grad(repro.models.model_zoo.loss_fn) within 1e-4 in
@@ -118,9 +120,12 @@ def test_loss_and_grads_match_jax(arch, mask):
                                    **TOL)
     if arch == "olmo_1b":
         assert not got["layers/attn_norm"].any()
+    if "moe" in arch:
+        assert float(metrics["aux"]) > 0 and got["layers/moe/router"].any()
 
 
-@pytest.mark.parametrize("arch", ["granite_8b", "zamba2_1_2b"])
+@pytest.mark.parametrize("arch", ["granite_8b", "zamba2_1_2b",
+                                  "deepseek_moe_16b"])
 def test_remat_policies_identical(arch):
     """full, dots and mlp recompute different parts of a layer; the loss
     and every gradient are bitwise the same."""
@@ -264,7 +269,8 @@ def _assert_state_close(params, opt, jparams, jopt):
         np.testing.assert_allclose(got[path], w, err_msg=path, **tol)
 
 
-@pytest.mark.parametrize("arch", ["olmo_1b", "granite_8b"])
+@pytest.mark.parametrize("arch", ["olmo_1b", "granite_8b",
+                                  "granite_moe_1b_a400m"])
 def test_train_steps_match_jax(arch):
     """Three make_train_step steps against the reference's, jitted with
     no mesh: metrics within 1e-4; params and moments (_assert_state_close)."""
