@@ -12,9 +12,13 @@ Phases, each raising on failure:
   3. kernels -- each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (flash_attention and fused_mlp at
                 granite_8b's, ssd_scan at mamba2_780m's; flash also at
-                granite_moe_1b_a400m's prefill, hd 64 GQA 16/8 4 x 2048, and
-                fused_mlp at deepseek_moe_16b's shared experts, K 2048 F
-                2816, M 2048 and 4), with its time, the plain version's
+                granite_moe_1b_a400m's prefill, hd 64 GQA 16/8 4 x 2048, at
+                whisper_base's encoder (non-causal, 4 x 1500, hd 64) and
+                cross-attention (non-causal, Sq 128, Skv 1500) and at
+                llava_next_34b's prefill (GQA 56/8, 4 x 512), and fused_mlp
+                at deepseek_moe_16b's shared experts, K 2048 F 2816, and at
+                llava_next_34b's K 7168 F 20480, M 2048 and 4), with its
+                time, the plain version's
                 time, a library yardstick's time and its bound; also flash
                 at head dims 80/96 (stablelm_3b, phi3), fused_mlp at M
                 4/100/2048 (both regimes, a ragged M), ssd_scan at chunk 64,
@@ -29,18 +33,26 @@ Phases, each raising on failure:
                 then one decode step) against the port's plain path on the
                 CPU in fp32, on the same weights: granite_8b, mamba2_780m,
                 granite_moe_1b_a400m and deepseek_moe_16b at 2 layers,
-                zamba2_1_2b at 6 (its shared block fires once); each
-                kernel's launches per step are checked; for the MoE pair,
-                the share of (token, choice) routes that differ per layer
-                is printed, and the logits limit is calibrated per arch.
+                zamba2_1_2b at 6 (its shared block fires once), whisper_base
+                at full depth (6 + 6, 2 x (1500 frames + 64 tokens)),
+                llava_next_34b at 2 layers, batch 1 (also its forward with
+                576 image embeddings prepended); each kernel's launches per
+                step are checked; for the MoE pair, the share of (token,
+                choice) routes that differ per layer is printed, and the
+                logits limit is calibrated per arch.
   5. serve   -- full-width bf16 Engines (``SERVE``): full-depth granite_8b
                 serves 4 requests of 512 prompt tokens, mamba2_780m (cut to
                 24 of 48 layers), zamba2_1_2b (cut to 19 of 38 layers, its
                 shared block 3 times) and full-depth granite_moe_1b_a400m
                 (24 layers) 4 of 2048, full-depth deepseek_moe_16b (28
-                layers, ~31 GiB of weights) 4 of 512, 32 greedy new tokens
-                each; each path's launch counters, zeroed just before
-                it, must show that it went through its kernels; the decode
+                layers, ~31 GiB of weights) 4 of 512, full-depth
+                whisper_base 4 of (1500 frames + 128 tokens), full-depth
+                llava_next_34b (60 layers, 64.06 GiB of weights) 4 of 512,
+                32 greedy new tokens each; each path's launch counters,
+                zeroed just before
+                it, must show that it went through its kernels (flash's
+                also split by regime: causal, non-causal Sq = Skv,
+                non-causal Sq != Skv); the decode
                 step's weight-read bound is printed beside its time; then
                 each is profiled over one prefill and 3 decode steps.
   6. train   -- the training half: (a) each kernel's autograd Function
@@ -69,7 +81,8 @@ Phases, each raising on failure:
   7. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
                 their defaults (the smoke config on cuda) for olmo_1b,
                 mamba2_780m, zamba2_1_2b, granite_moe_1b_a400m and
-                deepseek_moe_16b, each through its kernels.
+                deepseek_moe_16b, and ``launch.serve`` for whisper_base and
+                llava_next_34b, each through its kernels.
 The depth cuts of mamba2_780m and zamba2_1_2b (``SERVE``, ``TRAIN``) keep the
 run within the time it took before the MoE paths came. The last two lines of
 output are a JSON ``kernels`` line and the JSON result line. Exits non-zero,
@@ -100,6 +113,7 @@ from calibrate_train_numerics import (leaf_rel_rms,  # noqa: E402
 from repro_torch.data.synthetic import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
                                             attention_ref, flash_attention)
+from repro_torch.kernels.flash_attn.ops import REGIMES  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
 from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
@@ -142,6 +156,12 @@ SSD_ATOL = SSD_RTOL = 2e-2
 # bf16 card path vs fp32 CPU path through 2 full-width layers: ~10 rounded
 # bf16 operations per layer (2^-9 relative each) compound to ~1% of the
 # logits' RMS; 3% leaves room without hiding a wrong kernel (which is O(1)).
+# whisper_base (6 + 6 layers, 2 x (1500 frames + 64 tokens)) and
+# llava_next_34b (2 layers, 1 x 64 tokens, and its forward with 576 image
+# embeddings) keep this limit: scripts/calibrate_train_numerics.py --no-step
+# at those settings (CPU bf16 vs fp32, same weights) measured prefill and
+# decode logits rel RMS 8.206e-3 and 9.030e-3 (whisper), 6.925e-3, 6.862e-3
+# and 6.631e-3 for the forward (llava), within the ~1% above.
 NUMERICS_REL_RMS = 3e-2
 # The moe family's limits, from scripts/calibrate_train_numerics.py
 # --no-step at the same setting (full width, 2 layers, 2 x 512 tokens; CPU
@@ -224,12 +244,20 @@ T0 = time.perf_counter()
 SERVE = (("granite_8b", 4, 512, None), ("mamba2_780m", 4, 2048, 24),
          ("zamba2_1_2b", 4, 2048, 19),
          ("granite_moe_1b_a400m", 4, 2048, None),
-         ("deepseek_moe_16b", 4, 512, None))
-# (arch, depth, tokens a row) of the full-width numerics checks, batch 2:
-# the card's bf16 path against the CPU's fp32 path, serving and one step
-NUMERICS = (("granite_8b", 2, 64), ("mamba2_780m", 2, 512),
-            ("zamba2_1_2b", 6, 512), ("granite_moe_1b_a400m", 2, 512),
-            ("deepseek_moe_16b", 2, 512))
+         ("deepseek_moe_16b", 4, 512, None),
+         # 4 x (1500 frames + 128 prompt tokens), encoder and decoder 6 each
+         ("whisper_base", 4, 128, None),
+         # full depth: 60 layers, 34.39 B params, 64.06 GiB of bf16 weights
+         ("llava_next_34b", 4, 512, None))
+# (arch, depth, batch, tokens a row) of the full-width numerics checks: the
+# card's bf16 path against the CPU's fp32 path, serving and one step;
+# whisper_base's depth is the decoder's (its 6 encoder layers run in full,
+# on 1500 frames), llava_next_34b also runs its forward with 576 image
+# embeddings prepended
+NUMERICS = (("granite_8b", 2, 2, 64), ("mamba2_780m", 2, 2, 512),
+            ("zamba2_1_2b", 6, 2, 512), ("granite_moe_1b_a400m", 2, 2, 512),
+            ("deepseek_moe_16b", 2, 2, 512), ("whisper_base", 6, 2, 64),
+            ("llava_next_34b", 2, 1, 64))
 TRAIN_NUMERICS = (("olmo_1b", 2, 256), ("mamba2_780m", 2, 512),
                   ("zamba2_1_2b", 6, 512), ("granite_moe_1b_a400m", 2, 512))
 # (arch, depth) of the full-width training runs, 8 steps of 4 x 2048; None
@@ -296,52 +324,75 @@ def randn(gen, *shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(BF16)
 
 
-def flash_times(q, k, v, flush):
-    """ms of the flash kernel, the plain version and SDPA on bshd inputs
-    (causal), and the bound for the causal pairs."""
+def flash_times(q, k, v, flush, causal=True):
+    """ms of the flash kernel, the plain version and SDPA on bshd inputs,
+    and the bound for the (query, key) pairs the mask keeps (causal:
+    end-aligned)."""
     b, sq, nh, d = q.shape
     skv, nkv = k.shape[1], k.shape[2]
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20, flush)
-    plain = cuda_ms(lambda: attention_ref(q, k, v, causal=True), 5, flush)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 20, flush)
+    plain = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), 5, flush)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
-    pairs = sum(min(skv, i + (skv - sq) + 1) for i in range(sq))
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 20, flush)
+    pairs = (sum(min(skv, i + (skv - sq) + 1) for i in range(sq)) if causal
+             else sq * skv)
     flops = 4.0 * b * nh * d * pairs
     nbytes = 2.0 * (2 * b * sq * nh * d + 2 * b * skv * nkv * d)
     bms, by = bound_ms(flops, nbytes)
-    print(f"  flash_attention B={b} S={sq} H={nh} KV={nkv} hd={d}: kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
-          f"{bms:.4f} ms ({by})", flush=True)
+    mask = "causal" if causal else "non-causal"
+    sizes = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
+    print(f"  flash_attention B={b} {sizes} H={nh} KV={nkv} hd={d} {mask}: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)", flush=True)
     return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib,
-            "shape": f"B={b} S={sq} H={nh} KV={nkv} hd={d} causal bf16"}
+            "library": f"F.scaled_dot_product_attention(is_causal={causal}, "
+                       "enable_gqa=True)",
+            "shape": f"B={b} {sizes} H={nh} KV={nkv} hd={d} {mask} bf16"}
 
 
 def check_flash(gen, flush):
     """Flash kernel vs attention_ref; returns the kernel's JSON entry
     (granite_8b's prefill shape) with granite_moe_1b_a400m's prefill shape
-    (hd 64, GQA 16/8, 4 x 2048) nested under "moe"."""
+    (hd 64, GQA 16/8, 4 x 2048) nested under "moe", whisper_base's
+    encoder (non-causal, S 1500) and cross-attention (non-causal, Sq 128,
+    Skv 1500) under "whisper", and llava_next_34b's prefill (GQA 56/8)
+    under "llava"."""
     cfg = get_config("granite_8b")
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gm = get_config("granite_moe_1b_a400m")
-    cases = [  # (label, b, sq, skv, h, kv, hd, causal, layout)
-        ("prefill B=4 S=512 causal", 4, 512, 512, h, kv, hd, True, "bshd"),
-        ("ragged S=500 causal", 4, 500, 500, h, kv, hd, True, "bshd"),
-        ("non-causal S=512", 4, 512, 512, h, kv, hd, False, "bshd"),
-        ("end-aligned Sq=100 Skv=300 hd=64, Pallas layout", 2, 100, 300, 8,
-         2, 64, True, "pallas"),
-        (f"granite_moe_1b_a400m prefill B=4 S=2048 H={gm.n_heads} "
+    wh = get_config("whisper_base")
+    lv = get_config("llava_next_34b")
+    cases = [  # (timed as, label, b, sq, skv, h, kv, hd, causal, layout)
+        ("main", "prefill B=4 S=512 causal", 4, 512, 512, h, kv, hd, True,
+         "bshd"),
+        (None, "ragged S=500 causal", 4, 500, 500, h, kv, hd, True, "bshd"),
+        (None, "non-causal S=512", 4, 512, 512, h, kv, hd, False, "bshd"),
+        (None, "end-aligned Sq=100 Skv=300 hd=64, Pallas layout", 2, 100,
+         300, 8, 2, 64, True, "pallas"),
+        ("moe", f"granite_moe_1b_a400m prefill B=4 S=2048 H={gm.n_heads} "
          f"KV={gm.n_kv_heads} hd={gm.hd} causal", 4, 2048, 2048, gm.n_heads,
          gm.n_kv_heads, gm.hd, True, "bshd"),
+        ("whisper encoder", f"whisper_base encoder B=4 S={wh.enc_frames} "
+         f"H={wh.n_heads} KV={wh.n_kv_heads} hd={wh.hd} non-causal", 4,
+         wh.enc_frames, wh.enc_frames, wh.n_heads, wh.n_kv_heads, wh.hd,
+         False, "bshd"),
+        ("whisper cross", f"whisper_base cross-attention B=4 Sq=128 "
+         f"Skv={wh.enc_frames} hd={wh.hd} non-causal", 4, 128, wh.enc_frames,
+         wh.n_heads, wh.n_kv_heads, wh.hd, False, "bshd"),
+        ("llava", f"llava_next_34b prefill B=4 S=512 H={lv.n_heads} "
+         f"KV={lv.n_kv_heads} hd={lv.hd} causal", 4, 512, 512, lv.n_heads,
+         lv.n_kv_heads, lv.hd, True, "bshd"),
     ]
     for arch in ("stablelm_3b", "phi3_mini_3_8b"):
         c = get_config(arch)
-        cases.append((f"{arch} B=2 S=512 H={c.n_heads} KV={c.n_kv_heads} "
-                      f"hd={c.hd} causal", 2, 512, 512, c.n_heads,
-                      c.n_kv_heads, c.hd, True, "bshd"))
+        cases.append((None, f"{arch} B=2 S=512 H={c.n_heads} "
+                      f"KV={c.n_kv_heads} hd={c.hd} causal", 2, 512, 512,
+                      c.n_heads, c.n_kv_heads, c.hd, True, "bshd"))
     timed = {}
-    for label, b, sq, skv, nh, nkv, d, causal, layout in cases:
+    for key, label, b, sq, skv, nh, nkv, d, causal, layout in cases:
         if layout == "bshd":
             q = randn(gen, b, sq, nh, d)
             k, v = randn(gen, b, skv, nkv, d), randn(gen, b, skv, nkv, d)
@@ -353,17 +404,25 @@ def check_flash(gen, flush):
         torch.cuda.synchronize()
         err = compare(f"flash_attention [{label}]", out, ref)
         del out, ref
-        if not timed or label.startswith("granite_moe"):
-            key = "moe" if timed else "main"
-            timed[key] = {"max_abs_err": err, **flash_times(q, k, v, flush)}
+        if key:
+            timed[key] = {"max_abs_err": err,
+                          **flash_times(q, k, v, flush, causal)}
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn.cu",
             "replaces": "src/repro/kernels/flash_attn/flash_attn.py:73",
             "launches": None, **timed["main"],
-            "library": "F.scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True)",
             "moe": {"path": "granite_moe_1b_a400m prefill", "launches": None,
-                    **timed["moe"]}}
+                    **timed["moe"]},
+            "whisper": {"path": "whisper_base serve (encoder once, then per "
+                                "decoder layer causal self and non-causal "
+                                "cross)", "launches": None,
+                        "launches_by_regime": None,
+                        "encoder": {"launches": None,
+                                    **timed["whisper encoder"]},
+                        "cross": {"launches": None,
+                                  **timed["whisper cross"]}},
+            "llava": {"path": "llava_next_34b prefill", "launches": None,
+                      **timed["llava"]}}
 
 
 def mlp_case(gen, flush, k, f, cases):
@@ -405,16 +464,19 @@ def mlp_case(gen, flush, k, f, cases):
 
 def check_fused_mlp(gen, flush):
     """fused_mlp kernel vs fused_mlp_ref at granite_8b's prefill and
-    decode shapes and at deepseek_moe_16b's shared experts' (K 2048, F 2 x
-    1408, prefill M 2048 and decode M 4); returns the kernel's JSON entry
-    (granite_8b prefill) with its decode case and the deepseek cases
-    nested."""
+    decode shapes, at deepseek_moe_16b's shared experts' (K 2048, F 2 x
+    1408) and at llava_next_34b's (K 7168, F 20480), prefill M 2048 and
+    decode M 4; returns the kernel's JSON entry (granite_8b prefill) with
+    its decode case and the deepseek and llava cases nested."""
     cfg = get_config("granite_8b")
     dense = mlp_case(gen, flush, cfg.d_model, cfg.d_ff,
                      (("prefill", 2048), ("decode", 4), ("ragged", 100)))
     ds = get_config("deepseek_moe_16b")
     moe = mlp_case(gen, flush, ds.d_model, ds.n_shared_experts * ds.d_ff,
                    (("prefill", 2048), ("decode", 4)))
+    lv = get_config("llava_next_34b")
+    llava = mlp_case(gen, flush, lv.d_model, lv.d_ff,
+                     (("prefill", 2048), ("decode", 4)))
     return {"name": "fused_mlp", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_mlp.cu",
             "replaces": "src/repro/kernels/fused_mlp/fused_mlp.py:52",
@@ -423,7 +485,9 @@ def check_fused_mlp(gen, flush):
             "decode": dense["decode"],
             "moe": {"path": "deepseek_moe_16b shared experts",
                     "launches": None, **moe["prefill"],
-                    "decode": moe["decode"]}}
+                    "decode": moe["decode"]},
+            "llava": {"path": "llava_next_34b serve", "launches": None,
+                      **llava["prefill"], "decode": llava["decode"]}}
 
 
 def ssd_inputs(gen, b, s, h, g, n, p):
@@ -633,13 +697,16 @@ def launch_counts():
 def reset_launch_counts():
     for fn in (flash_attention, fused_mlp, ssd_scan):
         fn.launches = 0
+    flash_attention.launches_by_regime = dict.fromkeys(REGIMES, 0)
 
 
 def fused_mlps(cfg):
     """SwiGLU MLPs a token passes through (the fused MLP kernel's calls per
-    step): one per dense layer, one per MoE layer with a shared expert
-    (the routed experts are torch products), one per firing of the
-    hybrid's shared block."""
+    step): one per dense (and vlm) layer, one per MoE layer with a shared
+    expert (the routed experts are torch products), one per firing of the
+    hybrid's shared block; none in a GELU model (whisper_base)."""
+    if cfg.mlp != "swiglu":
+        return 0
     if cfg.is_ssm_family:
         return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
     if cfg.family == "moe":
@@ -650,20 +717,74 @@ def fused_mlps(cfg):
 def expected_launches(cfg, prefills: int, decode_steps: int):
     """Kernel launches for ``prefills`` prefills and ``decode_steps`` decode
     steps: flash once per attention block in prefill, fused_mlp once per
-    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill."""
+    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill. The
+    encoder-decoder's prefill runs its encoder once (enc_layers
+    non-causal blocks) and each decoder layer's causal self-attention and
+    non-causal cross-attention; its decode step runs no kernel."""
     L = cfg.n_layers
-    blocks = L if not cfg.is_ssm_family else fused_mlps(cfg)
+    if cfg.family == "audio":
+        blocks = cfg.enc_layers + 2 * L
+    else:
+        blocks = L if not cfg.is_ssm_family else fused_mlps(cfg)
     return {"flash_attention": blocks * prefills,
             "fused_mlp": fused_mlps(cfg) * (prefills + decode_steps),
             "ssd_scan": L * prefills if cfg.is_ssm_family else 0}
 
 
+def expected_flash_regimes(cfg, prefills: int, prompt_len: int):
+    """``flash_attention.launches_by_regime`` for ``prefills`` prefills of
+    ``prompt_len`` tokens: the encoder-decoder's encoder blocks are
+    non-causal with Sq == Skv, its cross-attention non-causal with Sq =
+    prompt_len against Skv = enc_frames (Sq == Skv only where the two are
+    equal, as the smoke config's 16 and the launcher's 16), its decoder's
+    self-attention causal; every other model's blocks causal."""
+    if cfg.family != "audio":
+        n = expected_launches(cfg, prefills, 0)["flash_attention"]
+        return dict(zip(REGIMES, (n, 0, 0)))
+    want = dict(zip(REGIMES, (cfg.n_layers * prefills,
+                              cfg.enc_layers * prefills, 0)))
+    cross = REGIMES[1] if prompt_len == cfg.enc_frames else REGIMES[2]
+    want[cross] += cfg.n_layers * prefills
+    return want
+
+
+def check_flash_regimes(arch, label, cfg, prefills: int, prompt_len: int):
+    """The flash launches counted since the last reset, split by regime,
+    against ``expected_flash_regimes``; returns them."""
+    got = dict(flash_attention.launches_by_regime)
+    want = expected_flash_regimes(cfg, prefills, prompt_len)
+    if got != want:
+        raise RuntimeError(f"{arch} {label}: flash launches by regime {got}, "
+                           f"expected {want}")
+    return got
+
+
+def extra_input(cfg, batch: int):
+    """The family's input beside the tokens, drawn from the seed (numpy
+    fp32): encoder frames [B, enc_frames, D] for audio, image embeddings
+    [B, img_tokens, D] for vlm; None for the others."""
+    n = {"audio": cfg.enc_frames, "vlm": cfg.img_tokens}.get(cfg.family)
+    if n is None:
+        return None
+    return np.random.RandomState(SEED + 1).randn(batch, n, cfg.d_model).astype(
+        np.float32)
+
+
+def _check_counts(arch, label, counts, want):
+    if counts != want:
+        raise RuntimeError(f"{arch} {label}: launch counts {counts}, expected "
+                           f"{want}: the card path did not run the kernels")
+
+
 def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
-    """``arch`` at full width and ``n_layers`` layers: card bf16 kernel
-    path vs the port's plain path on the CPU in fp32, on the same
-    weights; each step's kernel launches checked. For the moe family, the
-    share of (token, choice) routes that differ in each layer is printed,
-    and the logits limit is the arch's own (``LOGITS_REL_RMS``)."""
+    """``arch`` at full width and ``n_layers`` (decoder) layers: card bf16
+    kernel path vs the port's plain path on the CPU in fp32, on the same
+    weights: prefill logits (audio: with the encoder's frames) and one
+    decode step, and for the vlm the forward with image embeddings
+    prepended; each step's kernel launches checked. For the moe family,
+    the share of (token, choice) routes that differ in each layer is
+    printed, and the logits limit is the arch's own
+    (``LOGITS_REL_RMS``)."""
     cfg = get_config(arch).with_(n_layers=n_layers)
     params = model_zoo.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
@@ -672,28 +793,33 @@ def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
     card = tree_map(lambda p, t: t if keeps_fp32(p) else t.to(BF16), params)
     toks = torch.from_numpy(np.random.RandomState(SEED).randint(
         0, cfg.vocab, (batch, seq)).astype(np.int32))
+    extra = extra_input(cfg, batch)
+    frames = (torch.from_numpy(extra) if cfg.family == "audio" else None)
     with torch.inference_mode(), record_routes() as routes:
         want, cpu_cache = model_zoo.prefill(cpu_cfg, cpu_params, toks,
-                                            seq + 16)
+                                            seq + 16, frames=frames)
         reset_launch_counts()
-        got, cache = model_zoo.prefill(cfg, card, toks.cuda(), seq + 16)
+        got, cache = model_zoo.prefill(
+            cfg, card, toks.cuda(), seq + 16,
+            frames=None if frames is None else frames.cuda())
         torch.cuda.synchronize()
         step_counts = [launch_counts()]
+        regimes = check_flash_regimes(arch, "prefill", cfg, 1, seq)
         nxt = torch.argmax(want, dim=-1).to(torch.int32)
         want_d, _ = model_zoo.decode_step(cpu_cfg, cpu_params, cpu_cache, nxt)
         reset_launch_counts()
         got_d, _ = model_zoo.decode_step(cfg, card, cache, nxt.cuda())
         torch.cuda.synchronize()
         step_counts.append(launch_counts())
-    for counts, want_counts in zip(step_counts, (
-            expected_launches(cfg, 1, 0), expected_launches(cfg, 0, 1))):
-        if counts != want_counts:
-            raise RuntimeError(f"{arch}: launch counts {counts}, expected "
-                               f"{want_counts}: the card path did not run "
-                               "the kernels")
-    print(f"  {arch} {n_layers} layers, batch {batch} x {seq}: launches "
-          f"prefill {step_counts[0]}, decode step {step_counts[1]} (as "
-          "expected)", flush=True)
+    for label, counts, want_counts in zip(
+            ("prefill", "decode step"), step_counts,
+            (expected_launches(cfg, 1, 0), expected_launches(cfg, 0, 1))):
+        _check_counts(arch, label, counts, want_counts)
+    print(f"  {arch} {n_layers} layers, batch {batch} x {seq}"
+          + (f" + {cfg.enc_frames} frames" if frames is not None else "")
+          + f": launches prefill {step_counts[0]} (flash by regime "
+          f"{regimes}), decode step {step_counts[1]} (as expected)",
+          flush=True)
     limit = LOGITS_REL_RMS.get(arch, NUMERICS_REL_RMS)
     if cfg.family == "moe":
         # routes in call order: CPU prefill, card prefill, CPU decode,
@@ -706,11 +832,31 @@ def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
               f"{cal[2]}, decode {cal[3]}); logits limit {limit} from the "
               f"calibrated rel RMS {cal[0]:.3e} / {cal[1]:.3e}, dense "
               f"limit {NUMERICS_REL_RMS}", flush=True)
-    # real vocab only: the padded logits are -1e9 on both sides and would
-    # swamp the RMS
-    v = cfg.vocab
-    for label, g, w in (("prefill", got[:, :v], want[:, :v]),
-                        ("decode", got_d[:, :v], want_d[:, :v])):
+    # the decoder-only LMs' padded logits are -1e9 on both sides and would
+    # swamp the RMS: real vocab only; encdec masks none, so all of them
+    v = cfg.padded_vocab if cfg.family == "audio" else cfg.vocab
+    checks = [("prefill", got[:, :v], want[:, :v]),
+              ("decode", got_d[:, :v], want_d[:, :v])]
+    if cfg.family == "vlm":
+        img = torch.from_numpy(extra)
+        with torch.inference_mode():
+            want_f, _ = model_zoo.forward(cpu_cfg, cpu_params, {
+                "tokens": toks, "extra_embeds": img})
+            reset_launch_counts()
+            got_f, _ = model_zoo.forward(cfg, card, {
+                "tokens": toks.cuda(), "extra_embeds": img.cuda()})
+            torch.cuda.synchronize()
+        _check_counts(arch, "forward", launch_counts(),
+                      expected_launches(cfg, 1, 0))
+        if got_f.shape != (batch, seq, cfg.padded_vocab):
+            raise RuntimeError(f"{arch} forward logits {tuple(got_f.shape)}")
+        print(f"  {arch} forward with {cfg.img_tokens} image embeddings + "
+              f"{seq} tokens: launches {launch_counts()} (as expected), "
+              f"logits {tuple(got_f.shape)}", flush=True)
+        checks.append(("forward with image embeddings",
+                       got_f[..., :v].reshape(-1, v),
+                       want_f[..., :v].reshape(-1, v)))
+    for label, g, w in checks:
         r = rel_rms(g.cpu(), w)
         ok = r <= limit and bool(torch.isfinite(g).all())
         print(f"  {arch} {n_layers} layers {label} logits {tuple(g.shape)}: "
@@ -724,11 +870,30 @@ def check_numerics(arch: str, n_layers: int, batch: int, seq: int):
     del params, card
 
 
+def decode_bytes(cfg, params, batch: int) -> float:
+    """Bytes one decode step of ``batch`` rows must read at least.
+    Decoder-only LMs: every weight but the embedding table (one row a
+    token; an MoE's experts all run, each on at least min(k, B) slots).
+    The encoder-decoder: the decoder's weights but its cross-attention
+    wk/wv (their keys and values are cached), the unembedding, and the
+    primed cross cache; the encoder and the position tables are not
+    read."""
+    if cfg.family != "audio":
+        return sum(t.numel() * t.element_size() for p, t in _leaves(params)
+                   if p != "embed")
+    skip = ("decoder/cross_attn/wk", "decoder/cross_attn/wv")
+    weights = sum(t.numel() * t.element_size() for p, t in _leaves(params)
+                  if p.startswith("decoder/") and p not in skip
+                  or p in ("unembed", "final_norm"))
+    cross = 2 * cfg.n_layers * batch * cfg.enc_frames * cfg.n_kv_heads * cfg.hd
+    return weights + cross * BF16.itemsize
+
+
 def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
     """Full-width ``arch`` Engine on the card, at full depth unless
-    ``n_layers`` cuts it: ``batch`` prompts of ``prompt_len`` tokens,
-    ``new`` greedy new tokens. Returns the kernels' launch counts of that
-    run."""
+    ``n_layers`` cuts it: ``batch`` prompts of ``prompt_len`` tokens (and,
+    for the audio family, ``enc_frames`` frames each), ``new`` greedy new
+    tokens. Returns the kernels' launch counts of that run."""
     cfg = get_config(arch)
     n_layers = n_layers or cfg.n_layers
     cfg = cfg.with_(param_dtype="bfloat16", n_layers=n_layers)
@@ -746,13 +911,15 @@ def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     prompts = np.random.RandomState(SEED).randint(
         0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    frames = extra_input(cfg, batch) if cfg.family == "audio" else None
     Engine(cfg, eng.params, ServeConfig(max_seq=prompt_len + 2,
-                                        max_new_tokens=2)).generate(prompts)
+                                        max_new_tokens=2)).generate(prompts,
+                                                                    frames)
 
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = eng.generate(prompts)
+    out = eng.generate(prompts, frames)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = launch_counts()
@@ -760,38 +927,46 @@ def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
     want = expected_launches(cfg, 1, new)
     if launches != want:
         raise RuntimeError(f"launch counts {launches}, expected {want}")
-    if out.shape != (batch, new) or not ((out >= 0) & (out < cfg.vocab)).all():
+    regimes = check_flash_regimes(arch, "serve", cfg, 1, prompt_len)
+    # encdec masks no padded-vocab column (as the reference): its greedy
+    # ids may fall in [vocab, padded_vocab)
+    top = cfg.padded_vocab if cfg.family == "audio" else cfg.vocab
+    if out.shape != (batch, new) or not ((out >= 0) & (out < top)).all():
         raise RuntimeError(f"bad tokens: shape {out.shape}")
+    batch_in = eng.batch(prompts, frames)
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, _ = eng._prefill(eng.params,
-                                 {"tokens": torch.as_tensor(prompts).cuda()})
+        logits, _ = eng._prefill(eng.params, batch_in)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("prefill logits are not finite")
     t_decode = total - t_prefill
-    # a decode step reads every weight once but the embedding table (one
-    # row a token); an MoE's experts all run, each on at least min(k, B)
-    # slots
-    step_bytes = sum(t.numel() * t.element_size() for p, t in _leaves(
-        eng.params) if p != "embed")
-    print(f"  served {batch} x {prompt_len} prompt tokens + {new} new: total "
+    step_bytes = decode_bytes(cfg, eng.params, batch)
+    print(f"  served {batch} x {prompt_len} prompt tokens"
+          + (f" (+ {cfg.enc_frames} frames each)" if frames is not None
+             else "")
+          + f" + {new} new: total "
           f"{total:.3f} s; prefill {t_prefill:.4f} s "
           f"({batch * prompt_len / t_prefill:.1f} tok/s); decode "
           f"{t_decode:.4f} s ({batch * new / t_decode:.1f} tok/s, "
           f"{t_decode / new * 1e3:.2f} ms/step; bound "
           f"{step_bytes / PEAK_BYTES * 1e3:.2f} ms/step: "
-          f"{step_bytes / 1e9:.2f} GB of weights at 3.35 TB/s); peak memory "
+          f"{step_bytes / 1e9:.2f} GB at 3.35 TB/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  launches {launches} (expected {want}: per prefill "
           f"{expected_launches(cfg, 1, 0)}, per decode step "
-          f"{expected_launches(cfg, 0, 1)})", flush=True)
+          f"{expected_launches(cfg, 0, 1)}); flash by regime {regimes}",
+          flush=True)
     print(f"  first tokens: {out[:, :8].tolist()}", flush=True)
-    profile(eng, prompts)
-    del eng, logits
-    return launches
+    if cfg.family == "audio":
+        print(f"  greedy ids in the padded vocab [{cfg.vocab}, "
+              f"{cfg.padded_vocab}): {int((out >= cfg.vocab).sum())} of "
+              f"{out.size}", flush=True)
+    profile(eng, batch_in)
+    del eng, logits, batch_in
+    return launches, regimes
 
 
 # kernel name prefix in csrc/ -> the op whose wrapper launches it
@@ -835,23 +1010,23 @@ def report(prof, label, wall, top=8):
             for e in bwd), flush=True)
 
 
-def profile(eng, prompts):
-    """Where the device time goes: torch.profiler over one prefill and over
-    3 decode steps of the served model (run after the counted main path).
-    Device activity only: ``report`` reads nothing of the host's ops here,
-    and recording them costs seconds of processing a window."""
+def profile(eng, batch):
+    """Where the device time goes: torch.profiler over one prefill of the
+    prefill ``batch`` and over 3 decode steps of the served model (run
+    after the counted main path). Device activity only: ``report`` reads
+    nothing of the host's ops here, and recording them costs seconds of
+    processing a window."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    tokens = torch.as_tensor(prompts).cuda()
     with torch.inference_mode():
-        logits, cache = eng._prefill(eng.params, {"tokens": tokens})
+        logits, cache = eng._prefill(eng.params, batch)
         tok = torch.argmax(logits, -1).to(torch.int32)
         for label, steps in (("prefill", None), ("decode x3", 3)):
             torch.cuda.synchronize()
             with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 if steps is None:
-                    eng._prefill(eng.params, {"tokens": tokens})
+                    eng._prefill(eng.params, batch)
                 else:
                     for _ in range(steps):
                         logits, cache = eng._decode(eng.params, cache, tok)
@@ -1288,24 +1463,41 @@ def check_checkpoint():
             raise RuntimeError("checkpoint resume or restore failed")
 
 
-def run_launchers(arch):
-    """``python -m repro_torch.launch.train`` (2 steps) and ``...serve``
-    with their defaults (the smoke config, on cuda), in this process so
-    that their kernel launches are counted: each must launch the kernels
-    of its model, training each in every step's forward and recompute."""
+def run_launchers(arch, train=True):
+    """``python -m repro_torch.launch.train`` (2 steps, unless not
+    ``train``) and ``...serve`` with their defaults (the smoke config, on
+    cuda), in this process so that their kernel launches are counted:
+    each must launch the kernels of its model, training each in every
+    step's forward and recompute; a serve-only arch must launch exactly
+    one prefill's and the decode steps' kernels."""
     cfg = get_config(arch, smoke=True)
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    train_launcher.main(["--arch", arch, "--steps", "2"])
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    trained = launch_counts()
+    trained, t_train = None, 0.0
+    if train:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        train_launcher.main(["--arch", arch, "--steps", "2"])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        trained = launch_counts()
     reset_launch_counts()
     t0 = time.perf_counter()
     serve_launcher.main(["--arch", arch])
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     served = launch_counts()
+    if not train:
+        new = serve_launcher.DEFAULT_NEW_TOKENS
+        want = expected_launches(cfg, 1, new)
+        print(f"  launch.serve --arch {arch} ({cfg.arch_id} on cuda, {new} "
+              f"new tokens): {t_serve:.1f} s, launches {served} (expected "
+              f"{want})", flush=True)
+        if served != want:
+            raise RuntimeError(f"{arch}: launch.serve did not run the "
+                               "kernels")
+        by_regime = check_flash_regimes(arch, "launch.serve", cfg, 1,
+                                        serve_launcher.DEFAULT_PROMPT_LEN)
+        print(f"  flash by regime {by_regime} (as expected)", flush=True)
+        return
     want = expected_train_launches(cfg, 2)
     print(f"  launch.train --arch {arch} --steps 2 ({cfg.arch_id} on cuda): "
           f"{t_train:.1f} s, launches {trained} (expected {want}); "
@@ -1372,9 +1564,9 @@ def main():
     torch.cuda.empty_cache()
 
     phase("numerics")
-    for arch, depth, seq in NUMERICS:
-        clocked(arch, check_numerics, arch, depth, 2, seq)
-    torch.cuda.empty_cache()
+    for arch, depth, batch, seq in NUMERICS:
+        clocked(arch, check_numerics, arch, depth, batch, seq)
+        torch.cuda.empty_cache()
 
     phase("serve")
     # each kernel's launches come from the path that runs it
@@ -1382,9 +1574,10 @@ def main():
                "ssd_scan": "mamba2_780m"}
     moe_path = {"flash_attention": "granite_moe_1b_a400m",
                 "fused_mlp": "deepseek_moe_16b"}
-    launches = {}
+    launches, regimes = {}, {}
     for arch, batch, prompt, depth in SERVE:
-        launches[arch] = clocked(arch, serve, arch, batch, prompt, 32, depth)
+        launches[arch], regimes[arch] = clocked(arch, serve, arch, batch,
+                                                prompt, 32, depth)
         torch.cuda.empty_cache()
     for e in entries:
         e["launches"] = launches[path_of[e["name"]]][e["name"]]
@@ -1392,6 +1585,15 @@ def main():
         e["zamba2_1_2b_serve_launches"] = launches["zamba2_1_2b"][e["name"]]
         if e["name"] in moe_path:
             e["moe"]["launches"] = launches[moe_path[e["name"]]][e["name"]]
+        for arch, key in (("whisper_base", "whisper"),
+                          ("llava_next_34b", "llava")):
+            if key in e:
+                e[key]["launches"] = launches[arch][e["name"]]
+    # whisper's flash launches, counted by regime in its serve run
+    wh = entries[0]["whisper"]
+    wh["launches_by_regime"] = regimes["whisper_base"]
+    wh["encoder"]["launches"] = regimes["whisper_base"][REGIMES[1]]
+    wh["cross"]["launches"] = regimes["whisper_base"][REGIMES[2]]
 
     phase("train")
     t_train = time.perf_counter()
@@ -1435,6 +1637,8 @@ def main():
     for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b",
                  "granite_moe_1b_a400m", "deepseek_moe_16b"):
         run_launchers(arch)
+    for arch in ("whisper_base", "llava_next_34b"):  # they serve, not train
+        run_launchers(arch, train=False)
 
     print(f"  chip_smoke wall {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))

@@ -11,7 +11,11 @@ rounding: every product rounded to bf16) and in fp32. Prints the
 relative RMS difference of the prefill's last logits and of one decode
 step's (real vocab), and, unless ``--no-step``, one train step's loss,
 aux, the gradients' global norm and each gradient leaf's relative RMS
-difference (the worst leaf last). For the moe family it also prints, per
+difference (the worst leaf last). The audio family's prefill and step
+take encoder frames and the vlm's step image embeddings (``img_tokens``
+of them), drawn from the seed; for the vlm it also prints the forward's
+logits with those embeddings prepended. ``--layers`` cuts the decoder
+(the encoder keeps its depth). For the moe family it also prints, per
 layer, the share of (token, choice) routes that differ between the two
 runs (a route is the chosen expert, or "dropped"): a near-tie in the
 fp32 router flips under bf16 activations, and with capacity a flip moves
@@ -83,13 +87,14 @@ def route_flips(got, want):
     return [float((g != w).float().mean()) for g, w in zip(got, want)]
 
 
-def serve_logits(cfg, params, toks):
+def serve_logits(cfg, params, toks, frames=None):
     """(prefill's last logits, one greedy decode step's logits, the routes
-    of each) on the CPU."""
+    of each) on the CPU; ``frames`` for the audio family."""
     with torch.inference_mode():
         with record_routes() as r_pre:
             logits, cache = model_zoo.prefill(cfg, params, toks,
-                                              toks.shape[1] + 1)
+                                              toks.shape[1] + 1,
+                                              frames=frames)
         nxt = torch.argmax(logits, -1).to(torch.int32)
         with record_routes() as r_dec:
             logits_d, _ = model_zoo.decode_step(cfg, params, cache, nxt)
@@ -113,12 +118,23 @@ def main(argv=None):
         0, cfg.vocab, (args.batch, args.seq + 1)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
              "labels": torch.from_numpy(toks[:, 1:].copy())}
-    serve, runs = {}, {}
+    extra = {"audio": ("frames", cfg.enc_frames),
+             "vlm": ("extra_embeds", cfg.img_tokens)}.get(cfg.family)
+    if extra:
+        batch[extra[0]] = torch.from_numpy(np.random.RandomState(
+            args.seed + 1).randn(args.batch, extra[1], cfg.d_model).astype(
+                np.float32))
+    serve, runs, vlm = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         t0 = time.perf_counter()
         dcfg = cfg.with_(compute_dtype=dtype)
-        serve[dtype] = serve_logits(dcfg, params, batch["tokens"])
+        serve[dtype] = serve_logits(dcfg, params, batch["tokens"],
+                                    batch.get("frames"))
         msg = f"{dtype}: prefill + decode step"
+        if cfg.family == "vlm":
+            with torch.inference_mode():
+                vlm[dtype] = model_zoo.forward(dcfg, params, batch)[0]
+            msg += " + forward with image embeddings"
         if args.step:
             loss, metrics, grads = value_and_grad(dcfg, params, batch)
             runs[dtype] = (float(loss), float(metrics["aux"]),
@@ -131,6 +147,10 @@ def main(argv=None):
                                                       serve["bfloat16"])
     print(f"logits rel RMS: prefill {rel_rms(p16[:, :v], p32[:, :v]):.3e}, "
           f"decode {rel_rms(d16[:, :v], d32[:, :v]):.3e}")
+    if vlm:
+        r = rel_rms(vlm["bfloat16"][..., :v], vlm["float32"][..., :v])
+        print(f"forward logits with {cfg.img_tokens} image embeddings rel "
+              f"RMS: {r:.3e}")
     if cfg.family == "moe":
         print(f"routes that differ per layer: prefill "
               f"{route_flips(rp16, rp32)}, decode "

@@ -2,7 +2,10 @@
 tensors, its plain version (``ref.attention_ref``) on CPU tensors.
 
 Replaces ``repro/kernels/flash_attn/flash_attn.py:flash_attention``.
-``flash_attention.launches`` counts kernel launches (forwards only).
+``flash_attention.launches`` counts kernel launches (forwards only), and
+``flash_attention.launches_by_regime`` splits the same launches by
+``regime``: causal, non-causal with Sq == Skv (an encoder's
+self-attention), non-causal with Sq != Skv (cross-attention).
 
 Head dims the kernel does not take natively (any multiple of 8 up to 128,
 e.g. the smoke configs' 16) are zero-padded inside the op to the next
@@ -84,6 +87,16 @@ def _check(q, k, v):
     admit(q, k, v)
 
 
+REGIMES = ("causal", "non-causal Sq=Skv", "non-causal Sq!=Skv")
+
+
+def regime(causal: bool, sq: int, skv: int) -> str:
+    """The key of ``flash_attention.launches_by_regime`` for a call."""
+    if causal:
+        return REGIMES[0]
+    return REGIMES[1] if sq == skv else REGIMES[2]
+
+
 def flash_attention(q, k, v, causal: bool = True):
     """softmax(q k^T / sqrt(hd)) v with native GQA; causal queries are
     end-aligned (they sit at the last Sq of the Skv keys).
@@ -120,10 +133,12 @@ def flash_attention(q, k, v, causal: bool = True):
                         1.0 / (hd ** 0.5), strides, _build.stream_ptr(q))
     _build.check(lib, "flash_attn", rc)
     flash_attention.launches += 1
+    flash_attention.launches_by_regime[regime(causal, sq, skv)] += 1
     return out[..., :hd].contiguous() if pad else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_regime = dict.fromkeys(REGIMES, 0)
 
 
 def _bmm_acc(a, b, acc):

@@ -80,7 +80,8 @@ def make_grad_accum_train_step(cfg: ModelConfig, n_micro: int,
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
     def prefill_step(params, batch):
-        return model_zoo.prefill(cfg, params, batch["tokens"], max_seq)
+        return model_zoo.prefill(cfg, params, batch["tokens"], max_seq,
+                                 frames=batch.get("frames"))
     return prefill_step
 
 

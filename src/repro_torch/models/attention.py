@@ -9,13 +9,19 @@ torch backward); on CPU tensors it runs ``flash_attention`` below, the
 reference's chunked online softmax, under plain autograd. The decode
 path has no kernel and stays in torch.
 
+The kernel aligns causal queries to the END of the keys (query i sits at
+key position Skv - Sq + i); ``flash_attention`` below aligns them to the
+start. The two agree when Sq == Skv or the call is non-causal, which is
+every call the models make; ``_prefill_attend`` raises on a causal call
+with Sq != Skv, so the card and the CPU cannot part silently.
+
 Unlike the reference, whose arrays are immutable, the KV cache here is
 updated in place: prefill and decode write their keys and values into
 the cache tensors they are given, and return them.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -80,36 +86,54 @@ def flash_attention(q, k, v, causal: bool, q_offset: int = 0,
 
 def _prefill_attend(q, k, v, causal: bool):
     """Kernel on CUDA (under autograd), the model's chunked flash on
-    CPU."""
+    CPU. Raises ValueError on a causal call with Sq != Skv, where the
+    two align the queries differently (module docstring)."""
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"causal attention with {q.shape[1]} queries and "
+                         f"{k.shape[1]} keys: the kernel end-aligns the "
+                         "queries, the CPU path start-aligns them")
     if q.is_cuda:
         return flash_kernel.FlashAttention.apply(q, k, v, causal)
     return flash_attention(q, k, v, causal=causal)
 
 
-def _qkv(cfg: ModelConfig, params, x):
+def _qkv(cfg: ModelConfig, params, x, kv_x=None, n_heads=None, n_kv=None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention) or ``x``."""
+    h = n_heads or cfg.n_heads
+    kv = n_kv or cfg.n_kv_heads
+    hd = cfg.hd
+    src = x if kv_x is None else kv_x
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sk = src.shape[1]
     q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kv, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kv, hd)
+    k = (src @ params["wk"].to(x.dtype)).reshape(b, sk, kv, hd)
+    v = (src @ params["wv"].to(x.dtype)).reshape(b, sk, kv, hd)
     return q, k, v
 
 
-def _prefill_qkv(cfg: ModelConfig, params, x):
-    """q, k, v for positions [0, S), RoPE applied."""
-    q, k, v = _qkv(cfg, params, x)
-    if cfg.use_rope:
-        pos = torch.arange(x.shape[1], device=x.device)
-        cos, sin = rope_freqs(cfg, pos)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    return q, k, v
+def _rope_qk(cfg: ModelConfig, q, k, positions=None, kv_positions=None):
+    """RoPE on q at ``positions`` and on k at ``kv_positions`` (both
+    default to [0, S))."""
+    if positions is None:
+        positions = torch.arange(q.shape[1], device=q.device)
+    cos, sin = rope_freqs(cfg, positions)
+    q = apply_rope(q, cos, sin)
+    if kv_positions is not None:
+        cos, sin = rope_freqs(cfg, kv_positions)
+    return q, apply_rope(k, cos, sin)
 
 
-def attention(cfg: ModelConfig, params: Dict, x, *, causal=True):
-    """Full (pre)fill self-attention with RoPE."""
+def attention(cfg: ModelConfig, params: Dict, x, *, causal=True,
+              positions=None, kv_x=None, kv_positions=None, n_heads=None,
+              n_kv=None):
+    """Full (pre)fill attention. ``kv_x`` [B, Skv, D] makes it
+    cross-attention: k and v are projected from ``kv_x`` and RoPE is
+    skipped. Self-attention applies RoPE (when the config uses it) to q
+    at ``positions`` and to k at ``kv_positions`` (default: [0, S))."""
     b, s, _ = x.shape
-    q, k, v = _prefill_qkv(cfg, params, x)
+    q, k, v = _qkv(cfg, params, x, kv_x, n_heads, n_kv)
+    if kv_x is None and cfg.use_rope:
+        q, k = _rope_qk(cfg, q, k, positions, kv_positions)
     out = _prefill_attend(q, k, v, causal)
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
 
@@ -126,13 +150,16 @@ def init_kv_cache(b: int, s_max: int, n_kv: int, hd: int,
                              device=device)}
 
 
-def prefill_into_cache(cfg: ModelConfig, params, x, cache):
+def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
+                       n_heads=None, n_kv=None):
     """Run prefill attention AND write k/v into the cache at [0, S)."""
     b, s, _ = x.shape
     if s > cache["k"].shape[1]:
         raise ValueError(f"prompt of {s} tokens exceeds the cache's "
                          f"{cache['k'].shape[1]} slots")
-    q, k, v = _prefill_qkv(cfg, params, x)
+    q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
+    if cfg.use_rope:
+        q, k = _rope_qk(cfg, q, k)
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
     out = _prefill_attend(q, k, v, True)
@@ -158,16 +185,17 @@ def gqa_decode_attend(q, ck, cv, pos: int):
     return out.reshape(b, 1, h * hd)
 
 
-def decode_attention(cfg: ModelConfig, params, x, cache, pos: int):
-    """One-token decode: x [B, 1, D]; cache k/v [B, S_max, kv, hd]."""
+def decode_attention(cfg: ModelConfig, params, x, cache, pos: int, *,
+                     n_heads=None, n_kv=None,
+                     rope: Optional[bool] = None):
+    """One-token decode: x [B, 1, D]; cache k/v [B, S_max, kv, hd]. RoPE
+    at ``pos`` when ``rope`` (default: the config's ``use_rope``)."""
     if not 0 <= pos < cache["k"].shape[1]:
         raise ValueError(f"decode position {pos} outside the cache's "
                          f"{cache['k'].shape[1]} slots")
-    q, k, v = _qkv(cfg, params, x)
-    if cfg.use_rope:
-        cos, sin = rope_freqs(cfg, torch.tensor([pos], device=x.device))
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
+    if cfg.use_rope if rope is None else rope:
+        q, k = _rope_qk(cfg, q, k, torch.tensor([pos], device=x.device))
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
     out = gqa_decode_attend(q, cache["k"], cache["v"], pos)

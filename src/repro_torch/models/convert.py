@@ -40,10 +40,14 @@ def params_from_numpy(cfg: ModelConfig, tree: PyTree, device,
         raise ValueError(f"embed is {np.shape(tree['embed'])}, {cfg.arch_id} "
                          f"needs {want}")
 
+    depth = {"layers": cfg.n_layers, "decoder": cfg.n_layers,
+             "encoder": cfg.enc_layers}
+
     def leaf(path, arr):
-        if path.startswith("layers/") and np.shape(arr)[0] != cfg.n_layers:
+        stack = path.split("/", 1)[0]
+        if stack in depth and np.shape(arr)[0] != depth[stack]:
             raise ValueError(f"{path} stacks {np.shape(arr)[0]} layers, "
-                             f"{cfg.arch_id} has {cfg.n_layers}")
+                             f"{cfg.arch_id} has {depth[stack]}")
         t = _tensor(arr)
         if dtype is not None and not keeps_fp32(path):
             t = t.to(dtype)

@@ -1,5 +1,4 @@
-"""Batch construction for tests and serving (host tensors; the audio
-family's ``frames`` come with the encoder-decoder slice).
+"""Batch construction for tests and serving (host tensors).
 
 PyTorch counterpart of ``repro.models.inputs``: the same numpy draws,
 so a seed gives bit-identical tokens in both packages."""
@@ -10,7 +9,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .common import ModelConfig
+from .common import ModelConfig, torch_dtype
 
 
 def make_train_batch(cfg: ModelConfig, batch: int, seq: int,
@@ -19,6 +18,10 @@ def make_train_batch(cfg: ModelConfig, batch: int, seq: int,
     toks = rng.randint(0, cfg.vocab, size=(batch, seq + 1)).astype(np.int32)
     out = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
            "labels": torch.from_numpy(toks[:, 1:].copy())}
+    if cfg.family == "audio":
+        out["frames"] = torch.from_numpy(
+            rng.randn(batch, cfg.enc_frames, cfg.d_model)).to(
+                torch_dtype(cfg.compute_dtype))
     return out
 
 

@@ -1,16 +1,16 @@
-"""Decoder-only language models: dense, moe, ssm and hybrid families.
+"""Decoder-only language models: dense, moe, ssm, hybrid and vlm families.
 
-PyTorch counterpart of ``repro.models.lm`` for ``family`` in ("dense",
-"moe", "ssm", "hybrid"): dense is GQA attention with RoPE, RMSNorm or
-non-parametric LayerNorm, SwiGLU or GELU; moe replaces the MLP with
-top-k routed experts (``mlp.moe``), whose load-balancing aux loss the
-forward sums over the layers in fp32; ssm is Mamba-2 (``ssm``); the
-hybrid (Zamba-2) adds ONE shared attention+MLP block (shared weights)
-applied after every ``attn_every``-th Mamba-2 layer, with one KV-cache
-slot per invocation. Per-layer parameters are stacked on a leading
-layer axis, as in the reference, and applied by a Python loop over the
-layers. The other families raise ``NotImplementedError`` naming the
-ROADMAP slice that ports them.
+PyTorch counterpart of ``repro.models.lm``: dense is GQA attention with
+RoPE, RMSNorm or non-parametric LayerNorm, SwiGLU or GELU; vlm is the
+dense stack with stub image embeddings prepended (``forward``'s
+``extra_embeds``; prefill and decode take tokens only); moe replaces
+the MLP with top-k routed experts (``mlp.moe``), whose load-balancing
+aux loss the forward sums over the layers in fp32; ssm is Mamba-2
+(``ssm``); the hybrid (Zamba-2) adds ONE shared attention+MLP block
+(shared weights) applied after every ``attn_every``-th Mamba-2 layer,
+with one KV-cache slot per invocation. Per-layer parameters are
+stacked on a leading layer axis, as in the reference, and applied by a
+Python loop over the layers. The audio family is ``encdec``'s.
 
 Training: ``loss_fn`` is the reference's next-token cross entropy.
 When autograd records, ``forward`` recomputes each layer in the backward
@@ -54,21 +54,6 @@ from .ssm import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode, \
 
 PyTree = Any
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
-_LATER_SLICE = {
-    "audio": "Slice D (encoder-decoder)", "vlm": "Slice D (VLM)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet."""
-    if cfg.family not in PORTED:
-        where = _LATER_SLICE.get(cfg.family, "no slice")
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ROADMAP Queue 1, {where})")
-
-
 def layer_params(layers: PyTree, i: int) -> PyTree:
     """Views of layer ``i`` of a layer-stacked tree (no copy)."""
     return tree_map(lambda _, t: t[i], layers)
@@ -90,7 +75,14 @@ def _shared_fires(cfg: ModelConfig, shared, idx: int) -> bool:
 # Init
 # ---------------------------------------------------------------------------
 
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+
+
 def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Dict:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.arch_id}: family {cfg.family!r} is not a "
+                         f"decoder-only LM ({FAMILIES})")
+
     def ones():
         return torch.ones((cfg.d_model,), dtype=torch.float32,
                           device=gen.device)
@@ -114,11 +106,22 @@ def _ffn(cfg: ModelConfig, lp: Dict, h):
     return mlp(cfg, lp["mlp"], h)
 
 
+def draw_layers(n: int, draw: Callable[[], Dict]) -> PyTree:
+    """``n`` layers, each drawn by ``draw()``, stacked on a leading layer
+    axis. Each layer is copied into the stacked tensors as it is drawn,
+    so the draws' float32 temporaries stay one layer in size."""
+    layers = None
+    for i in range(n):
+        lp = draw()
+        if layers is None:
+            layers = tree_map(lambda _, t: t.new_empty((n, *t.shape)), lp)
+        tree_map(lambda path, t: tree_get(layers, path)[i].copy_(t), lp)
+    return layers
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
-    """Random parameters on the generator's device. Layers are drawn one
-    at a time into the stacked tensors, so the float32 draws stay one
-    layer in size."""
-    require_ported(cfg)
+    """Random parameters on the generator's device, layers drawn one at a
+    time (``draw_layers``)."""
     dtype = torch_dtype(cfg.param_dtype)
     params = {
         "embed": dense_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
@@ -126,15 +129,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
         "unembed": dense_init(gen, cfg.d_model, cfg.padded_vocab, dtype),
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                  device=gen.device),
+        "layers": draw_layers(cfg.n_layers,
+                              lambda: _init_layer(cfg, gen, dtype)),
     }
-    layers = None
-    for i in range(cfg.n_layers):
-        lp = _init_layer(cfg, gen, dtype)
-        if layers is None:
-            layers = tree_map(lambda _, t: t.new_empty((cfg.n_layers,
-                                                        *t.shape)), lp)
-        tree_map(lambda path, t: tree_get(layers, path)[i].copy_(t), lp)
-    params["layers"] = layers
     if cfg.family == "hybrid" and cfg.attn_every:
         ones = torch.ones((cfg.d_model,), dtype=torch.float32,
                           device=gen.device)
@@ -199,26 +196,28 @@ def _moe_sublayer(cfg: ModelConfig, norm, p: Dict) -> Sublayer:
     return "moe", fn
 
 
+def residual(cfg: ModelConfig, norm, fn) -> Callable:
+    """The residual sublayer x -> x + fn(norm(x))."""
+    return lambda x: x + fn(apply_norm(cfg, x, norm))
+
+
 def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
                ) -> List[Sublayer]:
     """Layer ``idx`` of ``forward`` as its residual sublayers, in order."""
-    def residual(norm, fn):
-        return lambda x: x + fn(apply_norm(cfg, x, norm))
-
     if cfg.is_ssm_family:
-        subs = [("mix", residual(lp["ssm_norm"], lambda h: mamba2_block(
+        subs = [("mix", residual(cfg, lp["ssm_norm"], lambda h: mamba2_block(
             cfg, lp["ssm"], h)))]
         if _shared_fires(cfg, shared, idx):
-            subs += [("mix", residual(shared["norm"], lambda h: attention(
+            subs += [("mix", residual(cfg, shared["norm"], lambda h: attention(
                 cfg, shared["attn"], h, causal=True))),
-                ("mlp", residual(shared["mlp_norm"], lambda h: mlp(
+                ("mlp", residual(cfg, shared["mlp_norm"], lambda h: mlp(
                     cfg, shared["mlp"], h)))]
         return subs
-    attn = ("mix", residual(lp["attn_norm"], lambda h: attention(
+    attn = ("mix", residual(cfg, lp["attn_norm"], lambda h: attention(
         cfg, lp["attn"], h, causal=True)))
     if cfg.family == "moe":
         return [attn, _moe_sublayer(cfg, lp["ffn_norm"], lp["moe"])]
-    return [attn, ("mlp", residual(lp["ffn_norm"], lambda h: mlp(
+    return [attn, ("mlp", residual(cfg, lp["ffn_norm"], lambda h: mlp(
         cfg, lp["mlp"], h)))]
 
 
@@ -266,16 +265,28 @@ def _unstacked(layers: PyTree, n: int) -> List[PyTree]:
     return [tree_map(lambda _, ts: ts[i], flat) for i in range(n)]
 
 
-def forward(cfg: ModelConfig, params: PyTree,
-            tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+def param_requires_grad(params: PyTree) -> bool:
+    """Whether autograd records through ``params`` (then each layer is
+    recomputed in the backward)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+
+
+def forward(cfg: ModelConfig, params: PyTree, tokens,
+            extra_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,S] -> (logits [B,S,Vp], aux_loss scalar fp32: the MoE
     layers' load-balancing terms summed in layer order, 0 for the other
-    families). Each layer is recomputed in the backward when autograd
-    records (``_remat``)."""
-    require_ported(cfg)
-    remat = torch.is_grad_enabled() and any(
-        t.requires_grad for t in tree_leaves(params))
+    families). ``extra_embeds`` [B,S_img,D] (the vlm's stub image
+    embeddings) are cast to the compute dtype and prepended; their
+    positions are dropped before the unembedding, so the logits are the
+    reference's with those rows sliced off. Each layer is recomputed in
+    the backward when autograd records (``_remat``)."""
+    remat = param_requires_grad(params)
     x = _embed(cfg, params, tokens)
+    n_extra = 0
+    if extra_embeds is not None:
+        n_extra = extra_embeds.shape[1]
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared_attn")
     for i, lp in enumerate(_unstacked(params["layers"], cfg.n_layers)):
@@ -284,16 +295,17 @@ def forward(cfg: ModelConfig, params: PyTree,
                         else _run(subs, x))
         for a in layer_aux:
             aux = aux + a
-    return _unembed(cfg, params, x), aux
+    return _unembed(cfg, params, x[:, n_extra:]), aux
 
 
 def loss_fn(cfg: ModelConfig, params: PyTree,
             batch: Dict) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross entropy (``repro/models/lm.py:loss_fn``): batch
-    tokens [B,S], labels [B,S], optional mask [B,S]; logits in fp32,
-    logsumexp minus the gold logit, masked mean; returns (ce + aux,
-    {"ce", "aux"})."""
-    logits, aux = forward(cfg, params, batch["tokens"])
+    tokens [B,S], labels [B,S], optional mask [B,S] and extra_embeds
+    [B,S_img,D]; logits in fp32, logsumexp minus the gold logit, masked
+    mean; returns (ce + aux, {"ce", "aux"})."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("extra_embeds"))
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
@@ -310,11 +322,10 @@ def loss_fn(cfg: ModelConfig, params: PyTree,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> PyTree:
     """Layer-stacked caches in compute dtype (the SSM state in fp32):
-    dense and moe: KV [L, B, max_seq, KV, hd]; ssm: the Mamba-2 cache
+    dense, moe and vlm: KV [L, B, max_seq, KV, hd]; ssm: the Mamba-2 cache
     [L, B, ...]; hybrid: the Mamba-2 cache per layer plus the shared
     block's KV with ONE slot per invocation, ceil(L / attn_every) slots,
     as the reference lays it out."""
-    require_ported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     L = cfg.n_layers
     if not cfg.is_ssm_family:
@@ -334,7 +345,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def prefill(cfg: ModelConfig, params: PyTree, tokens,
             max_seq: int) -> Tuple[torch.Tensor, PyTree]:
     """Prefill a prompt into a fresh cache; returns (last logits, cache)."""
-    require_ported(cfg)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_seq, device=params["embed"].device)
     x = _embed(cfg, params, tokens)
@@ -365,7 +375,6 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
                 tokens) -> Tuple[torch.Tensor, PyTree]:
     """tokens [B] -> (logits [B,Vp], cache advanced by one position). One
     token for the whole batch; the cache tensors are written in place."""
-    require_ported(cfg)
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)[:, None, :]
     shared = params.get("shared_attn")

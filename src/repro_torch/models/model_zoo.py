@@ -1,8 +1,8 @@
 """Family dispatch: the reference's one API across architectures.
 
-PyTorch counterpart of ``repro.models.model_zoo``. The port runs the
-dense, moe, ssm and hybrid families (all in ``lm``);
-``lm.require_ported`` raises for the others.
+PyTorch counterpart of ``repro.models.model_zoo``: ``audio``
+(encoder-decoder) dispatches to ``encdec``, every other family to
+``lm``.
 """
 from __future__ import annotations
 
@@ -10,34 +10,58 @@ from typing import Any, Dict
 
 import torch
 
-from . import lm
+from . import encdec, lm
 from .common import ModelConfig, tree_map
 
 PyTree = Any
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
+    if cfg.family == "audio":
+        return encdec.init_params(cfg, gen)
     return lm.init_params(cfg, gen)
 
 
 def loss_fn(cfg: ModelConfig, params: PyTree, batch: Dict):
+    if cfg.family == "audio":
+        return encdec.loss_fn(cfg, params, batch)
     return lm.loss_fn(cfg, params, batch)
 
 
 def forward(cfg: ModelConfig, params: PyTree, batch: Dict):
-    return lm.forward(cfg, params, batch["tokens"])
+    if cfg.family == "audio":
+        return encdec.forward(cfg, params, batch["tokens"], batch["frames"])
+    return lm.forward(cfg, params, batch["tokens"],
+                      batch.get("extra_embeds"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> PyTree:
+    if cfg.family == "audio":
+        return encdec.init_cache(cfg, batch, max_seq, cfg.enc_frames,
+                                 device=device)
     return lm.init_cache(cfg, batch, max_seq, device=device)
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, tokens):
+    if cfg.family == "audio":
+        return encdec.decode_step(cfg, params, cache, tokens)
     return lm.decode_step(cfg, params, cache, tokens)
 
 
-def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int):
+def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
+            frames=None):
+    """(last-position logits, cache). ``frames`` [B, T, D] is the audio
+    family's encoder input (``encdec.prefill``: the cross cache primed,
+    the self cache empty at pos 0) and is refused for the others."""
+    if cfg.family == "audio":
+        if frames is None:
+            raise ValueError(f"{cfg.arch_id}: the audio family's prefill "
+                             "needs frames")
+        return encdec.prefill(cfg, params, tokens, frames, max_seq)
+    if frames is not None:
+        raise ValueError(f"{cfg.arch_id}: frames are the audio family's "
+                         f"input, not the {cfg.family!r} family's")
     return lm.prefill(cfg, params, tokens, max_seq)
 
 

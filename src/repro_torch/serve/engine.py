@@ -62,18 +62,30 @@ class Engine:
         self._prefill = steps_lib.make_prefill_step(cfg, self.scfg.max_seq)
         self._decode = steps_lib.make_decode_step(cfg)
 
+    def batch(self, prompts: np.ndarray,
+              frames: Optional[np.ndarray] = None) -> dict:
+        """The prefill batch on the engine's device: tokens, and the audio
+        family's encoder frames [B, T, D] when given (``model_zoo.prefill``
+        decides which family needs them)."""
+        out = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                         device=self.device)}
+        if frames is not None:
+            out["frames"] = torch.as_tensor(np.asarray(frames),
+                                            device=self.device)
+        return out
+
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray) -> np.ndarray:
-        """prompts [B, S_prompt] int32 -> [B, max_new_tokens]."""
+    def generate(self, prompts: np.ndarray,
+                 frames: Optional[np.ndarray] = None) -> np.ndarray:
+        """prompts [B, S_prompt] int32 (and, for the audio family, frames
+        [B, T, D]) -> [B, max_new_tokens]."""
         scfg = self.scfg
         b, s = prompts.shape
         if s + scfg.max_new_tokens > scfg.max_seq:
             raise ValueError(
                 f"prompt {s} + {scfg.max_new_tokens} new tokens exceeds "
                 f"max_seq {scfg.max_seq}")
-        tokens = torch.as_tensor(np.asarray(prompts, np.int32),
-                                 device=self.device)
-        logits, cache = self._prefill(self.params, {"tokens": tokens})
+        logits, cache = self._prefill(self.params, self.batch(prompts, frames))
 
         gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
         out = np.zeros((b, scfg.max_new_tokens), np.int32)

@@ -1,7 +1,8 @@
 """The PyTorch port on a CUDA GPU: each hand-written kernel against its
-plain version, the dense, MoE and Mamba-2 LMs' card path against their
-CPU path, and training: the kernels' autograd Functions against autograd
-of their plain versions, the gradient guard, and train steps on the card.
+plain version; the dense, MoE and Mamba-2 LMs', the encoder-decoder's and
+the VLM's card path against their CPU path; and training: the kernels'
+autograd Functions against autograd of their plain versions, the
+gradient guard, and train steps on the card.
 
 Every test here needs a GPU and skips without one; the file imports no
 JAX, so it runs on a machine with only PyTorch:
@@ -17,6 +18,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.synthetic import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
                                             attention_ref, flash_attention)
+from repro_torch.kernels.flash_attn.ops import REGIMES, regime  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
@@ -64,15 +66,24 @@ def _randn(gen, *shape, scale=1.0):
     (1, 1, 257, 4, 4, 96, True),
     (1, 129, 400, 2, 1, 80, False),
     (1, 500, 620, 8, 8, 64, True),
+    # whisper_base: the encoder (non-causal, 1500 frames, 1500 = 11 x 128
+    # + 92) and the cross-attention (non-causal, Sq != Skv)
+    (4, 1500, 1500, 8, 8, 64, False),
+    (4, 128, 1500, 8, 8, 64, False),
 ])
 def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd, causal):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(gen, b, sq, h, hd)
     k, v = _randn(gen, b, skv, kv, hd), _randn(gen, b, skv, kv, hd)
     before = flash_attention.launches
+    by_regime = dict(flash_attention.launches_by_regime)
     y = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    key = regime(causal, sq, skv)
+    assert {r: n - by_regime[r] for r, n in
+            flash_attention.launches_by_regime.items()} == {
+        r: int(r == key) for r in REGIMES}
     torch.testing.assert_close(y.float(),
                                attention_ref(q, k, v, causal).float(),
                                **BF16_TOL)
@@ -109,6 +120,21 @@ def test_fused_mlp_kernel_matches_plain(cuda, m, k, f):
     torch.cuda.synchronize()
     assert fused_mlp.launches == before + 1
     torch.testing.assert_close(y.float(),
+                               fused_mlp_ref(x, w1, w3, w2).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("m", [4, 256])
+def test_fused_mlp_kernel_at_llava_width(cuda, m):
+    """llava_next_34b's MLP, K 7168 and F 20480, in the decode (M 4) and
+    the prefill regime."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    k, f = 7168, 20480
+    x = _randn(gen, m, k)
+    w1 = _randn(gen, k, f, scale=k ** -0.5)
+    w3 = _randn(gen, k, f, scale=k ** -0.5)
+    w2 = _randn(gen, f, k, scale=f ** -0.5)
+    torch.testing.assert_close(fused_mlp(x, w1, w3, w2).float(),
                                fused_mlp_ref(x, w1, w3, w2).float(),
                                **BF16_TOL)
 
@@ -688,3 +714,88 @@ def test_moe_train_step_on_card(cuda, arch, policy):
                 grads["layers"]["moe"].get("shared", {}).items()})
     for name, g in fed.items():
         assert (g.flatten(1).abs().sum(1) > 0).all(), name
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder and VLM
+# ---------------------------------------------------------------------------
+
+def _serve_launches(cfg, decode_steps):
+    """Kernel launches of one prefill and ``decode_steps`` decode steps.
+    whisper: the encoder once (enc_layers non-causal blocks) and each
+    decoder layer's causal self- and non-causal cross-attention in
+    prefill, GELU MLPs (no kernel), no kernel in decode; llava: one flash
+    per layer in prefill, one fused MLP per layer and step."""
+    if cfg.family == "audio":
+        return {"flash": cfg.enc_layers + 2 * cfg.n_layers, "mlp": 0,
+                "ssd": 0}
+    return {"flash": cfg.n_layers, "mlp": cfg.n_layers * (1 + decode_steps),
+            "ssd": 0}
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
+def test_encdec_vlm_smoke_serve_on_card(cuda, arch):
+    """The smoke Engine on the card (heads of 16 padded inside the flash
+    op, llava's K 64 inside the fused MLP's): the kernels launch as the
+    model runs them, and the greedy tokens are in range (whisper's may
+    fall in the padded vocab, which encdec does not mask)."""
+    cfg = get_config(arch, smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(cfg, params, ServeConfig(max_seq=40, max_new_tokens=4),
+                 device=cuda)
+    rng = np.random.RandomState(0)
+    prompts = rng.randint(0, cfg.vocab, (3, 32)).astype(np.int32)
+    frames = (rng.randn(3, cfg.enc_frames, cfg.d_model).astype(np.float32)
+              if cfg.family == "audio" else None)
+    before = _counts()
+    by_regime = dict(flash_attention.launches_by_regime)
+    out = eng.generate(prompts, frames)
+    torch.cuda.synchronize()
+    assert _delta(before) == _serve_launches(cfg, 4)
+    # whisper: decoder self causal, encoder non-causal Sq == Skv, cross
+    # non-causal Sq != Skv; llava: every block causal
+    want = ((cfg.n_layers, cfg.enc_layers, cfg.n_layers)
+            if cfg.family == "audio" else (cfg.n_layers, 0, 0))
+    assert {r: n - by_regime[r] for r, n in
+            flash_attention.launches_by_regime.items()} == dict(
+        zip(REGIMES, want))
+    top = cfg.padded_vocab if cfg.family == "audio" else cfg.vocab
+    assert out.shape == (3, 4) and ((out >= 0) & (out < top)).all()
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
+def test_encdec_vlm_card_prefill_matches_cpu(cuda, arch):
+    """Smoke prefill logits, card bf16 kernels vs the CPU's fp32 path on
+    the same weights (whisper with its frames), within 3% relative RMS,
+    as the dense LM's (bf16 rounding compounded over the layers; a wrong
+    kernel is O(1))."""
+    cfg = get_config(arch, smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda _, t: t.to(cuda), params)
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 16)).astype(
+        np.int32))
+    frames = (torch.from_numpy(rng.randn(2, cfg.enc_frames, cfg.d_model)
+                               .astype(np.float32))
+              if cfg.family == "audio" else None)
+    with torch.inference_mode():
+        got, _ = model_zoo.prefill(cfg, card, toks.to(cuda), 24,
+                                   frames=None if frames is None
+                                   else frames.to(cuda))
+        want, _ = model_zoo.prefill(cfg.with_(compute_dtype="float32"),
+                                    params, toks, 24, frames=frames)
+    g, w = got.float().cpu()[:, :cfg.vocab], want[:, :cfg.vocab]
+    assert torch.isfinite(g).all()
+    assert float((g - w).norm() / w.norm()) < 3e-2
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
+def test_encdec_vlm_serve_launcher_defaults_on_card(cuda, arch, capsys):
+    """``launch.serve --arch whisper_base|llava_next_34b`` with its
+    defaults (smoke config, cuda, 4 prompts, 16 new tokens) serves through
+    the kernels; whisper's frames come from the seed."""
+    cfg = get_config(arch, smoke=True)
+    before = _counts()
+    serve_launcher.main(["--arch", arch])
+    assert capsys.readouterr().out.count("seq") == 4
+    assert _delta(before) == _serve_launches(cfg, 16)

@@ -38,16 +38,58 @@ def _prompts(vocab, b=2, s=16):
     return np.random.RandomState(0).randint(0, vocab, (b, s)).astype(np.int32)
 
 
+def _frames(cfg, b=2):
+    """The audio family's encoder input [B, T, D] (None for the others)."""
+    if cfg.family != "audio":
+        return None
+    return np.random.RandomState(1).randn(b, cfg.enc_frames,
+                                          cfg.d_model).astype(np.float32)
+
+
 @pytest.mark.parametrize("arch", ["granite_8b", "olmo_1b", "mamba2_780m",
                                   "zamba2_1_2b", "granite_moe_1b_a400m",
-                                  "deepseek_moe_16b"])
+                                  "deepseek_moe_16b", "whisper_base",
+                                  "llava_next_34b"])
 def test_greedy_tokens_match_jax_engine(arch):
     jeng, eng = _engines(arch, max_seq=40, max_new_tokens=8)
     prompts = _prompts(eng.cfg.vocab)
-    want = jeng.generate(prompts)
-    got = eng.generate(prompts)
+    frames = _frames(eng.cfg)
+    want = jeng.generate(prompts, frames)
+    got = eng.generate(prompts, frames)
     assert got.dtype == np.int32 and got.shape == (2, 8)
     np.testing.assert_array_equal(got, want)
+
+
+def test_engine_frames_only_for_audio():
+    """``generate(prompts, frames)``: the audio family needs frames, the
+    others refuse them. The reference Engine, given no frames for
+    whisper_base, fails (its launcher passes none, so it cannot serve
+    that family); the port's launcher draws them from its seed."""
+    jeng, eng = _engines("whisper_base", max_seq=24, max_new_tokens=2)
+    prompts = _prompts(eng.cfg.vocab)
+    with pytest.raises(ValueError, match="needs frames"):
+        eng.generate(prompts)
+    with pytest.raises(Exception):
+        jeng.generate(prompts)
+    cfg = configs.get_config("llava_next_34b", smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    lm_eng = Engine(cfg, params, ServeConfig(max_seq=24, max_new_tokens=2),
+                    device="cpu")
+    with pytest.raises(ValueError, match="audio family"):
+        lm_eng.generate(prompts, np.zeros((2, 4, cfg.d_model), np.float32))
+
+
+def test_whisper_greedy_tokens_may_fall_in_the_padded_vocab():
+    """encdec masks no padded-vocab column (as the reference), so greedy
+    decoding can emit ids in [vocab, padded_vocab): the smoke weights do,
+    and the JAX Engine emits the same ids."""
+    jeng, eng = _engines("whisper_base", max_seq=40, max_new_tokens=8)
+    prompts = _prompts(eng.cfg.vocab)
+    frames = _frames(eng.cfg)
+    got = eng.generate(prompts, frames)
+    np.testing.assert_array_equal(got, jeng.generate(prompts, frames))
+    assert (got < eng.cfg.padded_vocab).all()
+    assert (got >= eng.cfg.vocab).any()
 
 
 def test_eos_masking_matches_jax_engine():
@@ -143,6 +185,17 @@ def test_ssm_engine_rejects_prompt_off_the_chunk(arch):
 
 @pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
 def test_serve_launcher_ssm_on_cpu(arch, capsys):
+    serve_launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                         "--new-tokens", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in lines] == ["seq0", "seq1"]
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
+def test_serve_launcher_encdec_vlm_on_cpu(arch, capsys):
+    """``launch.serve --arch whisper_base|llava_next_34b --device cpu``:
+    whisper's frames come from the seed (the reference launcher passes
+    none)."""
     serve_launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                          "--new-tokens", "3"])
     lines = capsys.readouterr().out.splitlines()

@@ -24,6 +24,8 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import admit as flash_admit  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import REGIMES as FLASH_REGIMES  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import regime as flash_regime  # noqa: E402
 from repro_torch.kernels.flash_attn import FlashAttention  # noqa: E402
 from repro_torch.kernels.fused_mlp import FusedMLP, fused_mlp, fused_mlp_ref  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import (decode_split, regime,  # noqa: E402
@@ -206,6 +208,7 @@ def test_build_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     (2, 4, 2, 128, 128, 64),    # GQA g=2
     (1, 8, 1, 64, 256, 32),     # MQA, rectangular
     (2, 2, 2, 256, 256, 128),   # MHA
+    (2, 8, 8, 64, 192, 64),     # whisper's cross-attention: hd 64, Sq != Skv
 ])
 def test_flash_attention_matches_pallas(dtype, causal, b, h, kv, sq, sk, hd):
     rng = np.random.RandomState(1)
@@ -235,6 +238,23 @@ def test_flash_attention_ragged_lengths(sq, sk):
         np.testing.assert_allclose(_np(y),
                                    _np(jax_attention_ref(q, k, v, causal)),
                                    rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,sq,sk,want", [
+    (True, 64, 64, "causal"), (True, 1, 77, "causal"),
+    (False, 1500, 1500, "non-causal Sq=Skv"),
+    (False, 128, 1500, "non-causal Sq!=Skv")])
+def test_flash_regime_keys(causal, sq, sk, want):
+    """``launches_by_regime`` splits the kernel's launches by mask and
+    shape: causal (whatever the lengths), non-causal self (Sq == Skv, an
+    encoder), non-causal cross (Sq != Skv). The plain version on CPU
+    tensors launches nothing and counts in no regime."""
+    assert flash_regime(causal, sq, sk) == want
+    assert set(flash_attention.launches_by_regime) == set(FLASH_REGIMES)
+    before = dict(flash_attention.launches_by_regime)
+    flash_attention(torch.zeros(1, 4, 2, 16), torch.zeros(1, 6, 2, 16),
+                    torch.zeros(1, 6, 2, 16), causal=causal)
+    assert flash_attention.launches_by_regime == before
 
 
 def test_flash_attention_model_layout_matches_pallas_layout():

@@ -1,5 +1,5 @@
 """PyTorch port's LMs (dense, moe, ssm, hybrid) vs the JAX reference on
-the CPU.
+the CPU (the encoder-decoder and the VLM: tests/test_torch_encdec.py).
 
 Weights are built once by the reference ``init_params`` and carried
 across with ``params_from_numpy``; tokens come from numpy. Logits are
@@ -190,15 +190,6 @@ def test_inputs_bit_identical():
         np.asarray(jax_inputs.make_decode_tokens(jcfg, 4, seed=6)))
 
 
-@pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
-def test_other_families_raise(arch):
-    cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_zoo.init_cache(cfg, 1, 8)
-
-
 # ---------------------------------------------------------------------------
 # ssm (Mamba-2) and hybrid (Zamba-2)
 # ---------------------------------------------------------------------------
@@ -305,11 +296,14 @@ def test_hybrid_kv_slot_layout_matches_jax():
 
 
 @pytest.mark.parametrize("arch", DENSE + SSM + ["deepseek_moe_16b",
-                                                 "granite_moe_1b_a400m"])
+                                                 "granite_moe_1b_a400m",
+                                                 "whisper_base",
+                                                 "llava_next_34b"])
 def test_keeps_fp32_is_the_reference_rule(arch):
     """keeps_fp32 names exactly the leaves the reference creates in fp32
     when param_dtype is bfloat16, and the converter keeps them so; for
-    the moe archs that includes the router (repro/models/mlp.py:52)."""
+    the moe archs that includes the router (repro/models/mlp.py:52), for
+    whisper_base the encoder-decoder's six norm kinds."""
     jcfg = jax_configs.get_config(arch, smoke=True).with_(
         param_dtype="bfloat16")
     cfg = configs.get_config(arch, smoke=True).with_(param_dtype="bfloat16")
@@ -330,6 +324,11 @@ def test_keeps_fp32_is_the_reference_rule(arch):
     if cfg.family == "moe":
         assert common.keeps_fp32("layers/moe/router")
         assert flat["layers/moe/router"].dtype == np.float32
+    if cfg.family == "audio":
+        assert {p.rsplit("/", 1)[-1] for p in flat
+                if common.keeps_fp32(p)} == {
+            "attn_norm", "ffn_norm", "self_norm", "cross_norm", "enc_norm",
+            "final_norm"}
 
 
 @pytest.mark.parametrize("arch", SSM)
