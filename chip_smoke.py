@@ -58,27 +58,50 @@ Phases, each raising on failure:
   6. train   -- the training half: (a) each kernel's autograd Function
                 (kernel forward, explicit torch backward) at the train
                 shapes (flash and fused_mlp at olmo_1b's, SSDScan at
-                mamba2_780m's): its output against the plain version, its
-                gradients against autograd of the plain version (SSDScan:
-                of the chunked form ``ssd_chunked``), with its backward's
-                time; (b) one train step's loss, gradient norm and every
-                gradient leaf on the card in bf16 through the kernels
-                against the port's CPU fp32 path, at full width: olmo_1b,
-                mamba2_780m and granite_moe_1b_a400m (also its aux, and two
-                card steps bitwise equal) at 2 layers, zamba2_1_2b at 6, all
-                but olmo at S = 512; (c) full-width olmo_1b and
-                granite_moe_1b_a400m at full depth, mamba2_780m (24 of 48
-                layers) and zamba2_1_2b (19 of 38) (``TRAIN``; fp32 params
-                and AdamW moments, bf16 compute, remat "full")
-                train 8 steps of 4 x 2048 tokens each through the port's
-                Trainer: finite, decreasing loss (and the MoE's aux), every
-                kernel of the model in every step (forward and remat
-                recompute), step time, tokens/s, peak memory, model-FLOP
-                share on active params, a profiled step and its
-                forward/backward/optimizer split; (d) checkpoint: a failed
-                run resumes bitwise from its checkpoint, which also
-                restores on the CPU.
-  7. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
+                mamba2_780m's, flash also in whisper_base's three regimes
+                at B=4: the encoder's non-causal 1500 x 1500, the decoder's
+                causal 448 and its cross-attention 448 x 1500): its output
+                against the plain version, its gradients against autograd
+                of the plain version (SSDScan: of the chunked form
+                ``ssd_chunked``), with its backward's time; (b) one train
+                step's loss, gradient norm and every gradient leaf on the
+                card in bf16 through the kernels against the port's CPU
+                fp32 path, at full width: olmo_1b, mamba2_780m,
+                granite_moe_1b_a400m (also its aux, and two card steps
+                bitwise equal) and llava_next_34b (1 x (576 image
+                embeddings + 64 tokens)) at 2 layers, zamba2_1_2b at 6,
+                whisper_base at full depth (2 x (1500 frames + 448
+                tokens)), all but olmo at S = 512; (c) full-width olmo_1b,
+                granite_moe_1b_a400m and whisper_base at full depth,
+                mamba2_780m (24 of 48 layers) and zamba2_1_2b (19 of 38)
+                (``TRAIN``; fp32 params and AdamW moments, bf16 compute,
+                remat "full") train 8 steps of 4 x 2048 tokens each
+                (whisper_base 4 x (1500 frames + 448 tokens)) through the
+                port's Trainer: finite, decreasing loss (and the MoE's
+                aux), every kernel of the model in every step (forward and
+                remat recompute; flash also by regime), step time,
+                tokens/s, peak memory, model-FLOP share (active params;
+                whisper_base's encoder on its frames, its decoder on its
+                tokens), a profiled step and its forward/backward/optimizer
+                split; (d) checkpoint: a failed run resumes bitwise from
+                its checkpoint, which also restores on the CPU.
+  7. mesh    -- the mesh path on this one card: a one-rank NCCL process
+                group and a (1, 1) (data, model) mesh. olmo_1b (full
+                width, 2 layers, 4 x 2048, 2 steps) trains through the
+                Trainer with the mesh (params and ZeRO moments DTensors,
+                the kernels behind local_map) and without: losses, params
+                and moments bitwise equal (else held to TRAIN_LIMITS), the
+                same kernel launches; one granite_8b decode step (full
+                width, 2 layers, batch 4, cache_specs placements) bitwise
+                equal to the meshless step; olmo_1b_smoke's mesh Trainer saves, and
+                its checkpoint restores without a mesh and through a mesh
+                Trainer, bitwise;
+                ``pipeline_forward`` with one stage over 6 microbatches,
+                the stage the fused MLP at granite_8b's width, equal to
+                ``sequential_reference``. World size 1 shows the mesh path
+                runs and equals the meshless one; it shows nothing of
+                collectives across cards.
+  8. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
                 their defaults (the smoke config on cuda) for olmo_1b,
                 mamba2_780m, zamba2_1_2b, granite_moe_1b_a400m and
                 deepseek_moe_16b, and ``launch.serve`` for whisper_base and
@@ -100,7 +123,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -120,6 +145,11 @@ from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
                                           ssd_ref, ssd_scan, to_pallas_layout)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.steps import make_decode_step  # noqa: E402
+from repro_torch.pipeline.overlap_pipeline import (  # noqa: E402
+    pipeline_forward, sequential_reference)
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
@@ -226,11 +256,21 @@ TRAIN_LEAF_REL_RMS = 5e-2   # ~4x the worst calibrated leaf
 # (layers/moe/router) 5.0e-2, with 2-3% of the prefill routes differing
 # per layer (above). The router leaf is the one routing flips move most:
 # its gradient is the gates' and the aux term's only.
+# whisper_base at full depth (6 + 6 layers), 2 x (1500 frames + 448
+# tokens), same rule, from the same script run on the GPU machine's CPU:
+# loss rel 5.1e-5, grad_norm rel 2.0e-3, worst leaf
+# (decoder/self_attn/wq) 1.46e-2. llava_next_34b at 2 layers, 1 x (576
+# image embeddings + 64 tokens): loss rel 7.4e-5, grad_norm rel 9.3e-6,
+# worst leaf (layers/attn/wq) 1.30e-2; its grad_norm limit is olmo_1b's
+# (about 30x its spread), as the card's spread on olmo_1b's grad_norm
+# sat at half the CPU calibration's and its loss spread 18x above it.
 TRAIN_LIMITS = {  # arch: (loss rel, grad_norm rel, leaf rel RMS)
     "olmo_1b": (TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL_RMS),
     "mamba2_780m": (1e-4, 2.5e-3, 9e-2),
     "zamba2_1_2b": (6e-4, 2e-3, 1.7e-1),
     "granite_moe_1b_a400m": (1e-4, 6e-4, 2e-1),
+    "whisper_base": (5e-4, 2e-2, 6e-2),
+    "llava_next_34b": (7e-4, TRAIN_GNORM_REL, 5e-2),
 }
 TRAIN_AUX_REL = 1e-4    # ~20x the calibrated aux spread
 
@@ -258,12 +298,26 @@ NUMERICS = (("granite_8b", 2, 2, 64), ("mamba2_780m", 2, 2, 512),
             ("zamba2_1_2b", 6, 2, 512), ("granite_moe_1b_a400m", 2, 2, 512),
             ("deepseek_moe_16b", 2, 2, 512), ("whisper_base", 6, 2, 64),
             ("llava_next_34b", 2, 1, 64))
-TRAIN_NUMERICS = (("olmo_1b", 2, 256), ("mamba2_780m", 2, 512),
-                  ("zamba2_1_2b", 6, 512), ("granite_moe_1b_a400m", 2, 512))
-# (arch, depth) of the full-width training runs, 8 steps of 4 x 2048; None
-# is full depth
-TRAIN = (("olmo_1b", None), ("mamba2_780m", 24), ("zamba2_1_2b", 19),
-         ("granite_moe_1b_a400m", None))
+# whisper_base's decoder context in training: its published text context
+# (arXiv:2212.04356), beside its 1500 encoder frames
+WHISPER_TRAIN_TOKENS = 448
+# llava_next_34b's text tokens in its one-step check, beside its 576 image
+# embeddings: enough that the CPU fp32 reference takes well under a minute
+LLAVA_TRAIN_TOKENS = 64
+# (arch, depth, batch, tokens a row) of the one-step train numerics;
+# whisper_base's depth is the decoder's (6 encoder layers on 1500 frames),
+# llava_next_34b's step prepends 576 image embeddings (its 24 x 24 base
+# grid), and its fp32 state at full depth (~550 GB) fits no card
+TRAIN_NUMERICS = (("olmo_1b", 2, 2, 256), ("mamba2_780m", 2, 2, 512),
+                  ("zamba2_1_2b", 6, 2, 512),
+                  ("granite_moe_1b_a400m", 2, 2, 512),
+                  ("whisper_base", 6, 2, WHISPER_TRAIN_TOKENS),
+                  ("llava_next_34b", 2, 1, LLAVA_TRAIN_TOKENS))
+# (arch, depth, tokens a row) of the full-width training runs, 8 steps of
+# batch 4; None is full depth; whisper_base's rows also hold 1500 frames
+TRAIN = (("olmo_1b", None, 2048), ("mamba2_780m", 24, 2048),
+         ("zamba2_1_2b", 19, 2048), ("granite_moe_1b_a400m", None, 2048),
+         ("whisper_base", None, WHISPER_TRAIN_TOKENS))
 
 
 def phase(name):
@@ -1060,53 +1114,56 @@ def backward_ms(out, inputs, dy, flush, reps=5):
                    flush)
 
 
-def check_train_kernels(gen, flush):
-    """Each kernel's autograd Function against its plain version at
-    olmo_1b's train shapes (4 x 2048 tokens): flash B=4 S=2048 H=16 hd=128
-    causal, fused_mlp M=8192 K=2048 F=8192; the forward (the kernel) and
-    the gradients (autograd of the plain version). Returns {op: entry}
-    with the forward's error and the backward's times (Function, plain,
-    library)."""
-    cfg = get_config("olmo_1b")
-    b, s, h, hd = 4, 2048, cfg.n_heads, cfg.hd
-    k, f, m = cfg.d_model, cfg.d_ff, 4 * 2048
-    out = {}
-    q, kk, v = (randn(gen, b, s, h, hd).requires_grad_() for _ in range(3))
-    do = randn(gen, b, s, h, hd)
-    y = FlashAttention.apply(q, kk, v, True)
-    y_ref = attention_ref(q, kk, v, True)
+def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal):
+    """FlashAttention (kernel forward, explicit torch backward) against
+    the plain version at one shape: the forward, the gradients (autograd
+    of the plain version), and the backward's time beside plain
+    autograd's, SDPA's backward and its bound. Returns the entry."""
+    mask = "causal" if causal else "non-causal"
+    sizes = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
+    label = f"B={b} {sizes} H={h} KV={kv} hd={hd} {mask}"
+    q = randn(gen, b, sq, h, hd).requires_grad_()
+    kk, v = (randn(gen, b, skv, kv, hd).requires_grad_() for _ in range(2))
+    do = randn(gen, b, sq, h, hd)
+    y = FlashAttention.apply(q, kk, v, causal)
+    y_ref = attention_ref(q, kk, v, causal)
     torch.cuda.synchronize()
-    fwd_err = compare(f"FlashAttention forward [B={b} S={s} H={h} hd={hd} "
-                      "causal]", y, y_ref)
+    fwd_err = compare(f"FlashAttention forward [{label}]", y, y_ref)
     got = torch.autograd.grad(y, (q, kk, v), do, retain_graph=True)
     want = torch.autograd.grad(y_ref, (q, kk, v), do, retain_graph=True)
     torch.cuda.synchronize()
-    err = compare_grads(f"FlashAttention grads [B={b} S={s} H={h} "
-                        f"hd={hd} causal]", got, want)
+    err = compare_grads(f"FlashAttention grads [{label}]", got, want)
     ms = backward_ms(y, (q, kk, v), do, flush)
     plain = backward_ms(y_ref, (q, kk, v), do, flush, reps=2)
     del y_ref, want
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
-    y_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    y_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
     lib = backward_ms(y_lib, (q, kk, v), do.transpose(1, 2), flush)
-    # five products over the causal pairs (S, dV, dP, dQ, dK; the row sums
-    # rowsum(dO o O) = rowsum(P o dP) need no sixth); q, k, v, dO read and
-    # dq, dk, dv written once, bf16
-    pairs = s * (s + 1) / 2
-    bms, by = bound_ms(10.0 * b * h * hd * pairs, 7 * 2.0 * b * s * h * hd)
-    print(f"  FlashAttention backward: {ms:.4f} ms (explicit torch: bf16 "
-          f"cuBLAS products, materialised fp32 softmax), plain autograd "
-          f"{plain:.4f} ms, SDPA backward {lib:.4f} ms, bound {bms:.4f} ms "
-          f"({by})", flush=True)
-    out["flash_attention"] = {
-        "max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
-        "plain_backward_ms": plain,
-        "library_backward_ms": lib, "backward_bound_ms": bms,
-        "backward_bound_by": by,
-        "shape": f"B={b} S={s} H={h} KV={h} hd={hd} causal bf16"}
+    # five products over the (query, key) pairs the mask keeps (S, dV, dP,
+    # dQ, dK; the row sums rowsum(dO o O) = rowsum(P o dP) need no sixth);
+    # q, dO and dq, k, v and dk, dv read or written once, bf16
+    pairs = (sum(min(skv, i + (skv - sq) + 1) for i in range(sq)) if causal
+             else sq * skv)
+    bms, by = bound_ms(10.0 * b * h * hd * pairs,
+                       2.0 * b * hd * (3 * sq * h + 4 * skv * kv))
+    print(f"  FlashAttention backward [{label}]: {ms:.4f} ms (explicit "
+          f"torch: bf16 cuBLAS products, materialised fp32 softmax), plain "
+          f"autograd {plain:.4f} ms, SDPA backward {lib:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})", flush=True)
     del y, y_lib, got, q, kk, v, do, qt, kt, vt
     torch.cuda.empty_cache()
+    return {"max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
+            "plain_backward_ms": plain, "library_backward_ms": lib,
+            "backward_bound_ms": bms, "backward_bound_by": by,
+            "shape": label + " bf16"}
 
+
+def mlp_train_case(gen, flush, m, k, f):
+    """FusedMLP (kernel forward, explicit torch backward) against the
+    plain version at x [M, K], W1/W3 [K, F], W2 [F, K]: the forward, the
+    gradients, and the backward's time beside plain autograd's, the
+    cuBLAS chain's autograd and its bound. Returns the entry."""
     x = randn(gen, m, k).requires_grad_()
     w1, w3 = (randn(gen, k, f, scale=k ** -0.5).requires_grad_()
               for _ in range(2))
@@ -1130,16 +1187,53 @@ def check_train_kernels(gen, flush):
     # eight products of 2 M K F (g and u recomputed, dW2, dh, dx's two,
     # dW1, dW3); x, W1, W3, W2, dy read and dx, dW1, dW3, dW2 written once
     bms, by = bound_ms(16.0 * m * k * f, 2.0 * (3 * m * k + 6 * k * f))
-    print(f"  FusedMLP backward: {ms:.4f} ms (explicit torch, bf16 cuBLAS "
-          f"products), plain autograd {plain:.4f} ms, cuBLAS-chain autograd "
-          f"{lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-    out["fused_mlp"] = {
+    print(f"  FusedMLP backward [M={m} K={k} F={f}]: {ms:.4f} ms (explicit "
+          f"torch, bf16 cuBLAS products), plain autograd {plain:.4f} ms, "
+          f"cuBLAS-chain autograd {lib:.4f} ms, bound {bms:.4f} ms ({by})",
+          flush=True)
+    entry = {
         "max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
         "plain_backward_ms": plain,
         "library_backward_ms": lib, "backward_bound_ms": bms,
         "backward_bound_by": by, "shape": f"M={m} K={k} F={f} bf16"}
     del y, y_lib, got, args, x, w1, w3, w2, dy
     torch.cuda.empty_cache()
+    return entry
+
+
+def check_train_kernels(gen, flush):
+    """Each kernel's autograd Function against its plain version at
+    olmo_1b's train shapes (4 x 2048 tokens): flash B=4 S=2048 H=16 hd=128
+    causal, fused_mlp M=8192 K=2048 F=8192; FlashAttention also in
+    whisper_base's three training regimes at B=4 (1500 frames, 448
+    decoder tokens, H=8 hd=64: the encoder's non-causal Sq = Skv = 1500,
+    the decoder's causal 448 and its non-causal cross-attention 448 x
+    1500), and both at llava_next_34b's train step (1 x (576 + 64) rows:
+    flash H=56 KV=8 hd=128 causal, fused_mlp K 7168 F 20480); the forward
+    (the kernel) and the gradients (autograd of the
+    plain version). Returns {op: entry} with the forward's error and the
+    backward's times (Function, plain, library)."""
+    cfg = get_config("olmo_1b")
+    b, s, h, hd = 4, 2048, cfg.n_heads, cfg.hd
+    k, f, m = cfg.d_model, cfg.d_ff, 4 * 2048
+    out = {"flash_attention": flash_train_case(gen, flush, b, s, s, h, h,
+                                               hd, True)}
+    wh = get_config("whisper_base")
+    frames, toks = wh.enc_frames, WHISPER_TRAIN_TOKENS
+    out["flash_attention"]["whisper"] = {
+        regime: flash_train_case(gen, flush, 4, sq, skv, wh.n_heads,
+                                 wh.n_kv_heads, wh.hd, causal)
+        for regime, (sq, skv, causal) in zip(REGIMES, (
+            (toks, toks, True), (frames, frames, False),
+            (toks, frames, False)))}
+
+    out["fused_mlp"] = mlp_train_case(gen, flush, m, k, f)
+    ll = get_config("llava_next_34b")
+    rows = LLAVA_TRAIN_TOKENS + ll.img_tokens
+    out["flash_attention"]["llava"] = flash_train_case(
+        gen, flush, 1, rows, rows, ll.n_heads, ll.n_kv_heads, ll.hd, True)
+    out["fused_mlp"]["llava"] = mlp_train_case(gen, flush, rows, ll.d_model,
+                                               ll.d_ff)
     out["ssd_scan"] = check_ssd_train(gen, flush)
     return out
 
@@ -1215,15 +1309,16 @@ def expected_train_launches(cfg, steps: int):
     return {op: 2 * n * steps for op, n in per_step.items()}
 
 
-def dead_leaves(grads, grads32, n_layers):
+def dead_leaves(grads, grads32):
     """Gradient leaves (per layer for stacked ones) that are zero on the
     card where the CPU fp32 step's are not."""
     dead = []
 
     def one(path, w):
         g = tree_get(grads, path)
-        parts = ([(f"{path}[{i}]", g[i], w[i]) for i in range(n_layers)]
-                 if path.startswith("layers/") else [(path, g, w)])
+        stacked = path.split("/")[0] in ("layers", "encoder", "decoder")
+        parts = ([(f"{path}[{i}]", g[i], w[i]) for i in range(w.shape[0])]
+                 if stacked else [(path, g, w)])
         dead.extend(name for name, gi, wi in parts
                     if bool(wi.abs().sum() > 0) and not bool(
                         gi.abs().sum() > 0))
@@ -1244,6 +1339,10 @@ def check_train_numerics(arch, n_layers, batch, seq):
         0, cfg.vocab, (batch, seq + 1)).astype(np.int32)
     host = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    extra = extra_input(cfg, batch)   # the calibration script's draw
+    if extra is not None:
+        host["frames" if cfg.family == "audio" else "extra_embeds"] = (
+            torch.from_numpy(extra))
     reset_launch_counts()
     dev = {k: v.cuda() for k, v in host.items()}
     loss, metrics, grads = value_and_grad(cfg, params, dev)
@@ -1273,8 +1372,11 @@ def check_train_numerics(arch, n_layers, batch, seq):
     loss_rel = abs(float(loss) - float(loss32)) / abs(float(loss32))
     gn_rel = abs(gn - gn32) / gn32
     lim_loss, lim_gn, lim_leaf = TRAIN_LIMITS[arch]
-    print(f"  {arch} {n_layers} layers, {batch} x {seq} tokens: launches "
-          f"{counts} (as expected); CPU fp32 step {cpu_s:.1f} s", flush=True)
+    rows = f"{batch} x {seq} tokens" + (
+        "" if extra is None else f" + {extra.shape[1]} "
+        f"{'frames' if cfg.family == 'audio' else 'image embeddings'}")
+    print(f"  {arch} {n_layers} layers, {rows}: launches {counts} (as "
+          f"expected); CPU fp32 step {cpu_s:.1f} s", flush=True)
     print(f"  loss card {float(loss):.6f} cpu {float(loss32):.6f} rel "
           f"{loss_rel:.3e} (limit {lim_loss}); grad_norm card "
           f"{gn:.6f} cpu {gn32:.6f} rel {gn_rel:.3e} (limit {lim_gn})",
@@ -1289,7 +1391,7 @@ def check_train_numerics(arch, n_layers, batch, seq):
         aux_rel = abs(aux - aux32) / abs(aux32)
         print(f"  aux card {aux:.6f} cpu {aux32:.6f} rel {aux_rel:.3e} "
               f"(limit {TRAIN_AUX_REL})", flush=True)
-    dead = dead_leaves(grads, grads32, n_layers)
+    dead = dead_leaves(grads, grads32)
     nonfinite = []
     tree_map(lambda path, g: None if bool(torch.isfinite(g).all())
              else nonfinite.append(path), grads)
@@ -1331,10 +1433,38 @@ def _step_split(cfg, opt_cfg, params, opt, batch):
     return {"forward": fwd, "backward": fwd_bwd - fwd, "optimizer": opt_ms}
 
 
+def model_flops(cfg, params, batch: int, seq: int):
+    """(6 N T model FLOPs of one train step, how N and T were counted).
+    Decoder-only: N = the active params (an MoE's routed experts at their
+    top_k / n_experts share), T = batch x seq tokens. Encoder-decoder:
+    the encoder's layers and norm on batch x enc_frames frames, the
+    decoder's layers, norm and unembedding on batch x seq tokens; its
+    embedding and position tables are row gathers, not products, and
+    are not counted."""
+    if cfg.family != "audio":
+        n = model_zoo.active_params_count(cfg, params)
+        return 6.0 * n * batch * seq, (f"6 x N x T, N = {n} active params, "
+                                       f"T = {batch * seq} tokens")
+    sizes = {}
+    tree_map(lambda path, t: sizes.__setitem__(path, t.numel()), params)
+    n_enc = sum(v for k, v in sizes.items()
+                if k.split("/")[0] in ("encoder", "enc_norm"))
+    n_dec = sum(v for k, v in sizes.items()
+                if k.split("/")[0] in ("decoder", "final_norm", "unembed"))
+    frames, toks = batch * cfg.enc_frames, batch * seq
+    return 6.0 * (n_enc * frames + n_dec * toks), (
+        f"6 x (N_enc x frames + N_dec x tokens), N_enc = {n_enc} encoder "
+        f"params on {frames} frames, N_dec = {n_dec} decoder and unembedding "
+        f"params on {toks} tokens (embedding and position tables are "
+        "gathers, not counted)")
+
+
 def train_full(arch, steps=8, batch=4, seq=2048, n_layers=None):
     """Full-width ``arch`` through the port's Trainer (module docstring,
     phase 6c), at full depth unless ``n_layers`` cuts it. Returns the
-    kernels' launch counts of the run."""
+    kernels' launch counts of the run (``launches``, and flash's by
+    regime) with its step time, rates, model-FLOP share and peak
+    memory."""
     cfg = get_config(arch)
     cfg = cfg.with_(n_layers=n_layers or cfg.n_layers)
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
@@ -1351,17 +1481,25 @@ def train_full(arch, steps=8, batch=4, seq=2048, n_layers=None):
     losses = [h["loss"] for h in tr.metrics_history]
     params, opt = tr.final_state
     n_params = cfg.params_count(params)
+    by_regime = dict(flash_attention.launches_by_regime)
+    rows = f"{batch} x {seq} tokens" + (
+        f" (+ {cfg.enc_frames} frames each, {cfg.enc_layers} encoder "
+        "layers)" if cfg.family == "audio" else "")
     print(f"  {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.4f} B params (fp32, AdamW moments fp32), bf16 "
-          f"compute, remat {cfg.remat_policy!r}; {steps} steps of {batch} x "
-          f"{seq} tokens in {wall:.1f} s (init included)", flush=True)
+          f"compute, remat {cfg.remat_policy!r}; {steps} steps of {rows} in "
+          f"{wall:.1f} s (init included)", flush=True)
     print(f"  losses {[round(x, 4) for x in losses]}", flush=True)
     if cfg.family == "moe":
         print(f"  aux {[round(h['aux'], 6) for h in tr.metrics_history]}",
               flush=True)
+    per_regime = {k: v // steps for k, v in by_regime.items()}
     print(f"  launches {launches} (expected {want}: per step "
-          f"{expected_train_launches(cfg, 1)})", flush=True)
-    if launches != want:
+          f"{expected_train_launches(cfg, 1)}); flash per step by regime "
+          f"{per_regime}", flush=True)
+    want_regimes = {k: 2 * v for k, v in expected_flash_regimes(
+        cfg, 1, seq).items()}
+    if launches != want or per_regime != want_regimes:
         raise RuntimeError("train launches differ: the train path did not "
                            "run the kernels in every forward and recompute")
     if (len(losses) != steps or not all(np.isfinite(losses))
@@ -1370,19 +1508,19 @@ def train_full(arch, steps=8, batch=4, seq=2048, n_layers=None):
                            "decreasing")
     step_s = float(np.median(tr.step_seconds[1:]))
     tokens = batch * seq
-    # N: the parameters a token runs through (an MoE's routed experts at
-    # their top_k / n_experts share)
-    n_active = model_zoo.active_params_count(cfg, params)
-    mfu = 6.0 * n_active * tokens / (step_s * PEAK_BF16_FLOPS)
+    flops, counted = model_flops(cfg, params, batch, seq)
+    mfu = flops / (step_s * PEAK_BF16_FLOPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frames = (f", {batch * cfg.enc_frames / step_s:.1f} encoder frames/s"
+              if cfg.family == "audio" else "")
     print(f"  step times (s) {[round(t, 4) for t in tr.step_seconds]}; "
           f"median of steps 2-{steps} {step_s:.4f} s, "
-          f"{tokens / step_s:.1f} tokens/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"  model-FLOP share 6*N*T/(t*989 TFLOP/s) = 6 x {n_active} x "
-          f"{tokens} / ({step_s:.4f} s x 989e12) = {100 * mfu:.2f}% (N = "
-          f"active params, {n_active} of {n_params}; 989 TFLOP/s: H100 SXM "
-          "data sheet, bf16 dense; remat's recompute is not counted)",
-          flush=True)
+          f"{tokens / step_s:.1f} tokens/s{frames}; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"  model-FLOP share = {flops:.4e} / ({step_s:.4f} s x 989e12) = "
+          f"{100 * mfu:.2f}% ({counted}, of {n_params} params; 989 "
+          "TFLOP/s: H100 SXM data sheet, bf16 dense; remat's recompute is "
+          "not counted)", flush=True)
     batch_t = tr._device_batch(tr.stream.batch_at(steps))
     split = _step_split(cfg, opt_cfg, params, opt, batch_t)
     total = sum(split.values())
@@ -1394,7 +1532,9 @@ def train_full(arch, steps=8, batch=4, seq=2048, n_layers=None):
     profile_train_step(tr, params, opt, batch_t)
     del tr, params, opt, batch_t
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "launches_by_regime_per_step": per_regime,
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "model_flop_share": mfu, "peak_gib": peak, "losses": losses}
 
 
 def profile_train_step(tr, params, opt, batch):
@@ -1461,6 +1601,209 @@ def check_checkpoint():
         if not (same and on_cpu and restored == 8 and t2.step == 12
                 and ckpt_lib.latest_step(d) == 12):
             raise RuntimeError("checkpoint resume or restore failed")
+
+
+MESH_TRAIN = ("olmo_1b", 2, 4, 2048, 2)   # arch, depth, batch, seq, steps
+MESH_DECODE = ("granite_8b", 2, 4, 64)     # arch, depth, batch, prompt
+MESH_PIPELINE = ("granite_8b", 6, 256)     # arch, microbatches, rows each
+
+
+def _hold(label, got, want, limit=None):
+    """Bitwise, or else within ``limit`` of relative RMS; prints which
+    and raises past the limit (with no limit, unless bitwise)."""
+    same = _bitwise(got, want)
+    worst = 0.0
+    if not same:
+        rel = leaf_rel_rms(got, want)
+        worst = max(rel.values()) if rel else float("inf")
+    print(f"  {label}: bitwise equal {same}" + (
+        "" if same else f"; worst leaf rel RMS {worst:.3e} (limit {limit})"),
+        flush=True)
+    if not same and (limit is None or not worst <= limit):
+        raise RuntimeError(f"{label}: the mesh path disagrees")
+    return {"bitwise": same, "worst_leaf_rel_rms": worst}
+
+
+def mesh_train(mesh):
+    """``MESH_TRAIN`` through the Trainer on the (1, 1) mesh and without
+    one, from the same seed: the losses, the final params and moments
+    (the mesh's gathered) bitwise equal, or within olmo_1b's TRAIN_LIMITS
+    if not; the same flash and fused_mlp launches (on the mesh they run
+    behind local_map)."""
+    arch, depth, batch, seq, steps = MESH_TRAIN
+    cfg = get_config(arch).with_(n_layers=depth)
+    runs = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        tr = Trainer(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=steps),
+                     TrainerConfig(steps=steps, log_every=1),
+                     DataConfig(batch=batch, seq=seq), device="cuda",
+                     mesh=m)
+        reset_launch_counts()
+        tr.run()
+        torch.cuda.synchronize()
+        params, opt = tr.final_state
+        runs[name] = {"losses": [h["loss"] for h in tr.metrics_history],
+                      "launches": launch_counts(),
+                      "state": sharding.gather({"params": params,
+                                                "opt": opt}),
+                      "seconds": tr.step_seconds}
+        del tr, params, opt
+    a, b = runs["meshless"], runs["mesh"]
+    print(f"  {arch} {depth} layers, {batch} x {seq}, {steps} steps: losses "
+          f"meshless {a['losses']} mesh {b['losses']}; step seconds "
+          f"meshless {[round(t, 4) for t in a['seconds']]} mesh "
+          f"{[round(t, 4) for t in b['seconds']]}", flush=True)
+    print(f"  launches meshless {a['launches']} mesh {b['launches']}",
+          flush=True)
+    if a["launches"] != b["launches"] or not b["launches"]["fused_mlp"]:
+        raise RuntimeError("the mesh train step did not run the kernels "
+                           "behind local_map as the meshless step does")
+    lim_loss, _, lim_leaf = TRAIN_LIMITS[arch]
+    loss_rel = max(abs(x - y) / abs(y)
+                   for x, y in zip(b["losses"], a["losses"]))
+    if loss_rel > lim_loss:
+        raise RuntimeError(f"mesh losses differ by {loss_rel:.3e}")
+    out = _hold("mesh train state vs meshless (params and moments)",
+                b["state"], a["state"], lim_leaf)
+    out.update(loss_max_rel=loss_rel, launches=b["launches"],
+               losses=b["losses"])
+    return out
+
+
+def mesh_decode(mesh):
+    """``MESH_DECODE``: one decode step on the (1, 1) mesh (params,
+    cache and tokens placed by param_specs, cache_specs and batch_specs)
+    after a meshless prefill, against the meshless step: logits and
+    cache bitwise (at world size 1 the two run the same bf16 arithmetic:
+    no collective, no other split), and the same launches."""
+    arch, depth, batch, prompt = MESH_DECODE
+    cfg = get_config(arch).with_(n_layers=depth)
+    params = model_zoo.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    toks = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (batch, prompt)).astype(np.int32)).cuda()
+    nxt = toks[:, -1]
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        _, cache = model_zoo.prefill(cfg, params, toks, prompt + 32)
+        dcache = sharding.distribute(
+            tree_map(lambda _, t: t.clone() if torch.is_tensor(t) else t,
+                     cache),
+            sharding.cache_specs(cfg, batch, mesh, cache), mesh)
+        reset_launch_counts()
+        want, cache = step(params, cache, nxt)
+        torch.cuda.synchronize()
+        plain = launch_counts()
+        reset_launch_counts()
+        got, dcache = step(
+            sharding.distribute(params, sharding.param_specs(params, mesh),
+                                mesh), dcache,
+            sharding.distribute(nxt, sharding.batch_specs(
+                cfg, batch, mesh, "decode"), mesh))
+        torch.cuda.synchronize()
+        meshed = launch_counts()
+    spec = sharding.cache_specs(cfg, batch, mesh, cache)["layers"]["k"]
+    print(f"  {arch} {depth} layers, batch {batch}, decode at position "
+          f"{prompt}: cache spec {spec}; launches meshless {plain} mesh "
+          f"{meshed}", flush=True)
+    if plain != meshed or not meshed["fused_mlp"]:
+        raise RuntimeError("the mesh decode step did not run the kernels")
+    out = _hold("mesh decode logits and cache vs meshless",
+                {"logits": got.full_tensor(),
+                 "cache": sharding.gather(dcache["layers"])},
+                {"logits": want, "cache": cache["layers"]})
+    out["launches"] = meshed
+    return out
+
+
+def mesh_checkpoint(mesh):
+    """olmo_1b_smoke trains 2 steps through the Trainer on the mesh,
+    which saves from its DTensors (rank 0 writes the full tensors); the
+    checkpoint restores without a mesh on the card, and through a fresh
+    mesh Trainer's ``maybe_restore``, bitwise equal to the state it
+    ended with. (The full-width state would spend minutes in the zlib
+    codec, which is not what this checks.)"""
+    cfg = get_config("olmo_1b", smoke=True)
+    with tempfile.TemporaryDirectory() as d:
+        def trainer():
+            return Trainer(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=2),
+                           TrainerConfig(steps=2, ckpt_dir=d, log_every=1),
+                           DataConfig(batch=4, seq=64), device="cuda",
+                           mesh=mesh)
+        tr = trainer()
+        tr.run()
+        state = sharding.gather(dict(zip(("params", "opt"),
+                                         tr.final_state)))
+        flat = ckpt_lib.restore(d, state, device="cuda")
+        again = trainer()
+        back = again.maybe_restore()
+    ok_flat = flat is not None and flat[0] == 2 and _bitwise(flat[1], state)
+    ok_back = back is not None and again.step == 2 and _bitwise(
+        sharding.gather(dict(zip(("params", "opt"), back))), state)
+    print(f"  {cfg.arch_id}, 2 steps on the mesh, saved by its Trainer: "
+          f"restored without a mesh bitwise: {ok_flat}; restored by a mesh "
+          f"Trainer bitwise: {ok_back} (meta mesh {flat and flat[2]['mesh']})",
+          flush=True)
+    if not (ok_flat and ok_back):
+        raise RuntimeError("mesh checkpoint does not restore bitwise")
+    return {"restored_meshless_bitwise": ok_flat,
+            "restored_on_mesh_bitwise": ok_back}
+
+
+def mesh_pipeline():
+    """``pipeline_forward`` with one stage (a 1-rank "stage" mesh) over
+    ``MESH_PIPELINE``'s microbatches, the stage the fused MLP kernel at
+    the arch's width, against ``sequential_reference``: bitwise, or
+    within the kernels' tolerance; one launch a microbatch."""
+    arch, n_micro, rows = MESH_PIPELINE
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    k, f = cfg.d_model, cfg.d_ff
+    sp = {"w1": randn(gen, 1, k, f, scale=k ** -0.5),
+          "w3": randn(gen, 1, k, f, scale=k ** -0.5),
+          "w2": randn(gen, 1, f, k, scale=f ** -0.5)}
+    x = randn(gen, n_micro, rows, k)
+
+    def stage_fn(p, a):
+        return fused_mlp(a, p["w1"], p["w3"], p["w2"])
+    stage_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    reset_launch_counts()
+    y = pipeline_forward(stage_fn, sp, x, stage_mesh, axis="stage")
+    torch.cuda.synchronize()
+    launches = launch_counts()["fused_mlp"]
+    want = sequential_reference(stage_fn, sp, x)
+    same = torch.equal(y, want)
+    print(f"  pipeline_forward, 1 stage, {n_micro} microbatches of {rows} x "
+          f"{k} (fused MLP K {k} F {f}): fused_mlp launches {launches}; "
+          f"equal to sequential_reference bitwise: {same}", flush=True)
+    err = 0.0 if same else compare("pipeline vs sequential_reference", y,
+                                   want)
+    if launches != n_micro:
+        raise RuntimeError("the pipeline stage did not run the kernel")
+    return {"bitwise": same, "max_abs_err": err, "launches": launches}
+
+
+def mesh_phase():
+    """Phase 7 (module docstring): the mesh path on one card. Returns the
+    results of each check."""
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            d, "rendezvous"), world_size=1, rank=0,
+            device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_host_mesh(data=1, model=1, device_type="cuda")
+            out = {"train": clocked("mesh train", mesh_train, mesh),
+                   "decode": clocked("mesh decode", mesh_decode, mesh),
+                   "checkpoint": clocked("mesh checkpoint", mesh_checkpoint,
+                                         mesh),
+                   "pipeline": clocked("mesh pipeline", mesh_pipeline)}
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_launchers(arch, train=True):
@@ -1603,13 +1946,15 @@ def main():
     del flush
     torch.cuda.empty_cache()
     numerics = {arch: clocked(f"{arch} step", check_train_numerics, arch,
-                              depth, 2, seq)
-                for arch, depth, seq in TRAIN_NUMERICS}
+                              depth, batch, seq)
+                for arch, depth, batch, seq in TRAIN_NUMERICS}
     torch.cuda.empty_cache()
     steps = 8
-    train_launches = {arch: clocked(f"{arch} train", train_full, arch,
-                                    steps=steps, n_layers=depth)
-                      for arch, depth in TRAIN}
+    train_runs = {arch: clocked(f"{arch} train", train_full, arch,
+                                steps=steps, seq=seq, n_layers=depth)
+                  for arch, depth, seq in TRAIN}
+    train_launches = {arch: run["launches"]
+                      for arch, run in train_runs.items()}
     clocked("checkpoint", check_checkpoint)
     # flash and fused_mlp's train entries from olmo_1b, ssd_scan's from
     # mamba2_780m: the paths that each carry the kernel at its train shape
@@ -1630,8 +1975,29 @@ def main():
     e = entries[0]
     e["moe"]["train"] = {"path": "granite_moe_1b_a400m train, remat full",
                          "step_numerics": numerics["granite_moe_1b_a400m"]}
+    wh = train_runs["whisper_base"]
+    e["train"]["whisper"] = {
+        "path": "whisper_base train, remat full",
+        "launches_per_step": wh["launches"]["flash_attention"] // steps,
+        "launches_by_regime": wh["launches_by_regime_per_step"],
+        "step_numerics": numerics["whisper_base"],
+        **{k: wh[k] for k in ("step_s", "tokens_per_s", "model_flop_share",
+                              "peak_gib")},
+        "functions": e["train"].pop("whisper")}
+    for e in entries[:2]:
+        e["train"]["llava_next_34b_step_numerics"] = numerics[
+            "llava_next_34b"]
     print(f"  train phase wall {time.perf_counter() - t_train:.1f} s",
           flush=True)
+
+    phase("mesh")
+    mesh = mesh_phase()
+    for e in entries[:2]:
+        e["mesh"] = {"train_launches": mesh["train"]["launches"][e["name"]],
+                     "decode_launches": mesh["decode"]["launches"][e["name"]],
+                     "path": f"{MESH_TRAIN[0]} train and {MESH_DECODE[0]} "
+                             "decode on a (1, 1) (data, model) mesh"}
+    entries[1]["mesh"]["pipeline_launches"] = mesh["pipeline"]["launches"]
 
     phase("launchers")
     for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b",

@@ -5,18 +5,21 @@ these are plain closures; the reference jits them. Train steps take and
 return ``(params, opt_state, batch) -> (params, opt_state, metrics)``;
 the params and the optimizer state are updated in place
 (``train.optimizer.adamw_update``), as the reference's trainer donates
-them. The reference's ``acc_specs`` (the accumulator's sharding) waits
-for the multi-GPU slice (ROADMAP Queue 1, Slice E): one device here.
+them. The steps run on plain tensors on one device, or on DTensors on a
+mesh (params, moments and batch placed by ``launch.sharding``); the
+metrics come back as plain scalars, the same on every rank.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models import model_zoo
 from ..models.common import ModelConfig, tree_get, tree_map
-from ..train.optimizer import OptimizerConfig, adamw_update
+from ..train.optimizer import OptimizerConfig, adamw_update, init_opt_state
+from .sharding import placements
 
 PyTree = Any
 
@@ -36,8 +39,14 @@ def value_and_grad(cfg: ModelConfig, params: PyTree, batch: Dict
             loss, [tree_get(leaves, p) for p in paths], allow_unused=True,
             materialize_grads=True)
     by_path = dict(zip(paths, grads))
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+    return (_scalar(loss), {k: _scalar(v) for k, v in metrics.items()},
             tree_map(lambda path, _: by_path[path], leaves))
+
+
+def _scalar(t):
+    """A detached metric, reduced to a plain tensor on a mesh."""
+    t = t.detach()
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_train_step(cfg: ModelConfig,
@@ -54,19 +63,38 @@ def make_train_step(cfg: ModelConfig,
 
 
 def make_grad_accum_train_step(cfg: ModelConfig, n_micro: int,
-                               opt_cfg: Optional[OptimizerConfig] = None):
+                               opt_cfg: Optional[OptimizerConfig] = None,
+                               acc_specs: Optional[PyTree] = None):
     """Gradient accumulation over ``n_micro`` micro-batches: batch leaves
     are [n_micro, b / n_micro, ...]; the update takes the mean of the
     micro-batch gradients, summed in fp32, and ``loss`` is the mean of
-    the micro-batch losses."""
+    the micro-batch losses.
+
+    ``acc_specs`` (a spec tree mirroring params, ``launch.sharding``)
+    places the fp32 accumulators on the params' mesh: each micro-batch's
+    gradient is reduced to those placements before it is added, so the
+    accumulator is never replicated where the specs shard it (the
+    reference observed 162 GiB a device on deepseek_moe_16b without
+    them)."""
     opt_cfg = opt_cfg or OptimizerConfig()
+
+    def placed(params, grads):
+        grads = tree_map(lambda _, g: g.float(), grads)
+        if acc_specs is None:
+            return grads
+
+        def one(path, g):
+            mesh = tree_get(params, path).device_mesh
+            return g.redistribute(mesh, placements(tree_get(acc_specs, path),
+                                                   mesh))
+        return tree_map(one, grads)
 
     def train_step(params, opt_state, batch):
         gsum, lsum = None, 0.0
         for i in range(n_micro):
             loss, _, grads = value_and_grad(
                 cfg, params, {k: v[i] for k, v in batch.items()})
-            grads = tree_map(lambda _, g: g.float(), grads)
+            grads = placed(params, grads)
             gsum = grads if gsum is None else tree_map(
                 lambda path, g: g.add_(tree_get(grads, path)), gsum)
             lsum = lsum + loss
@@ -89,3 +117,9 @@ def make_decode_step(cfg: ModelConfig):
     def serve_step(params, cache, tokens):
         return model_zoo.decode_step(cfg, params, cache, tokens)
     return serve_step
+
+
+def opt_state_shapes(cfg: ModelConfig) -> PyTree:
+    """The optimizer state of ``model_zoo.param_shapes`` on the meta
+    device: shapes and dtypes only."""
+    return init_opt_state(model_zoo.param_shapes(cfg))

@@ -24,8 +24,11 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
 from ..kernels import flash_attn as flash_kernel
+from . import parallel
 from .common import ModelConfig, apply_rope, dense_init, rope_freqs
 
 KV_CHUNK = 1024
@@ -84,17 +87,55 @@ def flash_attention(q, k, v, causal: bool, q_offset: int = 0,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _prefill_attend(q, k, v, causal: bool):
+def _attend_local(q, k, v, causal: bool):
     """Kernel on CUDA (under autograd), the model's chunked flash on
-    CPU. Raises ValueError on a causal call with Sq != Skv, where the
-    two align the queries differently (module docstring)."""
+    CPU."""
+    if q.is_cuda:
+        return flash_kernel.FlashAttention.apply(q, k, v, causal)
+    return flash_attention(q, k, v, causal=causal)
+
+
+def _attend_sharded(q, k, v, causal: bool):
+    """``_attend_local`` on each rank's shard of DTensor q, k, v
+    [B, S, heads, hd]: the batch as sharded, the heads over "model" when
+    both H and KV divide its size. When only H divides and the model
+    axis is a multiple of KV, each rank's query heads fall in one KV
+    head: k and v are replicated and each rank takes its KV head. Else
+    every rank runs all heads (replicated over "model")."""
+    mesh = q.device_mesh
+    md = mesh.mesh_dim_names.index("model")
+    m = mesh.size(md)
+    h, kv = q.shape[2], k.shape[2]
+    batch = parallel.batch_placements(q)
+    heads = parallel.on_model(batch, 2, mesh)
+    fn = _attend_local
+    if h % m == 0 and kv % m == 0:
+        qp = kvp = heads
+    elif h % m == 0 and m % kv == 0:
+        qp, kvp = heads, batch
+        j = mesh.get_local_rank(md) // (m // kv)
+
+        def fn(q, k, v, causal):
+            return _attend_local(q, k[:, :, j:j + 1], v[:, :, j:j + 1],
+                                 causal)
+    else:
+        qp = kvp = batch
+    return parallel.local_call(fn, qp, (qp, kvp, kvp, None), q, k, v,
+                               causal)
+
+
+def _prefill_attend(q, k, v, causal: bool):
+    """Prefill attention: ``_attend_local``, or ``_attend_sharded`` on
+    DTensors. Raises ValueError on a causal call with Sq != Skv, where the
+    kernel and the CPU path align the queries differently (module
+    docstring)."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"causal attention with {q.shape[1]} queries and "
                          f"{k.shape[1]} keys: the kernel end-aligns the "
                          "queries, the CPU path start-aligns them")
-    if q.is_cuda:
-        return flash_kernel.FlashAttention.apply(q, k, v, causal)
-    return flash_attention(q, k, v, causal=causal)
+    if parallel.is_dtensor(q):
+        return _attend_sharded(q, k, v, causal)
+    return _attend_local(q, k, v, causal)
 
 
 def _qkv(cfg: ModelConfig, params, x, kv_x=None, n_heads=None, n_kv=None):
@@ -105,10 +146,11 @@ def _qkv(cfg: ModelConfig, params, x, kv_x=None, n_heads=None, n_kv=None):
     src = x if kv_x is None else kv_x
     b, s, _ = x.shape
     sk = src.shape[1]
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (src @ params["wk"].to(x.dtype)).reshape(b, sk, kv, hd)
-    v = (src @ params["wv"].to(x.dtype)).reshape(b, sk, kv, hd)
-    return q, k, v
+    q = parallel.splittable(x @ params["wq"].to(x.dtype), h)
+    k = parallel.splittable(src @ params["wk"].to(x.dtype), kv)
+    v = parallel.splittable(src @ params["wv"].to(x.dtype), kv)
+    return (q.reshape(b, s, h, hd), k.reshape(b, sk, kv, hd),
+            v.reshape(b, sk, kv, hd))
 
 
 def _rope_qk(cfg: ModelConfig, q, k, positions=None, kv_positions=None):
@@ -166,11 +208,16 @@ def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
 
 
-def gqa_decode_attend(q, ck, cv, pos: int):
+def gqa_decode_attend(q, ck, cv, pos: int, groups=()):
     """q [B,1,H,hd] against cache [B,S,KV,hd] without repeating KV.
 
     Operands are rounded to the query dtype, products accumulate in
-    fp32; keys past ``pos`` are masked."""
+    fp32; keys past ``pos`` are masked. With process ``groups`` (split-KV
+    decode) the cache is one shard of the sequence, ``pos`` is local (it
+    may lie before or past the shard), and the softmax's max, its sum and
+    the weighted values are reduced over the groups, so every shard
+    returns the attention over all of it; with none the reductions are
+    local."""
     b, _, h, hd = q.shape
     s_max, kv = ck.shape[1], ck.shape[2]
     g = h // kv
@@ -179,9 +226,17 @@ def gqa_decode_attend(q, ck, cv, pos: int):
     s = torch.einsum("bkgd,bskd->bkgs", qg, ck.to(q.dtype).float())
     mask = torch.arange(s_max, device=q.device) <= pos
     s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(),
+    m = s.amax(dim=-1, keepdim=True)
+    for grp in groups:
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=grp)
+    p = torch.exp(s - m)        # the global max is finite: key 0 is seen
+    den = p.sum(dim=-1, keepdim=True)
+    for grp in groups:
+        dist.all_reduce(den, group=grp)
+    out = torch.einsum("bkgs,bskd->bkgd", (p / den).to(q.dtype).float(),
                        cv.to(q.dtype).float())
+    for grp in groups:
+        dist.all_reduce(out, group=grp)
     return out.reshape(b, 1, h * hd)
 
 
@@ -196,8 +251,40 @@ def decode_attention(cfg: ModelConfig, params, x, cache, pos: int, *,
     q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
     if cfg.use_rope if rope is None else rope:
         q, k = _rope_qk(cfg, q, k, torch.tensor([pos], device=x.device))
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
-    out = gqa_decode_attend(q, cache["k"], cache["v"], pos)
+    if parallel.is_dtensor(cache["k"]):
+        out = _decode_sharded(q, k, v, cache["k"], cache["v"], pos)
+    else:
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        out = gqa_decode_attend(q, cache["k"], cache["v"], pos)
     y = out.to(x.dtype) @ params["wo"].to(x.dtype)
     return y, cache
+
+
+def _decode_sharded(q, k, v, ck, cv, pos: int):
+    """Write k/v at ``pos`` into DTensor caches [B, S, KV, hd] placed by
+    ``launch.sharding.cache_specs`` and attend, on each rank's shards: q,
+    k and v take the cache's batch and kv-head sharding and are
+    replicated over the mesh dims that shard its sequence (split-KV
+    decode). Only the rank whose sequence shard holds ``pos`` writes it;
+    ``gqa_decode_attend`` reduces over the groups that split the
+    sequence (none when it is whole)."""
+    mesh = ck.device_mesh
+    keep = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                 else Replicate() for p in ck.placements)
+    seq_dims = parallel.mesh_dims_sharding(ck, 1)
+    index = 0
+    for d in seq_dims:
+        index = index * mesh.size(d) + mesh.get_local_rank(d)
+    groups = [mesh.get_group(d) for d in seq_dims]
+
+    def local(q, k, v, ck, cv):
+        off = index * ck.shape[1]
+        if off <= pos < off + ck.shape[1]:
+            ck[:, pos - off] = k[:, 0]
+            cv[:, pos - off] = v[:, 0]
+        return gqa_decode_attend(q, ck, cv, pos - off, groups)
+
+    return parallel.local_call(local, keep, (keep, keep, keep,
+                                             ck.placements, cv.placements),
+                               q, k, v, ck, cv)

@@ -14,6 +14,8 @@ from typing import Any, Optional
 
 import torch
 
+from .parallel import replicate_like
+
 PyTree = Any
 
 VOCAB_PAD = 512  # pad vocab so the unembed shards on any model axis <= 512
@@ -187,14 +189,28 @@ def apply_rope(x, cos, sin):
     """x [..., S, H, hd]; cos/sin [S, hd/2] (broadcast over batch/heads).
     Rotates split halves, not interleaved pairs."""
     x1, x2 = x.chunk(2, dim=-1)
-    c = cos[..., :, None, :]
-    s = sin[..., :, None, :]
+    c = replicate_like(cos[..., :, None, :], x)
+    s = replicate_like(sin[..., :, None, :], x)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is meta: the initialisers, which
+    allocate on their generator's device, then build shapes and dtypes
+    only (a parameter-shape tree without allocating or drawing)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def meta_generator() -> torch.Generator:
+    return _MetaGenerator()
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: Optional[float] = None):

@@ -29,11 +29,13 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from . import parallel
 from .attention import (attention, decode_attention, gqa_decode_attend,
                         init_attn, init_kv_cache)
-from .common import ModelConfig, apply_norm, dense_init, torch_dtype
+from .common import (ModelConfig, apply_norm, dense_init, meta_generator,
+                     torch_dtype)
 from .lm import (_remat, _run, _stacked, _unstacked, draw_layers,
-                 layer_params, param_requires_grad, residual)
+                 layer_params, param_requires_grad, residual, token_nll)
 from .mlp import init_mlp, mlp
 
 PyTree = Any
@@ -80,6 +82,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
     }
 
 
+def param_shapes(cfg: ModelConfig) -> PyTree:
+    """The parameter tree on the meta device (``lm.param_shapes``)."""
+    return init_params(cfg, meta_generator())
+
+
 def _layers(cfg: ModelConfig, stack: PyTree, n: int, sublayers, x, remat):
     """Apply ``n`` stacked layers, each as ``sublayers(lp)``, recomputed
     in the backward when ``remat``."""
@@ -93,7 +100,8 @@ def encode(cfg: ModelConfig, params: PyTree, frames) -> torch.Tensor:
     """frames [B, T, D] (stub frontend output) -> encoder states."""
     cdt = torch_dtype(cfg.compute_dtype)
     t = frames.shape[1]
-    x = frames.to(cdt) + params["enc_pos"].to(cdt)[None, :t]
+    x = parallel.to_batch(frames.to(cdt)
+                          + params["enc_pos"].to(cdt)[None, :t])
 
     def sublayers(lp):
         return [("mix", residual(cfg, lp["attn_norm"], lambda h: attention(
@@ -111,8 +119,9 @@ def _decoder(cfg: ModelConfig, params: PyTree, tokens, enc):
     final-normed hidden states [B, S, D]."""
     cdt = torch_dtype(cfg.compute_dtype)
     s = tokens.shape[1]
-    x = (params["embed"][tokens.long()].to(cdt)
-         + params["dec_pos"].to(cdt)[None, :s])
+    x = parallel.to_batch(
+        parallel.gather_rows(params["embed"], tokens.long()).to(cdt)
+        + params["dec_pos"].to(cdt)[None, :s])
 
     def sublayers(lp):
         return [("mix", residual(cfg, lp["self_norm"], lambda h: attention(
@@ -147,10 +156,7 @@ def loss_fn(cfg: ModelConfig, params: PyTree,
     """Cross entropy over every position (``repro/models/encdec.py:
     loss_fn``: no mask, no aux in the loss); returns (ce, {"ce", "aux"})."""
     logits, aux = forward(cfg, params, batch["tokens"], batch["frames"])
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    ce = (logz - gold).mean()
+    ce = token_nll(logits, batch["labels"]).mean()
     return ce, {"ce": ce, "aux": aux}
 
 
@@ -217,7 +223,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
     reads every primed encoder frame."""
     cdt = torch_dtype(cfg.compute_dtype)
     pos = cache["pos"]
-    x = (params["embed"][tokens.long()].to(cdt)
+    x = (parallel.gather_rows(params["embed"], tokens.long()).to(cdt)
          + params["dec_pos"][pos].to(cdt))[:, None, :]
     b = x.shape[0]
     for i in range(cfg.n_layers):

@@ -44,10 +44,11 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from . import parallel
 from .attention import (attention, decode_attention, init_attn,
                         init_kv_cache, prefill_into_cache)
-from .common import (ModelConfig, apply_norm, dense_init, torch_dtype,
-                     tree_get, tree_leaves, tree_map)
+from .common import (ModelConfig, apply_norm, dense_init, meta_generator,
+                     torch_dtype, tree_get, tree_leaves, tree_map)
 from .mlp import init_mlp, init_moe, mlp, moe
 from .ssm import init_mamba2, init_ssm_cache, mamba2_block, mamba2_decode, \
     mamba2_prefill
@@ -141,6 +142,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> PyTree:
+    """The parameter tree on the meta device: shapes and dtypes, nothing
+    allocated or drawn (the dry-run's and the sharded trainer's input)."""
+    return init_params(cfg, meta_generator())
+
+
 # ---------------------------------------------------------------------------
 # Forward (scoring)
 # ---------------------------------------------------------------------------
@@ -149,11 +156,15 @@ def _vocab_mask(cfg: ModelConfig, logits):
     if cfg.padded_vocab == cfg.vocab:
         return logits
     mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
-    return logits.masked_fill(~mask, -1e9)
+    return logits.masked_fill(~parallel.replicate_like(mask, logits), -1e9)
 
 
 def _embed(cfg: ModelConfig, params: PyTree, tokens):
-    return params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    """Token embeddings in the compute dtype; on a mesh, with the tokens'
+    batch sharding, replicated over "model"."""
+    x = parallel.to_batch(parallel.gather_rows(params["embed"],
+                                               tokens.long()))
+    return x.to(torch_dtype(cfg.compute_dtype))
 
 
 def _unembed(cfg: ModelConfig, params: PyTree, x):
@@ -197,8 +208,9 @@ def _moe_sublayer(cfg: ModelConfig, norm, p: Dict) -> Sublayer:
 
 
 def residual(cfg: ModelConfig, norm, fn) -> Callable:
-    """The residual sublayer x -> x + fn(norm(x))."""
-    return lambda x: x + fn(apply_norm(cfg, x, norm))
+    """The residual sublayer x -> x + fn(norm(x)); on a mesh, fn's output
+    is reduced to x's placements before the add."""
+    return lambda x: x + parallel.like(fn(apply_norm(cfg, x, norm)), x)
 
 
 def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
@@ -306,13 +318,28 @@ def loss_fn(cfg: ModelConfig, params: PyTree,
     mean; returns (ce + aux, {"ce", "aux"})."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           batch.get("extra_embeds"))
+    nll = token_nll(logits, batch["labels"])
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _token_nll(logits, labels):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    mask = batch.get("mask")
-    mask = torch.ones_like(gold) if mask is None else mask.to(gold.dtype)
-    ce = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return ce + aux, {"ce": ce, "aux": aux}
+    return logz - logits.gather(-1, labels.long()[..., None])[..., 0]
+
+
+def token_nll(logits, labels):
+    """logsumexp of the fp32 logits minus the gold logit, per token. On a
+    mesh, each rank takes its batch shard's rows with the whole vocab
+    (the logits gathered over "model")."""
+    if not parallel.is_dtensor(logits):
+        return _token_nll(logits, labels)
+    rows = parallel.batch_placements(labels)
+    return parallel.local_call(_token_nll, rows, (
+        parallel.batch_placements(logits), rows), logits, labels)
 
 
 # ---------------------------------------------------------------------------

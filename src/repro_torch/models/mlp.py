@@ -25,8 +25,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..kernels import fused_mlp as fused_kernel
+from . import parallel
 from .common import ModelConfig, dense_init
 
 
@@ -42,18 +44,43 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model=None,
             "w2": dense_init(gen, f, d, dtype)}
 
 
+def _swiglu_local(x, w1, w3, w2):
+    """The fused MLP kernel on CUDA (under autograd), the reference's
+    formula on CPU."""
+    if x.is_cuda:
+        y = fused_kernel.FusedMLP.apply(x.reshape(-1, x.shape[-1]), w1, w3,
+                                        w2)
+        return y.reshape(x.shape)
+    return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def _swiglu_sharded(x, w1, w3, w2):
+    """``_swiglu_local`` on each rank's shard of DTensors: x with its
+    batch sharding, replicated over "model"; w1/w3 [K, F] and w2 [F, K]
+    gathered over the data axes. When the spec shards F over "model"
+    (w2's dim 0), each rank computes its F slice and the output is a
+    partial sum over "model"; else every rank computes all of it."""
+    mesh = x.device_mesh
+    md = mesh.mesh_dim_names.index("model")
+    xp = parallel.batch_placements(x)
+    wp = w2p = (Replicate(),) * mesh.ndim
+    out = xp
+    if isinstance(w2.placements[md], Shard):
+        wp, w2p = (parallel.on_model(wp, 1, mesh),
+                   parallel.on_model(wp, 0, mesh))
+        out = tuple(Partial() if d == md else p for d, p in enumerate(xp))
+    return parallel.local_call(_swiglu_local, out, (xp, wp, wp, w2p),
+                               x, w1, w3, w2)
+
+
 def mlp(cfg: ModelConfig, params: Dict, x):
     if "w3" not in params:
         h = F.gelu(x @ params["w1"].to(x.dtype), approximate="tanh")
         return h @ params["w2"].to(x.dtype)
-    if x.is_cuda:
-        y = fused_kernel.FusedMLP.apply(x.reshape(-1, x.shape[-1]),
-                                        params["w1"].to(x.dtype),
-                                        params["w3"].to(x.dtype),
-                                        params["w2"].to(x.dtype))
-        return y.reshape(x.shape)
-    h = F.silu(x @ params["w1"].to(x.dtype)) * (x @ params["w3"].to(x.dtype))
-    return h @ params["w2"].to(x.dtype)
+    w1, w3, w2 = (params[k].to(x.dtype) for k in ("w1", "w3", "w2"))
+    if parallel.is_dtensor(x):
+        return _swiglu_sharded(x, w1, w3, w2)
+    return _swiglu_local(x, w1, w3, w2)
 
 
 # ---------------------------------------------------------------------------

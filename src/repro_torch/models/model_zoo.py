@@ -22,6 +22,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
     return lm.init_params(cfg, gen)
 
 
+def param_shapes(cfg: ModelConfig) -> PyTree:
+    """The parameter tree on the meta device: shapes and dtypes only."""
+    if cfg.family == "audio":
+        return encdec.param_shapes(cfg)
+    return lm.param_shapes(cfg)
+
+
 def loss_fn(cfg: ModelConfig, params: PyTree, batch: Dict):
     if cfg.family == "audio":
         return encdec.loss_fn(cfg, params, batch)

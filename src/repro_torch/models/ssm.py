@@ -20,8 +20,10 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 
 from ..kernels import ssd_scan as ssd_kernel
+from . import parallel
 from .common import ModelConfig, dense_init, rmsnorm
 
 
@@ -122,12 +124,50 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y.to(x.dtype), state
 
 
-def _ssd(x, dt, A, B, C, chunk: int):
+def _ssd_local(x, dt, A, B, C, chunk: int):
     """Kernel on CUDA (under autograd), ``ssd_chunked`` on CPU; (y, final
     state)."""
     if x.is_cuda:
         return ssd_kernel.SSDScan.apply(x, dt, A, B, C, chunk)
     return ssd_chunked(x, dt, A, B, C, chunk)
+
+
+def _ssd_sharded(x, dt, A, B, C, chunk: int):
+    """``_ssd_local`` on each rank's shard of DTensors x [B,S,H,P], dt
+    [B,S,H], A [H], B/C [B,S,G,N]: the batch as sharded, the heads over
+    "model" when H divides its size, with the state groups too when G
+    does; when the axis is a multiple of G each rank's heads fall in one
+    group, B and C are replicated and each rank takes its group. Else
+    every rank runs all heads."""
+    mesh = x.device_mesh
+    md = mesh.mesh_dim_names.index("model")
+    m = mesh.size(md)
+    h, g = x.shape[2], B.shape[2]
+    batch = parallel.batch_placements(x)
+    repl = (Replicate(),) * len(batch)
+    fn = _ssd_local
+    if h % m == 0 and (g % m == 0 or m % g == 0):
+        xp, ap, sp = (parallel.on_model(pl, d, mesh)
+                      for pl, d in ((batch, 2), (repl, 0), (batch, 1)))
+        bp = xp if g % m == 0 else batch
+        if g % m:
+            j = mesh.get_local_rank(md) // (m // g)
+
+            def fn(x, dt, A, B, C, chunk):
+                return _ssd_local(x, dt, A, B[:, :, j:j + 1],
+                                  C[:, :, j:j + 1], chunk)
+    else:
+        xp, ap, bp, sp = batch, repl, batch, batch
+    return parallel.local_call(fn, (xp, sp), (xp, xp, ap, bp, bp, None),
+                               x, dt, A, B, C, chunk)
+
+
+def _ssd(x, dt, A, B, C, chunk: int):
+    """(y, final state): ``_ssd_local``, or ``_ssd_sharded`` on
+    DTensors."""
+    if parallel.is_dtensor(x):
+        return _ssd_sharded(x, dt, A, B, C, chunk)
+    return _ssd_local(x, dt, A, B, C, chunk)
 
 
 def _block(cfg: ModelConfig, params: Dict, x):
@@ -157,6 +197,8 @@ def _block(cfg: ModelConfig, params: Dict, x):
 
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
+    xc = parallel.splittable(xc, h)
+    Bc, Cc = (parallel.splittable(t, g) for t in (Bc, Cc))
     y, final = _ssd(xc.reshape(b, s, h, p), dt, A, Bc.reshape(b, s, g, n),
                     Cc.reshape(b, s, g, n), chunk)
     y = y + params["D"].to(x.dtype)[:, None] * xc.reshape(b, s, h, p)

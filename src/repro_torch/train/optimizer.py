@@ -7,15 +7,21 @@ on every leaf, norm scales included). Trees are nested dicts of tensors.
 Unlike the reference, whose arrays are immutable, ``adamw_update``
 updates the params and the moments in place and returns them (the
 reference's trainer donates them to the same effect), so full-width
-training holds one copy of each.
+training holds one copy of each. On a mesh the params and moments are
+DTensors, the moments placed by the ZeRO specs
+(``launch.sharding.opt_state_specs``): each gradient is reduced to its
+moment's placements, the update runs on those shards, and the new
+values are redistributed to the param's placements and copied in.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from ..models.common import tree_get, tree_leaves, tree_map
 
@@ -49,21 +55,35 @@ def lr_schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init_opt_state(params: PyTree) -> Dict:
+def init_opt_state(params: PyTree,
+                   placements: Optional[Dict] = None) -> Dict:
     """{"mu", "nu"}: fp32 zeros shaped like the params, on their devices;
-    "step": an int32 scalar."""
-    def zeros(_, p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    "step": an int32 scalar (a plain tensor, also on a mesh). For DTensor
+    params, ``placements`` ({"mu": tree, "nu": tree} of placements, the
+    ZeRO specs' of ``launch.sharding.opt_state_specs``) makes the moments
+    DTensors on the params' mesh, each rank allocating its shard only."""
+    def zeros(kind):
+        def one(path, p):
+            if placements is None:
+                return torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+            return dtensor_zeros(p.shape, dtype=torch.float32,
+                                 device_mesh=p.device_mesh,
+                                 placements=tree_get(placements[kind], path))
+        return one
 
     device = next(tree_leaves(params)).device
-    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+    return {"mu": tree_map(zeros("mu"), params),
+            "nu": tree_map(zeros("nu"), params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+    """sqrt of the sum of squares of every leaf, in fp32; over every
+    shard of DTensor leaves (a plain scalar, the same on every rank)."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in tree_leaves(tree)))
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -93,30 +113,52 @@ def adamw_update(cfg: OptimizerConfig, params: PyTree, grads: PyTree,
         # zeros, and they still decay.
         if g is not None:
             return g
-        p = tree_get(params, path)
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(tree_get(params, path), dtype=torch.float32)
 
-    grads = tree_map(zero_if_none, grads)
+    def where_moments_live(path, g):
+        # on a mesh: reduce each gradient to its moment's placements (a
+        # partial sum over "data" becomes a reduce-scatter under ZeRO)
+        m = tree_get(state["mu"], path)
+        if isinstance(m, DTensor):
+            return g.redistribute(m.device_mesh, m.placements)
+        return g
+
+    grads = tree_map(where_moments_live, tree_map(zero_if_none, grads))
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
     t = step.to(torch.float32)
-    bc1 = 1 - torch.pow(b1, t)
-    bc2 = 1 - torch.pow(b2, t)
+    bc1 = 1 - torch.pow(cfg.b1, t)
+    bc2 = 1 - torch.pow(cfg.b2, t)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["mu"]),
                           tree_leaves(state["nu"])):
-        g = g.float() * scale          # clipped, one leaf at a time
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * torch.square(g))
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        p32 = p.float()
-        u.add_(cfg.weight_decay * p32)
-        p.copy_(p32 - lr * u)
+        if not isinstance(m, DTensor):
+            p.copy_(_leaf_update(cfg, p, g, m, v, scale, lr, bc1, bc2))
+            continue
+        # ZeRO: update the shard that the moments hold, then bring the
+        # new values back to the param's placements
+        mesh, where = m.device_mesh, m.placements
+        new = _leaf_update(cfg, p.redistribute(mesh, where).to_local(),
+                           g.to_local(), m.to_local(), v.to_local(), scale,
+                           lr, bc1, bc2)
+        new = DTensor.from_local(new, mesh, where, run_check=False)
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _leaf_update(cfg: OptimizerConfig, p, g, m, v, scale, lr, bc1, bc2):
+    """One leaf's AdamW arithmetic on plain tensors: the moments ``m``,
+    ``v`` updated in place; returns the new fp32 values of ``p``."""
+    g = g.float() * scale              # clipped, one leaf at a time
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+    u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    p32 = p.float()
+    u.add_(cfg.weight_decay * p32)
+    return p32 - lr * u
 
 
 def topk_compress(g: torch.Tensor, frac: float = 0.1) -> torch.Tensor:

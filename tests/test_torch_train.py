@@ -290,6 +290,38 @@ def test_train_steps_match_jax(arch):
     _assert_state_close(params, opt, jparams, jopt)
 
 
+def _extra(cfg, batch, b, seed=5):
+    """The audio family's frames or the vlm's image embeddings (fp32,
+    from numpy), added to ``batch``."""
+    name, n = {"audio": ("frames", cfg.enc_frames),
+               "vlm": ("extra_embeds", cfg.img_tokens)}[cfg.family]
+    batch[name] = np.random.RandomState(seed).randn(
+        b, n, cfg.d_model).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
+def test_encdec_vlm_train_steps_match_jax(arch):
+    """Three make_train_step steps of whisper_base (with encoder frames)
+    and llava_next_34b (with image embeddings prepended) against the
+    reference's, jitted with no mesh: metrics within 1e-4, params and
+    moments as ``_assert_state_close``."""
+    jcfg, cfg, jparams, params = _pair(arch)
+    jstep = jax.jit(jax_steps.make_train_step(
+        jcfg, jax_opt.OptimizerConfig(**OPT)))
+    step = steps.make_train_step(cfg, OptimizerConfig(**OPT))
+    jopt, opt = jax_opt.init_opt_state(jparams), init_opt_state(params)
+    for i in range(3):
+        batch = _extra(cfg, _batch(cfg.vocab, b=2, s=16, seed=i), 2, seed=i)
+        jparams, jopt, jm = jstep(jparams, jopt, _jax(batch))
+        params, opt, m = step(params, opt, _torch(batch))
+        assert set(m) == set(jm)
+        for k in jm:
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       err_msg=k, **TOL)
+    _assert_state_close(params, opt, jparams, jopt)
+
+
 def test_grad_accum_step_matches_jax():
     """One 2-micro-batch accumulation step against the reference's:
     loss is the mean of the micro losses, gradients their fp32 mean."""
@@ -514,6 +546,50 @@ def test_trainer_failure_restart_resumes(tmp_path):
     for got, want in zip(t2.final_state, t3.final_state):
         tree_map(lambda path, t: torch.testing.assert_close(
             t, tree_get(want, path), rtol=0, atol=0), got)
+
+
+def test_whisper_trainer_resumes_bitwise(tmp_path):
+    """whisper_base smoke through the port's Trainer on the CPU (the
+    synthetic stream draws its frames): 4 steps with a checkpoint at 2, a
+    restart from it equal to the unbroken run bitwise, and a falling
+    loss."""
+    cfg = configs.get_config("whisper_base", smoke=True)
+    kw = dict(opt_cfg=OptimizerConfig(lr=3e-3, warmup_steps=1,
+                                      total_steps=4),
+              dcfg=DataConfig(batch=4, seq=16), device="cpu")
+
+    def trainer(d):
+        return Trainer(cfg, tcfg=TrainerConfig(
+            steps=4, ckpt_dir=str(d), ckpt_every=2, log_every=1), **kw)
+
+    t1 = trainer(tmp_path / "a")
+    with pytest.raises(RuntimeError, match="injected failure"):
+        t1.run(fail_at=3)
+    t2 = trainer(tmp_path / "a")
+    t2.run()
+    t3 = trainer(tmp_path / "b")
+    t3.run()
+    losses = [h["loss"] for h in t3.metrics_history]
+    assert len(losses) == 4 and losses[-1] < losses[0]
+    for got, want in zip(t2.final_state, t3.final_state):
+        tree_map(lambda path, t: torch.testing.assert_close(
+            t, tree_get(want, path), rtol=0, atol=0), got)
+
+
+def test_train_launcher_whisper_on_cpu(tmp_path, capsys):
+    """``launch.train --arch whisper_base --device cpu`` (the smoke
+    config, frames drawn by the stream) trains and checkpoints."""
+    d = str(tmp_path)
+    train_launcher.main(["--arch", "whisper_base", "--device", "cpu",
+                         "--steps", "2", "--batch", "2", "--seq", "16",
+                         "--ckpt", d])
+    assert ckpt.latest_step(d) == 2
+    assert "'loss'" in capsys.readouterr().out
+
+
+def test_train_launcher_model_parallel_needs_torchrun():
+    with pytest.raises(SystemExit, match="torchrun"):
+        train_launcher.main(["--device", "cpu", "--model-parallel", "2"])
 
 
 def test_trainer_cuda_without_gpu_raises():
