@@ -98,10 +98,24 @@ Phases, each raising on failure:
                 Trainer, bitwise;
                 ``pipeline_forward`` with one stage over 6 microbatches,
                 the stage the fused MLP at granite_8b's width, equal to
-                ``sequential_reference``. World size 1 shows the mesh path
-                runs and equals the meshless one; it shows nothing of
-                collectives across cards.
-  8. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
+                ``sequential_reference``. The MoE (``MESH_MOE_TRAIN``,
+                ``MESH_MOE_DECODE``): granite_moe_1b_a400m and
+                deepseek_moe_16b at full width, 2 layers, 4 x 2048, 2
+                Trainer steps with and without the mesh (tp plan,
+                moe_shards 1; the three local_calls of each MoE layer),
+                held as olmo_1b is (bitwise, else TRAIN_LIMITS; deepseek,
+                which has none, bitwise), the same flash and fused_mlp
+                launches, and one decode step of each, bitwise. World size
+                1 shows the mesh path runs and equals the meshless one; it
+                shows nothing of collectives across cards.
+  8. dryrun  -- the port's dry-run (``launch.dryrun.run_and_save``) of
+                ``DRYRUN``'s cells on this machine's CPU, fake tensors on
+                the fake 16 x 16 and 2 x 16 x 16 meshes: granite_8b
+                long_500k skipped, the others ok, FLOPs > 0, model FLOPs
+                at most the counted FLOPs of all chips, no kernel launch;
+                each cell's roofline, peak against this card's memory and
+                seconds.
+  9. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
                 their defaults (the smoke config on cuda) for olmo_1b,
                 mamba2_780m, zamba2_1_2b, granite_moe_1b_a400m and
                 deepseek_moe_16b, and ``launch.serve`` for whisper_base and
@@ -145,6 +159,7 @@ from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
                                           ssd_ref, ssd_scan, to_pallas_layout)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.steps import make_decode_step  # noqa: E402
@@ -1606,6 +1621,27 @@ def check_checkpoint():
 MESH_TRAIN = ("olmo_1b", 2, 4, 2048, 2)   # arch, depth, batch, seq, steps
 MESH_DECODE = ("granite_8b", 2, 4, 64)     # arch, depth, batch, prompt
 MESH_PIPELINE = ("granite_8b", 6, 256)     # arch, microbatches, rows each
+# the MoE on the mesh: full width, MESH_TRAIN's cut (tp plan, moe_shards 1)
+MESH_MOE_TRAIN = (("granite_moe_1b_a400m", 2, 4, 2048, 2),
+                  ("deepseek_moe_16b", 2, 4, 2048, 2))
+MESH_MOE_DECODE = (("granite_moe_1b_a400m", 2, 4, 64),
+                   ("deepseek_moe_16b", 2, 4, 64))
+# (arch, shape, multi-pod, plan) of the dry-run phase: the cells of
+# tests/test_dryrun_cell.py and one MoE cell
+DRYRUN = (("whisper_base", "decode_32k", True, "tp"),
+          ("olmo_1b", "train_4k", False, "dp"),
+          ("granite_8b", "long_500k", False, "tp"),
+          ("mamba2_780m", "long_500k", False, "tp"),
+          ("deepseek_moe_16b", "train_4k", False, "ep"))
+
+
+def _check_mesh_launches(label, cfg, plain, meshed):
+    """The mesh path launched what the meshless one did: flash in every
+    model here, the fused MLP where the model has SwiGLU MLPs."""
+    if plain != meshed or not meshed["flash_attention"] or (
+            fused_mlps(cfg) and not meshed["fused_mlp"]):
+        raise RuntimeError(f"{label}: the mesh path did not run the kernels "
+                           "behind local_map as the meshless path does")
 
 
 def _hold(label, got, want, limit=None):
@@ -1624,13 +1660,14 @@ def _hold(label, got, want, limit=None):
     return {"bitwise": same, "worst_leaf_rel_rms": worst}
 
 
-def mesh_train(mesh):
-    """``MESH_TRAIN`` through the Trainer on the (1, 1) mesh and without
-    one, from the same seed: the losses, the final params and moments
-    (the mesh's gathered) bitwise equal, or within olmo_1b's TRAIN_LIMITS
-    if not; the same flash and fused_mlp launches (on the mesh they run
+def mesh_train(mesh, spec=MESH_TRAIN):
+    """``spec`` (``MESH_TRAIN`` or one of ``MESH_MOE_TRAIN``) through the
+    Trainer on the (1, 1) mesh and without one, from the same seed: the
+    losses, the final params and moments (the mesh's gathered) bitwise
+    equal, or within the arch's TRAIN_LIMITS if not (bitwise where it has
+    none); the same flash and fused_mlp launches (on the mesh they run
     behind local_map)."""
-    arch, depth, batch, seq, steps = MESH_TRAIN
+    arch, depth, batch, seq, steps = spec
     cfg = get_config(arch).with_(n_layers=depth)
     runs = {}
     for name, m in (("meshless", None), ("mesh", mesh)):
@@ -1656,10 +1693,9 @@ def mesh_train(mesh):
           f"{[round(t, 4) for t in b['seconds']]}", flush=True)
     print(f"  launches meshless {a['launches']} mesh {b['launches']}",
           flush=True)
-    if a["launches"] != b["launches"] or not b["launches"]["fused_mlp"]:
-        raise RuntimeError("the mesh train step did not run the kernels "
-                           "behind local_map as the meshless step does")
-    lim_loss, _, lim_leaf = TRAIN_LIMITS[arch]
+    _check_mesh_launches(f"{arch} mesh train", cfg, a["launches"],
+                         b["launches"])
+    lim_loss, _, lim_leaf = TRAIN_LIMITS.get(arch, (0.0, None, None))
     loss_rel = max(abs(x - y) / abs(y)
                    for x, y in zip(b["losses"], a["losses"]))
     if loss_rel > lim_loss:
@@ -1671,13 +1707,14 @@ def mesh_train(mesh):
     return out
 
 
-def mesh_decode(mesh):
-    """``MESH_DECODE``: one decode step on the (1, 1) mesh (params,
-    cache and tokens placed by param_specs, cache_specs and batch_specs)
-    after a meshless prefill, against the meshless step: logits and
-    cache bitwise (at world size 1 the two run the same bf16 arithmetic:
-    no collective, no other split), and the same launches."""
-    arch, depth, batch, prompt = MESH_DECODE
+def mesh_decode(mesh, spec=MESH_DECODE):
+    """``spec`` (``MESH_DECODE`` or one of ``MESH_MOE_DECODE``): one
+    decode step on the (1, 1) mesh (params, cache and tokens placed by
+    param_specs, cache_specs and batch_specs) after a meshless prefill,
+    against the meshless step: logits and cache bitwise (at world size 1
+    the two run the same bf16 arithmetic: no collective, no other split),
+    and the same launches."""
+    arch, depth, batch, prompt = spec
     cfg = get_config(arch).with_(n_layers=depth)
     params = model_zoo.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
@@ -1707,8 +1744,9 @@ def mesh_decode(mesh):
     print(f"  {arch} {depth} layers, batch {batch}, decode at position "
           f"{prompt}: cache spec {spec}; launches meshless {plain} mesh "
           f"{meshed}", flush=True)
-    if plain != meshed or not meshed["fused_mlp"]:
-        raise RuntimeError("the mesh decode step did not run the kernels")
+    if plain != meshed or (fused_mlps(cfg) and not meshed["fused_mlp"]):
+        raise RuntimeError(f"{arch}: the mesh decode step did not run the "
+                           "kernels")
     out = _hold("mesh decode logits and cache vs meshless",
                 {"logits": got.full_tensor(),
                  "cache": sharding.gather(dcache["layers"])},
@@ -1797,12 +1835,68 @@ def mesh_phase():
             mesh = make_host_mesh(data=1, model=1, device_type="cuda")
             out = {"train": clocked("mesh train", mesh_train, mesh),
                    "decode": clocked("mesh decode", mesh_decode, mesh),
+                   "moe_train": {spec[0]: clocked(
+                       f"mesh train {spec[0]}", mesh_train, mesh, spec)
+                       for spec in MESH_MOE_TRAIN},
+                   "moe_decode": {spec[0]: clocked(
+                       f"mesh decode {spec[0]}", mesh_decode, mesh, spec)
+                       for spec in MESH_MOE_DECODE},
                    "checkpoint": clocked("mesh checkpoint", mesh_checkpoint,
                                          mesh),
                    "pipeline": clocked("mesh pipeline", mesh_pipeline)}
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase():
+    """Phase 8 (module docstring): ``DRYRUN``'s cells through the port's
+    dry-run (``run_and_save``, fake tensors on this machine's CPU): the
+    long_500k cell of a full-attention arch is skipped, every other is
+    ok with FLOPs > 0 and its model FLOPs no more than the counted FLOPs
+    of all its chips (the counter sees the work behind local_map); no
+    kernel launches. Prints each cell's roofline, its per-device peak
+    against this card's memory, and its seconds."""
+    total = torch.cuda.mem_get_info()[1]
+    before = launch_counts()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape, multi_pod, plan in DRYRUN:
+            t0 = time.perf_counter()
+            rec = dryrun.run_and_save(arch, shape, multi_pod, d, plan=plan)
+            secs = time.perf_counter() - t0
+            status = str(rec["status"])
+            name = f"{arch} {shape} {rec['mesh']} {plan}"
+            if not dryrun.cell_status(arch, shape)[0]:
+                if not status.startswith("skip"):
+                    raise RuntimeError(f"{name}: not skipped ({status})")
+                print(f"  {name}: {status} ({secs:.1f} s)", flush=True)
+                out[f"{arch}/{shape}"] = {"status": status}
+                continue
+            if status != "ok":
+                print(rec.get("traceback", ""), flush=True)
+                raise RuntimeError(f"{name}: {status[:300]}")
+            r, peak = rec["roofline"], rec["memory"]["peak_bytes_per_device"]
+            print(f"  {name}: {secs:.1f} s; per device flops {r['flops']:.4e}"
+                  f" hbm bytes {r['hbm_bytes']:.4e} collective bytes "
+                  f"{r['collective_bytes']:.4e}; compute {r['compute_s']:.4e}"
+                  f" s memory {r['memory_s']:.4e} s collective "
+                  f"{r['collective_s']:.4e} s -> {r['bottleneck']}; peak "
+                  f"{peak / 2**30:.2f} GiB of this card's {total / 2**30:.2f}"
+                  f" GiB; collectives {rec['collectives']['counts']}; model "
+                  f"flops {rec['model_flops']:.4e} (useful ratio "
+                  f"{rec['useful_flops_ratio']:.3f})", flush=True)
+            if not (r["flops"] > 0 and rec["model_flops"]
+                    <= r["flops"] * rec["n_chips"]):
+                raise RuntimeError(f"{name}: counted FLOPs {r['flops']} x "
+                                   f"{rec['n_chips']} chips below the model's "
+                                   f"{rec['model_flops']}")
+            out[f"{arch}/{shape}"] = {**{k: rec[k] for k in (
+                "mesh", "plan", "n_chips", "roofline", "model_flops")},
+                "peak_bytes_per_device": peak, "seconds": secs}
+    if launch_counts() != before:
+        raise RuntimeError("the dry-run launched a kernel")
     return out
 
 
@@ -1998,6 +2092,17 @@ def main():
                      "path": f"{MESH_TRAIN[0]} train and {MESH_DECODE[0]} "
                              "decode on a (1, 1) (data, model) mesh"}
     entries[1]["mesh"]["pipeline_launches"] = mesh["pipeline"]["launches"]
+    for e in entries[:2]:
+        e["mesh"]["moe"] = {
+            arch: {"train_launches": mesh["moe_train"][arch]["launches"][
+                e["name"]], "decode_launches": mesh["moe_decode"][arch][
+                "launches"][e["name"]]} for arch, *_ in MESH_MOE_TRAIN}
+
+    phase("dryrun")
+    t_dry = time.perf_counter()
+    cells = dryrun_phase()
+    print(f"  dryrun phase wall {time.perf_counter() - t_dry:.1f} s; cells "
+          f"{json.dumps(cells)}", flush=True)
 
     phase("launchers")
     for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b",

@@ -29,6 +29,7 @@ from typing import Any, Tuple
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard, \
     distribute_tensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from ..models.common import ModelConfig, tree_get, tree_map
 from .mesh import axis_sizes, batch_shard_size, data_axes, model_size
@@ -196,7 +197,10 @@ def placements(spec: Spec, mesh) -> tuple:
     """DTensor placements (one per mesh dim) of a spec: mesh dim ``a`` is
     ``Shard(d)`` when tensor dim ``d``'s entry names ``a``, else
     ``Replicate()``. A dim sharded over several axes lists them in mesh
-    order, the order in which DTensor splits it (ValueError otherwise)."""
+    order, the order in which DTensor splits it (ValueError otherwise).
+    A mesh dim of size 1 splits nothing and is ``Replicate()`` whatever
+    the spec names: DTensor refuses a view that merges a dim sharded over
+    it once that dim is 1 wide (a batch of 1 on a (1, n) mesh)."""
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
@@ -208,7 +212,8 @@ def placements(spec: Spec, mesh) -> tuple:
             raise ValueError(f"spec entry {entry!r} is not in mesh order "
                              f"{tuple(names)}")
         for i in idx:
-            out[i] = Shard(dim)
+            if mesh.shape[i] > 1:
+                out[i] = Shard(dim)
     return tuple(out)
 
 
@@ -223,6 +228,19 @@ def distribute(tree: PyTree, spec_tree: PyTree, mesh) -> PyTree:
             return t
         return distribute_tensor(t, mesh, placements(spec, mesh),
                                  src_data_rank=None)
+    return tree_map(one, tree)
+
+
+def zeros(tree: PyTree, spec_tree: PyTree, mesh) -> PyTree:
+    """DTensor zeros of the shapes and dtypes of ``tree``'s tensors (meta
+    tensors will do) on ``mesh``, placed by ``spec_tree``: each rank
+    allocates its shard only. Non-tensor leaves pass through."""
+    def one(path, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        spec = tree_get(spec_tree, path) if path else spec_tree
+        return dtensor_zeros(t.shape, dtype=t.dtype, device_mesh=mesh,
+                             placements=placements(spec, mesh))
     return tree_map(one, tree)
 
 

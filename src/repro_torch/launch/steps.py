@@ -18,7 +18,8 @@ from torch.distributed.tensor import DTensor
 
 from ..models import model_zoo
 from ..models.common import ModelConfig, tree_get, tree_map
-from ..train.optimizer import OptimizerConfig, adamw_update, init_opt_state
+from ..train.optimizer import (OptimizerConfig, adamw_update, fp32_zeros,
+                               init_opt_state)
 from .sharding import placements
 
 PyTree = Any
@@ -65,10 +66,11 @@ def make_train_step(cfg: ModelConfig,
 def make_grad_accum_train_step(cfg: ModelConfig, n_micro: int,
                                opt_cfg: Optional[OptimizerConfig] = None,
                                acc_specs: Optional[PyTree] = None):
-    """Gradient accumulation over ``n_micro`` micro-batches: batch leaves
-    are [n_micro, b / n_micro, ...]; the update takes the mean of the
-    micro-batch gradients, summed in fp32, and ``loss`` is the mean of
-    the micro-batch losses.
+    """Gradient accumulation over ``n_micro`` micro-batches, as the
+    reference's scan: batch leaves are [n_micro, b / n_micro, ...]; fp32
+    zero accumulators, to which each micro-batch's gradient is added
+    (``accumulate_micro_batch``); the update takes their mean, and
+    ``loss`` is the mean of the micro-batch losses.
 
     ``acc_specs`` (a spec tree mirroring params, ``launch.sharding``)
     places the fp32 accumulators on the params' mesh: each micro-batch's
@@ -78,32 +80,46 @@ def make_grad_accum_train_step(cfg: ModelConfig, n_micro: int,
     them)."""
     opt_cfg = opt_cfg or OptimizerConfig()
 
-    def placed(params, grads):
-        grads = tree_map(lambda _, g: g.float(), grads)
-        if acc_specs is None:
-            return grads
-
-        def one(path, g):
-            mesh = tree_get(params, path).device_mesh
-            return g.redistribute(mesh, placements(tree_get(acc_specs, path),
-                                                   mesh))
-        return tree_map(one, grads)
-
     def train_step(params, opt_state, batch):
-        gsum, lsum = None, 0.0
+        gsum = grad_accumulators(params, acc_specs)
+        lsum = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(batch.values())).device)
         for i in range(n_micro):
-            loss, _, grads = value_and_grad(
-                cfg, params, {k: v[i] for k, v in batch.items()})
-            grads = placed(params, grads)
-            gsum = grads if gsum is None else tree_map(
-                lambda path, g: g.add_(tree_get(grads, path)), gsum)
-            lsum = lsum + loss
+            lsum = accumulate_micro_batch(
+                cfg, params, gsum, lsum, {k: v[i] for k, v in batch.items()})
         grads = tree_map(lambda _, g: g / n_micro, gsum)
         params, opt_state, om = adamw_update(opt_cfg, params, grads,
                                              opt_state)
         return params, opt_state, {"loss": lsum / n_micro, **om}
 
     return train_step
+
+
+def grad_accumulators(params: PyTree, acc_specs: Optional[PyTree] = None
+                      ) -> PyTree:
+    """``make_grad_accum_train_step``'s fp32 zero accumulators, placed by
+    ``acc_specs`` on the params' mesh when given."""
+    where = None
+    if acc_specs is not None:
+        where = tree_map(lambda path, s: placements(
+            s, tree_get(params, path).device_mesh), acc_specs)
+    return fp32_zeros(params, where)
+
+
+def accumulate_micro_batch(cfg: ModelConfig, params: PyTree, gsum: PyTree,
+                           lsum, batch: Dict):
+    """One micro-batch of ``make_grad_accum_train_step``: its fp32
+    gradient, reduced to the accumulators' placements, added into
+    ``gsum`` in place; returns ``lsum`` plus its loss."""
+    loss, _, grads = value_and_grad(cfg, params, batch)
+
+    def add(path, a):
+        g = tree_get(grads, path).float()
+        if isinstance(a, DTensor):
+            g = g.redistribute(a.device_mesh, a.placements)
+        a.add_(g)
+    tree_map(add, gsum)
+    return lsum + loss
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):

@@ -100,18 +100,20 @@ def _attend_sharded(q, k, v, causal: bool):
     [B, S, heads, hd]: the batch as sharded, the heads over "model" when
     both H and KV divide its size. When only H divides and the model
     axis is a multiple of KV, each rank's query heads fall in one KV
-    head: k and v are replicated and each rank takes its KV head. Else
-    every rank runs all heads (replicated over "model")."""
+    head: k and v are replicated and each rank takes its KV head. Else,
+    or when "model" shards the batch (the dp plan), every rank runs all
+    heads of its rows."""
     mesh = q.device_mesh
     md = mesh.mesh_dim_names.index("model")
     m = mesh.size(md)
     h, kv = q.shape[2], k.shape[2]
     batch = parallel.batch_placements(q)
     heads = parallel.on_model(batch, 2, mesh)
+    split = not isinstance(batch[md], Shard)
     fn = _attend_local
-    if h % m == 0 and kv % m == 0:
+    if split and h % m == 0 and kv % m == 0:
         qp = kvp = heads
-    elif h % m == 0 and m % kv == 0:
+    elif split and h % m == 0 and m % kv == 0:
         qp, kvp = heads, batch
         j = mesh.get_local_rank(md) // (m // kv)
 
@@ -202,8 +204,8 @@ def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
     q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
     if cfg.use_rope:
         q, k = _rope_qk(cfg, q, k)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    parallel.write(cache["k"], k, (slice(None), slice(0, s)))
+    parallel.write(cache["v"], v, (slice(None), slice(0, s)))
     out = _prefill_attend(q, k, v, True)
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
 
@@ -252,7 +254,7 @@ def decode_attention(cfg: ModelConfig, params, x, cache, pos: int, *,
     if cfg.use_rope if rope is None else rope:
         q, k = _rope_qk(cfg, q, k, torch.tensor([pos], device=x.device))
     if parallel.is_dtensor(cache["k"]):
-        out = _decode_sharded(q, k, v, cache["k"], cache["v"], pos)
+        out = _decode_sharded(q, cache["k"], cache["v"], pos, k, v)
     else:
         cache["k"][:, pos] = k[:, 0]
         cache["v"][:, pos] = v[:, 0]
@@ -261,14 +263,23 @@ def decode_attention(cfg: ModelConfig, params, x, cache, pos: int, *,
     return y, cache
 
 
-def _decode_sharded(q, k, v, ck, cv, pos: int):
-    """Write k/v at ``pos`` into DTensor caches [B, S, KV, hd] placed by
-    ``launch.sharding.cache_specs`` and attend, on each rank's shards: q,
-    k and v take the cache's batch and kv-head sharding and are
-    replicated over the mesh dims that shard its sequence (split-KV
-    decode). Only the rank whose sequence shard holds ``pos`` writes it;
-    ``gqa_decode_attend`` reduces over the groups that split the
-    sequence (none when it is whole)."""
+def attend_cache(q, ck, cv, pos: int):
+    """``gqa_decode_attend`` of q [B,1,H,hd] against the cache at keys
+    [0, pos]; on DTensor caches, on each rank's shards
+    (``_decode_sharded``, nothing written)."""
+    if parallel.is_dtensor(ck):
+        return _decode_sharded(q, ck, cv, pos)
+    return gqa_decode_attend(q, ck, cv, pos)
+
+
+def _decode_sharded(q, ck, cv, pos: int, k=None, v=None):
+    """Write k/v (when given) at ``pos`` into DTensor caches [B, S, KV,
+    hd] placed by ``launch.sharding.cache_specs`` and attend, on each
+    rank's shards: q, k and v take the cache's batch and kv-head sharding
+    and are replicated over the mesh dims that shard its sequence
+    (split-KV decode). Only the rank whose sequence shard holds ``pos``
+    writes it; ``gqa_decode_attend`` reduces over the groups that split
+    the sequence (none when it is whole)."""
     mesh = ck.device_mesh
     keep = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
                  else Replicate() for p in ck.placements)
@@ -278,13 +289,14 @@ def _decode_sharded(q, k, v, ck, cv, pos: int):
         index = index * mesh.size(d) + mesh.get_local_rank(d)
     groups = [mesh.get_group(d) for d in seq_dims]
 
-    def local(q, k, v, ck, cv):
+    def local(q, ck, cv, k, v):
         off = index * ck.shape[1]
-        if off <= pos < off + ck.shape[1]:
+        if k is not None and off <= pos < off + ck.shape[1]:
             ck[:, pos - off] = k[:, 0]
             cv[:, pos - off] = v[:, 0]
         return gqa_decode_attend(q, ck, cv, pos - off, groups)
 
-    return parallel.local_call(local, keep, (keep, keep, keep,
-                                             ck.placements, cv.placements),
-                               q, k, v, ck, cv)
+    kvp = keep if k is not None else None
+    return parallel.local_call(local, keep, (keep, ck.placements,
+                                             cv.placements, kvp, kvp),
+                               q, ck, cv, k, v)

@@ -30,12 +30,13 @@ from typing import Any, Dict, Tuple
 import torch
 
 from . import parallel
-from .attention import (attention, decode_attention, gqa_decode_attend,
+from .attention import (attend_cache, attention, decode_attention,
                         init_attn, init_kv_cache)
 from .common import (ModelConfig, apply_norm, dense_init, meta_generator,
                      torch_dtype)
 from .lm import (_remat, _run, _stacked, _unstacked, draw_layers,
-                 layer_params, param_requires_grad, residual, token_nll)
+                 fresh_cache, layer_params, param_requires_grad, residual,
+                 token_nll)
 from .mlp import init_mlp, mlp
 
 PyTree = Any
@@ -188,8 +189,10 @@ def _write_cross(cfg: ModelConfig, params: PyTree, cache: PyTree, enc):
     for i in range(cfg.n_layers):
         lp = layer_params(params["decoder"], i)["cross_attn"]
         for name in ("k", "v"):
-            cross[name][i] = (enc @ lp["w" + name].to(enc.dtype)).reshape(
-                b, t, cfg.n_kv_heads, cfg.hd)
+            kv = parallel.splittable(enc @ lp["w" + name].to(enc.dtype),
+                                     cfg.n_kv_heads)
+            parallel.write(cross[name][i],
+                           kv.reshape(b, t, cfg.n_kv_heads, cfg.hd))
     return cache
 
 
@@ -209,8 +212,9 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens, frames,
     ``forward``); this runs it once and feeds both, the same function of
     the same inputs."""
     enc = encode(cfg, params, frames)
-    cache = init_cache(cfg, tokens.shape[0], max_seq, enc.shape[1],
-                       device=enc.device)
+    b = tokens.shape[0]
+    cache = fresh_cache(cfg, lambda dev: init_cache(
+        cfg, b, max_seq, enc.shape[1], device=dev), b, params["embed"])
     _write_cross(cfg, params, cache, enc)
     x = _decoder(cfg, params, tokens, enc)
     return _unembed(params, x[:, -1]), cache
@@ -232,13 +236,14 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
         cc = layer_params(cache["cross"], i)
         h = apply_norm(cfg, x, lp["self_norm"])
         y, _ = decode_attention(cfg, lp["self_attn"], h, sc, pos, rope=False)
-        x = x + y
+        x = x + parallel.like(y, x)
         h = apply_norm(cfg, x, lp["cross_norm"])
-        q = (h @ lp["cross_attn"]["wq"].to(x.dtype)).reshape(
-            b, 1, cfg.n_heads, cfg.hd)
-        y = gqa_decode_attend(q, cc["k"], cc["v"], cc["k"].shape[1] - 1)
-        x = x + y.to(x.dtype) @ lp["cross_attn"]["wo"].to(x.dtype)
+        q = parallel.splittable(h @ lp["cross_attn"]["wq"].to(x.dtype),
+                                cfg.n_heads).reshape(b, 1, cfg.n_heads, cfg.hd)
+        y = attend_cache(q, cc["k"], cc["v"], cc["k"].shape[1] - 1)
+        x = x + parallel.like(
+            y.to(x.dtype) @ lp["cross_attn"]["wo"].to(x.dtype), x)
         h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + mlp(cfg, lp["mlp"], h)
+        x = x + parallel.like(mlp(cfg, lp["mlp"], h), x)
     x = apply_norm(cfg, x, params["final_norm"])
     return _unembed(params, x[:, 0]), {**cache, "pos": pos + 1}

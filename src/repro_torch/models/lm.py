@@ -178,9 +178,9 @@ def _shared_attn_apply(cfg: ModelConfig, shared: Dict, x, attend):
     ``attend`` is the pass's attention on the shared weights (full,
     prefill into a KV slot, or one decode step)."""
     h = apply_norm(cfg, x, shared["norm"])
-    x = x + attend(h)
+    x = x + parallel.like(attend(h), x)
     h = apply_norm(cfg, x, shared["mlp_norm"])
-    return x + mlp(cfg, shared["mlp"], h)
+    return x + parallel.like(mlp(cfg, shared["mlp"], h), x)
 
 
 # A residual sublayer: (kind, fn). ``kind`` is "mlp" (a dense MLP), "moe"
@@ -202,7 +202,7 @@ def _moe_sublayer(cfg: ModelConfig, norm, p: Dict) -> Sublayer:
         y, aux = checkpoint(functools.partial(moe, cfg, routed), h,
                             use_reentrant=False)
         if "shared" in p:
-            y = y + mlp(cfg, p["shared"], h)
+            y = y + parallel.like(mlp(cfg, p["shared"], h), y)
         return x + y, aux
     return "moe", fn
 
@@ -369,11 +369,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
+def fresh_cache(cfg: ModelConfig, make: Callable, batch: int, ref) -> PyTree:
+    """The zero cache ``make(device)`` of a prefill whose params include
+    ``ref``: on its device; on a mesh (``ref`` a DTensor), DTensors placed
+    by ``launch.sharding.cache_specs``, each rank allocating its shards."""
+    if not parallel.is_dtensor(ref):
+        return make(ref.device)
+    from ..launch import sharding       # launch imports the models
+    shapes = make("meta")
+    mesh = ref.device_mesh
+    return sharding.zeros(shapes, sharding.cache_specs(
+        cfg, batch, mesh, shapes), mesh)
+
+
 def prefill(cfg: ModelConfig, params: PyTree, tokens,
             max_seq: int) -> Tuple[torch.Tensor, PyTree]:
-    """Prefill a prompt into a fresh cache; returns (last logits, cache)."""
+    """Prefill a prompt into a fresh cache (on a mesh, placed by the
+    cache specs); returns (last logits, cache)."""
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_seq, device=params["embed"].device)
+    cache = fresh_cache(cfg, lambda dev: init_cache(cfg, b, max_seq,
+                                                    device=dev),
+                        b, params["embed"])
     x = _embed(cfg, params, tokens)
     shared = params.get("shared_attn")
     for i in range(cfg.n_layers):
@@ -383,7 +399,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens,
             h = apply_norm(cfg, x, lp["ssm_norm"])
             # one scan gives the output and the decode cache
             y, _ = mamba2_prefill(cfg, lp["ssm"], h, lc)
-            x = x + y
+            x = x + parallel.like(y, x)
             if _shared_fires(cfg, shared, i):
                 ac = layer_params(cache["attn"], i // cfg.attn_every)
                 x = _shared_attn_apply(cfg, shared, x, lambda h: (
@@ -391,9 +407,9 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens,
             continue
         h = apply_norm(cfg, x, lp["attn_norm"])
         y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
-        x = x + y
+        x = x + parallel.like(y, x)
         h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + _ffn(cfg, lp, h)
+        x = x + parallel.like(_ffn(cfg, lp, h), x)
     cache["pos"] = s
     return _unembed(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
@@ -411,7 +427,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
         if cfg.is_ssm_family:
             h = apply_norm(cfg, x, lp["ssm_norm"])
             y, _ = mamba2_decode(cfg, lp["ssm"], h, lc)
-            x = x + y
+            x = x + parallel.like(y, x)
             if _shared_fires(cfg, shared, i):
                 ac = layer_params(cache["attn"], i // cfg.attn_every)
                 x = _shared_attn_apply(cfg, shared, x, lambda h: (
@@ -419,8 +435,8 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
             continue
         h = apply_norm(cfg, x, lp["attn_norm"])
         y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
-        x = x + y
+        x = x + parallel.like(y, x)
         h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + _ffn(cfg, lp, h)
+        x = x + parallel.like(_ffn(cfg, lp, h), x)
     logits = _unembed(cfg, params, x)[:, 0, :]
     return logits, {**cache, "pos": pos + 1}

@@ -14,12 +14,25 @@ product and softmax, ``torch.topk``, and batched expert products. The
 shared expert (deepseek) goes through ``mlp``, so on the card it runs
 the fused MLP kernel. Routing keeps the reference's static shapes (a
 capacity-padded slot table, no ``nonzero``), so it never waits on the
-device. The reference's sharding hints ``moe_data_axes`` and
-``moe_expert_axis`` (``with_sharding_constraint``) change no value on
-one device and are ignored here; the multi-GPU slice ports them.
+device.
+
+On a mesh (x a DTensor) each MoE layer is three ``parallel.local_call``s
+(``_moe_sharded``): routing and the dispatch gather on each data shard's
+tokens, the experts on each rank's experts, and the combine. Routing is
+shard-local when the ``moe_shards`` routing shards fall within the data
+shards (``moe_shards`` a multiple of them), as the reference's
+``moe_data_axes`` hint places them; else the batch is gathered first and
+every rank routes all tokens (GSPMD's gather at ``moe_shards`` = 1). The
+expert weights stay where their specs put them: each rank runs the
+experts it holds ("model", the reference's ``moe_expert_axis``) on its
+slice of the slot table, and only the expert outputs are all-gathered
+over that axis, back to the data shards (the reference's ``yef``
+constraint). The aux loss's means over all tokens are partial sums over
+the data shards, reduced before the product.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -155,13 +168,23 @@ def _route(cfg: ModelConfig, params: Dict, xt):
             counts.view(ns, e))
 
 
-def _aux_loss(cfg: ModelConfig, probs, counts):
-    """GShard load balance: sum_e mean(probs_e) * mean(choices_e) * E *
-    router_aux_coef, the means over every token of every shard."""
+def _aux_means(probs, counts, parts: int = 1):
+    """The aux loss's two means over the tokens of probs [ns, tl, E]:
+    mean(probs_e) and mean(choices_e), each divided by ``parts``, the
+    number of data shards whose sums make the whole (1 alone)."""
     ns, tl, _ = probs.shape
-    me = probs.mean(dim=(0, 1))
-    ce = counts.float().sum(0) / (ns * tl)
+    return (probs.mean(dim=(0, 1)) / parts,
+            counts.float().sum(0) / (ns * tl) / parts)
+
+
+def _aux_of(cfg: ModelConfig, me, ce):
+    """GShard load balance: sum_e me_e * ce_e * E * router_aux_coef."""
     return (me * ce).sum() * cfg.n_experts * cfg.router_aux_coef
+
+
+def _aux_loss(cfg: ModelConfig, probs, counts):
+    """The aux loss, the means over every token of every routing shard."""
+    return _aux_of(cfg, *_aux_means(probs, counts))
 
 
 def _experts(params: Dict, xe, dtype):
@@ -210,8 +233,144 @@ def _add_shared(cfg: ModelConfig, params: Dict, x, y):
     routed half is a checkpoint of its own: bitwise the same."""
     y = y.reshape(x.shape)
     if "shared" in params:
-        y = y + mlp(cfg, params["shared"], x)
+        y = y + parallel.like(mlp(cfg, params["shared"], x), y)
     return y
+
+
+def _dispatch_gather(cfg: ModelConfig, params: Dict, xt):
+    """Gather dispatch of xt [ns, tl, D]: each kept (token, choice) is
+    copied into its expert slot -> (xe [ns, E, cap, D], the combine's
+    context (gates, the slot each choice reads, the choice each slot
+    holds), probs, counts)."""
+    ns, tl, _ = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
+    flat_slot = (gate_idx * cap + pos).reshape(ns, tl * k)
+    kept = keep.reshape(ns, tl * k)
+    slot_or_drop = torch.where(kept, flat_slot, e * cap)
+    # slot -> (token, choice) index, tl*k for an empty slot; dropped
+    # choices go to an extra column that is sliced off (an out-of-range
+    # scatter index is a device-side assert on CUDA)
+    filled = torch.full((ns, e * cap + 1), tl * k, dtype=torch.long,
+                        device=xt.device)
+    filled.scatter_(1, slot_or_drop,
+                    torch.arange(tl * k, device=xt.device).expand(ns, -1))
+    filled = filled[:, :e * cap]
+    # dispatch: slot <- its token (tl: the zero sentinel row); each token
+    # gets back the sum of its kept slots' gradients
+    xe = _RowGather.apply(xt, torch.div(filled, k, rounding_mode="floor"),
+                          slot_or_drop.view(ns, tl, k))
+    ctx = (gates, torch.where(kept, flat_slot, 0), filled)
+    return xe.view(ns, e, cap, -1), ctx, probs, counts
+
+
+def _combine_gather(ye, ctx, dtype):
+    """ye [ns, E, cap, D] -> y [ns, tl, D]: each (token, choice) reads its
+    slot (slot 0 where dropped, gate 0), combined with fp32 gates. A
+    slot's gradient comes from the choice that filled it (a dropped
+    choice's is dy * 0 = 0)."""
+    gates, back_idx, filled = ctx
+    ns, tl, k = gates.shape
+    back = _RowGather.apply(ye.reshape(ns, -1, ye.shape[-1]), back_idx,
+                            filled[..., None]).view(ns, tl, k, -1)
+    return (back.float() * gates[..., None]).sum(dim=2).to(dtype)
+
+
+def _dispatch_einsum(cfg: ModelConfig, params: Dict, xt):
+    """GShard one-hot dispatch of xt [ns, tl, D] -> (xe [ns, E, cap, D],
+    (the combine tensor [ns, tl, E, cap],), probs, counts)."""
+    e = cfg.n_experts
+    probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
+    onehot = F.one_hot(gate_idx, e)                          # [ns,tl,k,E]
+    pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
+    disp = torch.einsum("stke,stkc->stec", onehot.to(xt.dtype),
+                        pos_oh.to(xt.dtype))
+    comb = torch.einsum("stke,stkc,stk->stec", onehot.float(),
+                        pos_oh.float(), gates).to(xt.dtype)
+    xe = torch.einsum("stec,std->secd", disp, xt)
+    return xe, (comb,), probs, counts
+
+
+def _combine_einsum(ye, ctx, dtype):
+    comb, = ctx
+    return torch.einsum("stec,secd->std", comb, ye)
+
+
+# impl: (dispatch, combine, the number of context tensors between them)
+_IMPLS = {"gather": (_dispatch_gather, _combine_gather, 3),
+          "einsum": (_dispatch_einsum, _combine_einsum, 1)}
+
+
+def _moe_local(cfg: ModelConfig, params: Dict, x, impl: str):
+    """x [B, S, D] on one device -> (y [B, S, D], aux)."""
+    dispatch, combine, _ = _IMPLS[impl]
+    b, s_len, d = x.shape
+    t = b * s_len
+    ns = _shards(cfg, t)
+    xe, ctx, probs, counts = dispatch(cfg, params, x.reshape(ns, t // ns, d))
+    y = combine(_experts(params, xe, x.dtype), ctx, x.dtype)
+    return _add_shared(cfg, params, x, y), _aux_loss(cfg, probs, counts)
+
+
+def _expert_dims(w, taken) -> list:
+    """The mesh dims over which expert weight ``w`` [E, ...] is sharded on
+    its expert dim, less those in ``taken`` (the slot table's data
+    dims, where the experts are gathered)."""
+    return [i for i, p in enumerate(w.placements)
+            if p == Shard(0) and i not in taken]
+
+
+def _moe_sharded(cfg: ModelConfig, params: Dict, x, impl: str):
+    """``_moe_local`` on DTensor x [B, S, D] (module docstring): (1) each
+    data shard routes its tokens (or, when a routing shard spans data
+    shards, every rank routes the gathered batch) and fills its slot
+    table xe [ns, E, cap, D], sharded as the routing shards; (2) each
+    rank runs its experts on its slice of xe's expert dim; (3) the
+    expert outputs are gathered over the experts' mesh dims and each
+    data shard combines its tokens. The aux loss's means leave (1) as
+    partial sums over the data dims."""
+    dispatch, combine, n_ctx = _IMPLS[impl]
+    mesh = x.device_mesh
+    b, s_len, d = x.shape
+    t = b * s_len
+    ns = _shards(cfg, t)
+    rep = (Replicate(),) * mesh.ndim
+    rows = parallel.batch_placements(x)
+    data = [i for i, p in enumerate(rows) if isinstance(p, Shard)]
+    parts = math.prod(mesh.size(i) for i in data)
+    if ns % parts or b % parts:
+        rows, data, parts = rep, [], 1
+    ns_l = ns // parts
+    part = tuple(Partial() if i in data else p for i, p in enumerate(rep))
+
+    def route(xl, router):
+        xe, ctx, probs, counts = dispatch(cfg, {"router": router},
+                                          xl.reshape(ns_l, -1, d))
+        return (xe, *ctx, *_aux_means(probs, counts, parts))
+
+    w = {n: params[n].to(x.dtype) for n in ("w1", "w3", "w2")}
+    out = parallel.local_call(route, (rows,) * (1 + n_ctx) + (part, part),
+                              (rows, rep), x, params["router"])
+    xe, ctx, (me, ce) = out[0], out[1:-2], out[-2:]
+    # (2) the experts where their weights are: xe's expert dim split as
+    # the weights' (a local slice of the replicated slot table)
+    edims = _expert_dims(w["w1"], data)
+    wp = tuple(Shard(0) if i in edims else Replicate()
+               for i in range(mesh.ndim))
+    xp = tuple(Shard(1) if i in edims else p for i, p in enumerate(rows))
+    ye = parallel.local_call(
+        lambda xe, w1, w3, w2: _experts({"w1": w1, "w3": w3, "w2": w2}, xe,
+                                        x.dtype),
+        xp, (xp, wp, wp, wp), xe, w["w1"], w["w3"], w["w2"])
+    # (3) the outputs gathered back to the routing shards, then combined
+    y = parallel.local_call(
+        lambda ye, *ctx: combine(ye, ctx, x.dtype).reshape(-1, s_len, d),
+        rows, (rows,) * (1 + len(ctx)), ye, *ctx)
+    if y.placements != parallel.batch_placements(x):
+        y = y.redistribute(mesh, parallel.batch_placements(x))
+    aux = parallel.local_call(functools.partial(_aux_of, cfg), rep,
+                              (rep, rep), me, ce)
+    return _add_shared(cfg, params, x, y), aux
 
 
 def moe_gather(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
@@ -222,38 +381,7 @@ def moe_gather(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
     dropped one reads slot 0 with gate 0), combined with fp32 gates.
     x [B, S, D] -> (y [B, S, D], aux). Both gathers' backwards are
     gathers (``_RowGather``), so the step is deterministic on the card."""
-    b, s_len, d = x.shape
-    t = b * s_len
-    ns = _shards(cfg, t)
-    tl = t // ns
-    e, k = cfg.n_experts, cfg.top_k
-    xt = x.reshape(ns, tl, d)
-    probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
-
-    flat_slot = (gate_idx * cap + pos).reshape(ns, tl * k)
-    kept = keep.reshape(ns, tl * k)
-    slot_or_drop = torch.where(kept, flat_slot, e * cap)
-    # slot -> (token, choice) index, tl*k for an empty slot; dropped
-    # choices go to an extra column that is sliced off (an out-of-range
-    # scatter index is a device-side assert on CUDA)
-    filled = torch.full((ns, e * cap + 1), tl * k, dtype=torch.long,
-                        device=x.device)
-    filled.scatter_(1, slot_or_drop,
-                    torch.arange(tl * k, device=x.device).expand(ns, -1))
-    filled = filled[:, :e * cap]
-    # dispatch: slot <- its token (tl: the zero sentinel row); each token
-    # gets back the sum of its kept slots' gradients
-    xe = _RowGather.apply(xt, torch.div(filled, k, rounding_mode="floor"),
-                          slot_or_drop.view(ns, tl, k))
-    ye = _experts(params, xe.view(ns, e, cap, d), x.dtype)
-    # combine: (token, choice) <- its slot (slot 0 where dropped, gate 0);
-    # a slot's gradient comes from the choice that filled it (a dropped
-    # choice's is dy * 0 = 0)
-    back = _RowGather.apply(ye.reshape(ns, e * cap, d),
-                            torch.where(kept, flat_slot, 0),
-                            filled[..., None]).view(ns, tl, k, d)
-    y = (back.float() * gates[..., None]).sum(dim=2).to(x.dtype)
-    return _add_shared(cfg, params, x, y), _aux_loss(cfg, probs, counts)
+    return _moe(cfg, params, x, "gather")
 
 
 def moe_einsum(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
@@ -263,28 +391,16 @@ def moe_einsum(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
     At train shapes those are gigabytes (granite_moe_1b_a400m's combine
     at 8192 tokens: [1, 8192, 32, 2560] fp32), so the card runs
     ``moe_gather``."""
-    b, s_len, d = x.shape
-    t = b * s_len
-    ns = _shards(cfg, t)
-    tl = t // ns
-    e = cfg.n_experts
-    xt = x.reshape(ns, tl, d)
-    probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
-    onehot = F.one_hot(gate_idx, e)                          # [ns,tl,k,E]
-    pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
-    disp = torch.einsum("stke,stkc->stec", onehot.to(x.dtype),
-                        pos_oh.to(x.dtype))
-    comb = torch.einsum("stke,stkc,stk->stec", onehot.float(),
-                        pos_oh.float(), gates).to(x.dtype)
-    xe = torch.einsum("stec,std->secd", disp, xt)
-    ye = _experts(params, xe, x.dtype)
-    y = torch.einsum("stec,secd->std", comb, ye)
-    return _add_shared(cfg, params, x, y), _aux_loss(cfg, probs, counts)
+    return _moe(cfg, params, x, "einsum")
+
+
+def _moe(cfg: ModelConfig, params: Dict, x, impl: str):
+    run = _moe_sharded if parallel.is_dtensor(x) else _moe_local
+    return run(cfg, params, x, impl)
 
 
 def moe(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """Dispatch by ``cfg.moe_impl``: "gather" (the default) or "einsum"."""
-    if cfg.moe_impl == "gather":
-        return moe_gather(cfg, params, x)
-    return moe_einsum(cfg, params, x)
+    """Dispatch by ``cfg.moe_impl``: "gather" (the default) or "einsum";
+    on one device or, for DTensor x, on its mesh."""
+    return _moe(cfg, params, x, cfg.moe_impl)

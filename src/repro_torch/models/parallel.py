@@ -19,6 +19,8 @@ it has no rule for, or where the rule would hide a fault:
     DTensor refuses to mix the two in one op.
   * ``gather_rows`` is the embedding lookup on local shards (DTensor's
     rule for the gather's backward differs between torch versions).
+  * ``write`` writes into a slice of a cache on each rank's shard (a
+    prompt's prefix into a KV cache whose sequence may be sharded).
   * ``to_batch`` keeps only an activation's batch sharding (the
     embeddings, sharded on d_model by the specs, are gathered over
     "model"), ``like`` reduces a sublayer's partial sum over "model" to
@@ -156,6 +158,47 @@ def local_call(fn: Callable, out_placements, in_placements: Sequence,
                      in_placements=tuple(in_placements),
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def write(dst, src, index=()) -> None:
+    """``dst[index] = src`` in place, ``index`` a tuple of step-1 slices
+    (missing trailing dims whole) and ``src`` a tensor or a number. On a
+    DTensor ``dst`` each rank writes its shard: ``src`` is brought to
+    ``dst``'s placements, whole over the mesh dims that shard a sliced
+    dim, and each rank writes the part of the slice its shard holds (a
+    KV cache sharded on its sequence takes a prompt's prefix)."""
+    if not is_dtensor(dst):
+        dst[index] = src
+        return
+    mesh = dst.device_mesh
+    idx = list(index) + [slice(None)] * (dst.ndim - len(index))
+    sliced = {k for k, sl in enumerate(idx) if sl != slice(None)}
+    if isinstance(src, torch.Tensor):
+        where = tuple(Replicate() if isinstance(p, Shard) and p.dim in sliced
+                      else p for p in dst.placements)
+        if not is_dtensor(src):
+            src = replicate_like(src, dst)
+        src = src.redistribute(mesh, where).to_local()
+    local = dst.to_local()
+    dst_idx, src_idx = [], []
+    for k, sl in enumerate(idx):
+        if k not in sliced:
+            dst_idx.append(slice(None))
+            src_idx.append(slice(None))
+            continue
+        start, stop, _ = sl.indices(dst.shape[k])
+        off = 0
+        for d in mesh_dims_sharding(dst, k):
+            off = off * mesh.size(d) + mesh.get_local_rank(d)
+        off *= local.shape[k]
+        lo, hi = max(start, off), min(stop, off + local.shape[k])
+        if lo >= hi:
+            return
+        dst_idx.append(slice(lo - off, hi - off))
+        src_idx.append(slice(lo - start, hi - start))
+    if isinstance(src, torch.Tensor):
+        src = src[tuple(src_idx)]
+    local[tuple(dst_idx)] = src
 
 
 def mesh_dims_sharding(t: DTensor, dim: int) -> list:

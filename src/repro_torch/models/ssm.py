@@ -16,11 +16,12 @@ buffers into the cache tensors they are given, and return them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Replicate, Shard
 
 from ..kernels import ssd_scan as ssd_kernel
 from . import parallel
@@ -137,8 +138,9 @@ def _ssd_sharded(x, dt, A, B, C, chunk: int):
     [B,S,H], A [H], B/C [B,S,G,N]: the batch as sharded, the heads over
     "model" when H divides its size, with the state groups too when G
     does; when the axis is a multiple of G each rank's heads fall in one
-    group, B and C are replicated and each rank takes its group. Else
-    every rank runs all heads."""
+    group, B and C are replicated and each rank takes its group. Else,
+    or when "model" shards the batch (the dp plan), every rank runs all
+    heads of its rows."""
     mesh = x.device_mesh
     md = mesh.mesh_dim_names.index("model")
     m = mesh.size(md)
@@ -146,7 +148,8 @@ def _ssd_sharded(x, dt, A, B, C, chunk: int):
     batch = parallel.batch_placements(x)
     repl = (Replicate(),) * len(batch)
     fn = _ssd_local
-    if h % m == 0 and (g % m == 0 or m % g == 0):
+    split = not isinstance(batch[md], Shard)
+    if split and h % m == 0 and (g % m == 0 or m % g == 0):
         xp, ap, sp = (parallel.on_model(pl, d, mesh)
                       for pl, d in ((batch, 2), (repl, 0), (batch, 1)))
         bp = xp if g % m == 0 else batch
@@ -219,12 +222,13 @@ def mamba2_prefill(cfg: ModelConfig, params: Dict, x, cache: Dict):
     as the reference's ``lm._ssm_cache_from_prefill``. Returns (y,
     cache)."""
     y, final, pre = _block(cfg, params, x)
-    cache["state"].copy_(final)
+    parallel.write(cache["state"], final)
     s, kw1 = x.shape[1], cfg.ssm_conv - 1
     keep = min(s, kw1)
     for key, v in zip(("conv_x", "conv_B", "conv_C"), pre):
-        cache[key][:, :kw1 - keep] = 0
-        cache[key][:, kw1 - keep:] = v[:, s - keep:]
+        parallel.write(cache[key], 0, (slice(None), slice(0, kw1 - keep)))
+        parallel.write(cache[key], v[:, s - keep:],
+                       (slice(None), slice(kw1 - keep, None)))
     return y, cache
 
 
@@ -258,9 +262,6 @@ def _conv_step(buf, xt, w):
 
 def mamba2_decode(cfg: ModelConfig, params: Dict, x, cache: Dict):
     """x [B,1,D] -> (y [B,1,D], cache updated in place)."""
-    b = x.shape[0]
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
-    g, n = cfg.ssm_groups, cfg.ssm_state
     xt = x[:, 0, :]
 
     def w(key):
@@ -276,14 +277,44 @@ def mamba2_decode(cfg: ModelConfig, params: Dict, x, cache: Dict):
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt * A)                                   # [B,H]
-    xh = xin.reshape(b, h, p).float()
-    Bh = Bv.reshape(b, g, n).repeat_interleave(h // g, dim=1)
-    Ch = Cv.reshape(b, g, n).repeat_interleave(h // g, dim=1)
-    state = cache["state"]
-    state.mul_(dA[..., None, None]).add_(
-        torch.einsum("bhn,bh,bhp->bhnp", Bh.float(), dt, xh))
-    y = torch.einsum("bhn,bhnp->bhp", Ch.float(), state)
-    y = y + params["D"][:, None] * xh          # D stays fp32 here
-    y = y.reshape(b, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), params["gn_scale"])
+    y = _recurrence(cfg, cache["state"], xin, Bv, Cv, dt, dA, params["D"])
+    y = rmsnorm(y.to(x.dtype) * F.silu(z), params["gn_scale"])
     return (y @ w("wo"))[:, None, :], cache
+
+
+def _recurrence(cfg: ModelConfig, state, xin, Bv, Cv, dt, dA, D):
+    """One step of the SSD recurrence: state [B,H,N,P] updated in place
+    from xin [B,H*P], Bv, Cv [B,G*N] and dt, dA [B,H]; returns y [B,H*P]
+    (fp32; D stays fp32). On a mesh, on each rank's shards of the state
+    (its batch rows and, when "model" shards the heads, its heads): xin,
+    dt and dA take the state's placements, Bv and Cv are whole over
+    "model" and each rank takes its heads' groups."""
+    h, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
+
+    def local(state, xin, Bv, Cv, dt, dA, D, h0=0):
+        b, hl = state.shape[:2]
+        xh = xin.reshape(b, hl, -1).float()
+        Bh = Bv.reshape(b, g, n).repeat_interleave(h // g, dim=1)
+        Ch = Cv.reshape(b, g, n).repeat_interleave(h // g, dim=1)
+        Bh, Ch = Bh[:, h0:h0 + hl], Ch[:, h0:h0 + hl]
+        state.mul_(dA[..., None, None]).add_(
+            torch.einsum("bhn,bh,bhp->bhnp", Bh.float(), dt, xh))
+        y = torch.einsum("bhn,bhnp->bhp", Ch.float(), state)
+        return (y + D[:, None] * xh).reshape(b, -1)
+
+    if not parallel.is_dtensor(state):
+        return local(state, xin, Bv, Cv, dt, dA, D)
+    mesh = state.device_mesh
+    rows = parallel.batch_placements(state)
+    head_dims = parallel.mesh_dims_sharding(state, 1)
+    heads = tuple(Shard(1) if d in head_dims else p
+                  for d, p in enumerate(rows))
+    dp = tuple(Shard(0) if d in head_dims else Replicate()
+               for d in range(mesh.ndim))
+    h0 = 0
+    for d in head_dims:
+        h0 = h0 * mesh.size(d) + mesh.get_local_rank(d)
+    h0 *= state.to_local().shape[1]
+    return parallel.local_call(functools.partial(local, h0=h0), heads, (
+        state.placements, heads, rows, rows, heads, heads, dp),
+        state, xin, Bv, Cv, dt, dA, D)

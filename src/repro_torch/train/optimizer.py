@@ -62,20 +62,24 @@ def init_opt_state(params: PyTree,
     params, ``placements`` ({"mu": tree, "nu": tree} of placements, the
     ZeRO specs' of ``launch.sharding.opt_state_specs``) makes the moments
     DTensors on the params' mesh, each rank allocating its shard only."""
-    def zeros(kind):
-        def one(path, p):
-            if placements is None:
-                return torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
-            return dtensor_zeros(p.shape, dtype=torch.float32,
-                                 device_mesh=p.device_mesh,
-                                 placements=tree_get(placements[kind], path))
-        return one
-
     device = next(tree_leaves(params)).device
-    return {"mu": tree_map(zeros("mu"), params),
-            "nu": tree_map(zeros("nu"), params),
+    return {"mu": fp32_zeros(params, placements and placements["mu"]),
+            "nu": fp32_zeros(params, placements and placements["nu"]),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def fp32_zeros(params: PyTree, placements: Optional[PyTree] = None
+               ) -> PyTree:
+    """fp32 zeros shaped like the params, on their devices; for DTensor
+    params, DTensors of ``placements`` (a tree of placements) on the
+    params' mesh, each rank allocating its shard only."""
+    def one(path, p):
+        if placements is None:
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return dtensor_zeros(p.shape, dtype=torch.float32,
+                             device_mesh=p.device_mesh,
+                             placements=tree_get(placements, path))
+    return tree_map(one, params)
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:

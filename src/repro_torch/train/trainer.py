@@ -83,10 +83,6 @@ class Trainer:
         self.train_step = steps_lib.make_train_step(cfg, self.opt_cfg)
         if mesh is None:
             return
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the MoE on a mesh (the 'ep' plan's "
-                "execution and the routing shards) is not ported yet")
         pshapes = model_zoo.param_shapes(cfg)
         self.pspecs = sharding.param_specs(pshapes, mesh)
         self.ospecs = sharding.opt_state_specs(self.pspecs, pshapes, mesh)

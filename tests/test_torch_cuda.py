@@ -28,7 +28,7 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import mlp, model_zoo  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import tree_get, tree_map  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
@@ -714,6 +714,60 @@ def test_moe_train_step_on_card(cuda, arch, policy):
                 grads["layers"]["moe"].get("shared", {}).items()})
     for name, g in fed.items():
         assert (g.flatten(1).abs().sum(1) > 0).all(), name
+
+
+def test_moe_mesh_step_at_world_size_one_is_meshless(cuda, tmp_path):
+    """granite_moe_1b_a400m smoke: one train step on a one-rank NCCL
+    group's (1, 1) mesh (params, ZeRO moments and batch DTensors; the MoE
+    layer's three local_calls) is bitwise the meshless step, with the
+    same kernel launches (flash twice a layer: forward and recompute)."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    cfg = get_config("granite_moe_1b_a400m", smoke=True)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (4, 65)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fresh():
+        return tree_map(lambda _, t: t.to(cuda), model_zoo.init_params(
+            cfg, torch.Generator().manual_seed(0)))
+    params = fresh()
+    before = _counts()
+    p1, o1, m1 = make_train_step(cfg, opt)(params, init_opt_state(params),
+                                           batch)
+    torch.cuda.synchronize()
+    plain = _delta(before)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh(data=1, model=1, device_type="cuda")
+        params = fresh()
+        pspecs = sharding.param_specs(params, mesh)
+        ospecs = sharding.opt_state_specs(pspecs, params, mesh)
+        dp = sharding.distribute(params, pspecs, mesh)
+        before = _counts()
+        p2, o2, m2 = make_train_step(cfg, opt)(
+            dp, init_opt_state(dp, sharding.spec_placements(ospecs, mesh)),
+            sharding.distribute(batch, sharding.batch_specs(
+                cfg, 4, mesh, "train"), mesh))
+        torch.cuda.synchronize()
+        meshed = _delta(before)
+        got = sharding.gather({"params": p2, "mu": o2["mu"],
+                               "nu": o2["nu"]})
+    finally:
+        dist.destroy_process_group()
+    assert plain == meshed == _train_launches(cfg), (plain, meshed)
+    assert {k: float(v) for k, v in m1.items()} == \
+        {k: float(v) for k, v in m2.items()}
+    want = {"params": p1, "mu": o1["mu"], "nu": o1["nu"]}
+    tree_map(lambda path, t: None if torch.equal(
+        t, tree_get(want, path)) else pytest.fail(path), got)
 
 
 # ---------------------------------------------------------------------------

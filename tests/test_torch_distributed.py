@@ -1,5 +1,5 @@
 """The port on a mesh, on the CPU: eight gloo processes, twins of the four
-tags of tests/test_distributed.py.
+tags of tests/test_distributed.py, and the port's own mesh paths.
 
 One subprocess spawns the eight ranks (``torch.multiprocessing``, a
 ``file://`` rendezvous in the test's tmp_path). The JAX side (the train,
@@ -36,10 +36,41 @@ and tolerances:
     logits within 1e-4 (the JAX twins'; measured 1.4e-6), the cache
     within 1e-5; bf16 against the port's unsharded step, logits within
     the reference's 5e-2 (measured 3.1e-2); the same argmax in both.
+  * SERVE_OK: prefill on the mesh (the cache created there, placed by
+    ``cache_specs``, the prompt written into each rank's shard) and one
+    decode step on that cache, on 4 x 2, 2 x 4 and 1 x 8, fp32 (JAX-
+    initialised params) against JAX's prefill and decode step: logits
+    within 1e-4 with the same argmax, every cache leaf placed by the
+    specs and within 1e-5 after each. granite_8b smoke at batch 8 (KV
+    heads over "model" on 4 x 2, the sequence over "model" on 2 x 4 and
+    1 x 8) and 1 (the sequence over the data axis too), mamba2_780m
+    smoke with two state groups (the SSD state's heads over "model", each
+    rank reading its heads' group), zamba2_1_2b smoke (the shared
+    attention's cache) and whisper_base smoke (the cross cache written
+    from the encoder; on 1 x 8 its 4 heads are gathered before they
+    split).
   * ELASTIC_OK: a Trainer on 4 x 2 trains a step and saves; the
     checkpoint restores onto 2 x 4 bitwise (``checkpoint.restore`` with
     the new mesh's specs), and ``Trainer.maybe_restore`` on a 2 x 4
     trainer resumes from it, bitwise, and trains on.
+  * MOE_TRAIN_OK: granite_moe_1b_a400m and deepseek_moe_16b smoke (fp32,
+    JAX-initialised params, batch 8 x 32 from seed 3), one
+    ``make_train_step`` on 4 x 2 under the tp, ep and FSDP specs
+    (``fsdp_param_specs``) with ``moe_shards`` 1 (every rank routes the
+    gathered batch) and 4 (each data shard routes its own tokens), and
+    under the dp plan with the batch over data and model (the dry-run's
+    dp cells) with ``moe_shards`` 1 and 8 (each rank routes its own),
+    against JAX's single-device step with the same ``moe_shards``:
+    TRAIN_OK's rule for metrics, params and moments, the aux loss within
+    1e-6, and each rank's routing
+    (``gate_idx``, ``pos``, ``keep`` of every layer, forward and
+    recompute) equal to its slice of JAX's (recorded by a
+    ``jax.debug.callback`` on the reference's ``_route``). A Trainer on
+    4 x 2 trains both archs a step.
+  * MOE_DECODE_OK: both MoE smoke archs, batch 8, cache 64 (16 prompt
+    tokens prefilled), one decode step on 4 x 2 and on 2 x 4 (fp32, JAX-
+    initialised params) against JAX's prefill and decode step: logits
+    within 1e-4, the cache within 1e-5, the same argmax.
 """
 import os
 import subprocess
@@ -55,6 +86,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jax_configs  # noqa: E402
 from repro.launch import steps as jax_steps  # noqa: E402
+from repro.models import mlp as jax_mlp  # noqa: E402
 from repro.models import model_zoo as jax_zoo  # noqa: E402
 from repro.pipeline import overlap_pipeline as jax_pipe  # noqa: E402
 from repro.train import optimizer as jax_opt  # noqa: E402
@@ -112,11 +144,19 @@ def load_tree(path, prefix, shapes):
                     shapes)
 
 
-def state_close(got, want, p0=None):
+def state_close(got, want, p0=None, flat_grads=False):
     """The JAX twins' rule (tests/test_torch_train.py): params within
     1e-5 relative plus 1e-5 (lr 1e-3 moves each weight by about 1e-3:
-    Adam's step-1 update is lr * g/|g|, which ``p0`` shows is over 50
-    times the tolerance), moments within 1e-4 relative plus 1e-8."""
+    Adam's step-1 update is lr * g/(|g| + eps), which ``p0`` shows is
+    over 50 times the tolerance), moments within 1e-4 relative plus 1e-8.
+    With ``flat_grads``, a param whose JAX gradient (sqrt(nu / (1 - b2))
+    at step 1) is not 0 but below 100 eps = 1e-6 is held by its moments
+    alone (a zero gradient moves no weight, and is held): there
+    the update's slope in g is lr eps / (|g| + eps)^2, up to 2.5e4, so a
+    gradient that differs in its last bits (1e-9) moves the weight by
+    2.5e-5 (the MoE's rarely routed experts; measured on one element in
+    32768, |g| 1e-8, by the port's single-process step as much as by the
+    mesh's). Such params must be under 0.1% of each leaf."""
     from repro_torch.models.common import tree_get, tree_map
     bad = []
 
@@ -125,6 +165,12 @@ def state_close(got, want, p0=None):
         rtol, atol = (1e-5, 1e-5) if path.startswith("params") \
             else (1e-4, 1e-8)
         err = (g - w).abs() - rtol * w.abs()
+        if flat_grads and path.startswith("params"):
+            nu = tree_get(want, "nu" + path[len("params"):])
+            g_abs = (nu / (1 - 0.95)).sqrt()
+            flat = (g_abs > 0) & (g_abs < 1e-6)
+            assert float(flat.float().mean()) < 1e-3, (path, int(flat.sum()))
+            err = err.masked_fill(flat, 0.0)
         if float(err.max()) > atol:
             bad.append((path, float(err.max())))
     tree_map(one, want)
@@ -141,7 +187,7 @@ def metrics_close(got, data, prefix):
     keys = [k for k in data.files if k.startswith(prefix + "/")]
     assert keys
     for key in keys:
-        want, m = float(data[key]), float(got[key.split("/")[1]])
+        want, m = float(data[key]), float(got[key.rsplit("/", 1)[1]])
         assert abs(m - want) <= 1e-5 * (1 + abs(want)), (key, m, want)
 
 
@@ -331,6 +377,95 @@ def decode_ok(rank):
         print("DECODE_OK", flush=True)
 
 
+SERVE = %r
+
+
+def serve_close(logits, cache, data, prefix, specs):
+    """Logits within 1e-4 of JAX's (npz, under ``prefix``) with the same
+    argmax; every cache leaf placed by ``specs`` and, gathered, within
+    1e-5 of JAX's; the same position."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.common import tree_get
+    want = torch.from_numpy(data[f"{prefix}/logits"])
+    got = logits.full_tensor()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4, (prefix, err)
+    assert torch.equal(got.argmax(-1), want.argmax(-1)), prefix
+    head = f"{prefix}/cache/"
+    leaves = flat(cache)
+    assert set(leaves) == {k[len(head):] for k in data.files
+                           if k.startswith(head)}, prefix
+    for key, t in leaves.items():
+        w = data[head + key]
+        if key == "pos":
+            assert int(t) == int(w), (prefix, int(t), int(w))
+            continue
+        assert t.placements == sh.placements(tree_get(specs, key),
+                                             t.device_mesh), (prefix, key)
+        assert close(t.full_tensor(), torch.from_numpy(w), 1e-5), (
+            prefix, key, float((t.full_tensor() - torch.from_numpy(w))
+                               .abs().max()))
+    return err
+
+
+def serve_ok(rank):
+    """Prefill on the mesh into a cache placed by the cache specs, then
+    one decode step on it, fp32, against JAX's prefill and decode step
+    (npz) on 4 x 2 and 2 x 4: the dense arch at batch 8 (KV heads over
+    "model" on 4 x 2, the sequence over "model" on 2 x 4) and batch 1
+    (the sequence over the data axis too), the ssm and hybrid archs (SSD
+    state heads over "model"; the hybrid's shared-attention cache) and
+    the audio arch (the cross cache written from the encoder)."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    path = os.path.join(OUT, "serve.npz")
+    data = np.load(path)
+    for shape in ((4, 2), (2, 4), (1, 8)):
+        mesh = make_host_mesh(data=shape[0], model=shape[1])
+        for arch, batches in SERVE.items():
+            cfg = get_config(arch, smoke=True).with_(compute_dtype="float32")
+            if arch in SERVE_GROUPS:
+                cfg = cfg.with_(ssm_groups=SERVE_GROUPS[arch])
+            params = load_tree(path, f"{arch}/params",
+                               model_zoo.param_shapes(cfg))
+            dparams = sh.distribute(params, sh.param_specs(params, mesh),
+                                    mesh)
+            for b in batches:
+                pre = f"{arch}/b{b}"
+                batch = {"tokens": torch.from_numpy(data[f"{pre}/prompt"])}
+                if f"{pre}/frames" in data.files:
+                    batch["frames"] = torch.from_numpy(data[f"{pre}/frames"])
+                toks = torch.from_numpy(data[f"{pre}/tokens"])
+                with torch.no_grad():
+                    logits, cache = steps.make_prefill_step(cfg, 64)(
+                        dparams, sh.distribute(batch, sh.batch_specs(
+                            cfg, b, mesh, "prefill"), mesh))
+                    specs = sh.cache_specs(cfg, b, mesh, cache)
+                    e1 = serve_close(logits, cache, data, f"{pre}/prefill",
+                                     specs)
+                    logits, cache = steps.make_decode_step(cfg)(
+                        dparams, cache, sh.distribute(toks, sh.batch_specs(
+                            cfg, b, mesh, "decode"), mesh))
+                    e2 = serve_close(logits, cache, data, f"{pre}/decode",
+                                     specs)
+                if arch == "granite_8b":     # the split-KV cache is tested
+                    seq = cache["layers"]["k"].placements
+                    assert (Shard(2) in seq) == (shape != (4, 2) or b == 1)
+                if rank == 0:
+                    kv = next(cache[k] for k in ("attn", "self", "layers")
+                              if k in cache)
+                    print(f"serve {shape} {arch} batch {b}: logits max err "
+                          f"prefill {e1:.2e}, decode {e2:.2e}; "
+                          f"{sorted(kv)[0]} placed "
+                          f"{kv[sorted(kv)[0]].placements}", flush=True)
+    if rank == 0:
+        print("SERVE_OK", flush=True)
+
+
 def elastic_ok(rank):
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import DataConfig
@@ -377,12 +512,164 @@ def elastic_ok(rank):
         print("ELASTIC_OK", flush=True)
 
 
+MOE = ("granite_moe_1b_a400m", "deepseek_moe_16b")
+
+
+# (plan, moe_shards) of MOE_TRAIN_OK: "fsdp" is the tp specs
+# ZeRO-extended over "data" (``fsdp_param_specs``); under "dp" the batch
+# is split over data and model (the dry-run's dp cells), so 8 shards
+# route their own rows and 1 routes the gathered batch
+MOE_CASES = (("tp", 1), ("tp", 4), ("ep", 1), ("ep", 4), ("fsdp", 1),
+             ("fsdp", 4), ("dp", 1), ("dp", 8))
+
+
+def moe_train_ok(rank):
+    """The MoE train step on 4 x 2 for each (plan, moe_shards) of
+    MOE_CASES against JAX's single-device step with the same moe_shards
+    (npz): state, metrics, aux and each rank's routing; then a Trainer
+    step of each arch on the mesh."""
+    import repro_torch.models.mlp as mlp_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    mesh = make_host_mesh(data=4, model=2)
+    di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    opt = OptimizerConfig(**OPT)
+    path = os.path.join(OUT, "moe_train.npz")
+    data = np.load(path)
+    real, seen = mlp_mod._route, []
+
+    def spy(cfg, params, xt):
+        out = real(cfg, params, xt)
+        seen.append([t.to_local() if hasattr(t, "to_local") else t
+                     for t in out[2:5]])
+        return out
+    mlp_mod._route = spy
+    try:
+        for arch in MOE:
+            shapes = model_zoo.param_shapes(get_config(arch, smoke=True))
+            params = load_tree(path, f"{arch}/params", shapes)
+            batch = {k: torch.from_numpy(data[k])
+                     for k in ("tokens", "labels")}
+            for plan, ns in MOE_CASES:
+                cfg = get_config(arch, smoke=True).with_(
+                    compute_dtype="float32", moe_shards=ns)
+                pre = f"{arch}/ns{ns}"
+                if plan == "fsdp":
+                    pspecs = sh.fsdp_param_specs(params, mesh)
+                else:
+                    pspecs = sh.param_specs(params, mesh, plan)
+                if plan == "dp":
+                    bspecs = {k: (("data", "model"), None) for k in batch}
+                    shard, parts = di * 2 + mi, 8
+                else:
+                    bspecs = sh.batch_specs(cfg, 8, mesh, "train")
+                    shard, parts = di, 4
+                ospecs = sh.opt_state_specs(pspecs, params, mesh)
+                dp = sh.distribute(clone(params), pspecs, mesh)
+                dopt = init_opt_state(dp, sh.spec_placements(ospecs, mesh))
+                seen.clear()
+                p2, o2, m2 = steps.make_train_step(cfg, opt)(
+                    dp, dopt, sh.distribute(batch, bspecs, mesh))
+                metrics_close(m2, data, f"{pre}/metrics")
+                want_aux = float(data[f"{pre}/metrics/aux"])
+                assert abs(float(m2["aux"]) - want_aux) <= 1e-6, (
+                    arch, ns, plan, float(m2["aux"]), want_aux)
+                state_close(
+                    {"params": sh.gather(p2), "mu": sh.gather(o2["mu"]),
+                     "nu": sh.gather(o2["nu"])},
+                    {"params": load_tree(path, f"{pre}/want/params", shapes),
+                     "mu": load_tree(path, f"{pre}/want/mu", shapes),
+                     "nu": load_tree(path, f"{pre}/want/nu", shapes)},
+                    params, flat_grads=True)
+                # the forward, then the backward's recompute of every
+                # layer (last layer first); when the routing shards are a
+                # multiple of the batch's, each batch shard routes its
+                # own, else every rank routes all tokens
+                layers = list(range(cfg.n_layers))
+                layers += layers[::-1]
+                assert len(seen) == len(layers), len(seen)
+                own = ns // parts if ns % parts == 0 else 0
+                for layer, got in zip(layers, seen):
+                    for name, g in zip(("gate_idx", "pos", "keep"), got):
+                        w = data[f"{pre}/route/{layer}/{name}"]
+                        if own:
+                            w = w[shard * own:(shard + 1) * own]
+                        assert np.array_equal(g.numpy(), w), (
+                            arch, ns, plan, layer, name)
+                if rank == 0:
+                    print(f"moe {arch} moe_shards {ns} plan {plan}: "
+                          f"aux {float(m2['aux']):.9f} (JAX "
+                          f"{want_aux:.9f})", flush=True)
+    finally:
+        mlp_mod._route = real
+    for arch in MOE:
+        cfg = get_config(arch, smoke=True)
+        tr = Trainer(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=2),
+                     TrainerConfig(steps=1, log_every=1),
+                     DataConfig(batch=8, seq=16), device="cpu", mesh=mesh)
+        out = tr.run()
+        assert np.isfinite(out["loss"]) and out["aux"] > 0, out
+    if rank == 0:
+        print("MOE_TRAIN_OK", flush=True)
+
+
+def moe_decode_ok(rank):
+    """One sharded MoE decode step after an unsharded prefill, fp32,
+    against JAX's (npz), on 4 x 2 and 2 x 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    path = os.path.join(OUT, "moe_decode.npz")
+    data = np.load(path)
+    for shape in ((4, 2), (2, 4)):
+        mesh = make_host_mesh(data=shape[0], model=shape[1])
+        for arch in MOE:
+            cfg = get_config(arch, smoke=True).with_(compute_dtype="float32")
+            params = load_tree(path, f"{arch}/params",
+                               model_zoo.param_shapes(cfg))
+            prompt = torch.from_numpy(data["prompt"])
+            toks = torch.from_numpy(data["tokens"])
+            with torch.no_grad():
+                _, cache = model_zoo.prefill(cfg, params, prompt, 64)
+                cspecs = sh.cache_specs(cfg, 8, mesh, cache)
+                logits, c2 = steps.make_decode_step(cfg)(
+                    sh.distribute(params, sh.param_specs(params, mesh),
+                                  mesh),
+                    sh.distribute(clone(cache), cspecs, mesh),
+                    sh.distribute(toks, sh.batch_specs(cfg, 8, mesh,
+                                                       "decode"), mesh))
+            want = torch.from_numpy(data[f"{arch}/logits"])
+            logits = logits.full_tensor()
+            err = float((logits - want).abs().max())
+            assert err <= 1e-4, (shape, arch, err)
+            assert torch.equal(logits.argmax(-1), want.argmax(-1))
+            got = sh.gather(c2["layers"])
+            for name in ("k", "v"):
+                w = torch.from_numpy(data[f"{arch}/cache/{name}"])
+                assert close(got[name], w, 1e-5), (shape, arch, name)
+            if rank == 0:
+                print(f"moe decode {shape} {arch}: logits max err "
+                      f"{err:.2e}", flush=True)
+    if rank == 0:
+        print("MOE_DECODE_OK", flush=True)
+
+
 def run(rank, world, init):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank)
     try:
-        for check in (train_ok, pipeline_ok, decode_ok, elastic_ok):
+        for check in (train_ok, pipeline_ok, decode_ok, serve_ok,
+                      elastic_ok, moe_train_ok, moe_decode_ok):
             check(rank)
     finally:
         dist.destroy_process_group()
@@ -462,6 +749,121 @@ def _decode_oracle(path):
     np.savez(path, **out)
 
 
+# arch -> the batches its prefill and decode run at on the mesh
+SERVE = {"granite_8b": (8, 1), "mamba2_780m": (8,), "zamba2_1_2b": (8,),
+         "whisper_base": (8,)}
+# mamba2 with two state groups: a rank's heads read their own group's
+# B and C (one group, as the registry's, reads the same for every head)
+SERVE_GROUPS = {"mamba2_780m": 2}
+
+
+def _serve_oracle(path):
+    """JAX's fp32 prefill of 16 tokens (whisper: and frames) into a
+    64-slot cache and one decode step after it, for each arch and batch
+    of SERVE: the logits and every cache leaf after each."""
+    out = {}
+    for arch, batches in SERVE.items():
+        jcfg = jax_configs.get_config(arch, smoke=True).with_(
+            compute_dtype="float32")
+        if arch in SERVE_GROUPS:
+            jcfg = jcfg.with_(ssm_groups=SERVE_GROUPS[arch])
+        jparams = jax.jit(lambda k: jax_zoo.init_params(jcfg, k))(
+            jax.random.PRNGKey(5))
+        out.update(_flat_jax(f"{arch}/params", jparams))
+        for b in batches:
+            rs = np.random.RandomState(7)
+            pre = f"{arch}/b{b}"
+            prompt = rs.randint(0, jcfg.vocab, (b, 16)).astype(np.int32)
+            toks = (np.arange(b) % jcfg.vocab).astype(np.int32)
+            out.update({f"{pre}/prompt": prompt, f"{pre}/tokens": toks})
+            frames = None
+            if jcfg.family == "audio":
+                out[f"{pre}/frames"] = rs.randn(
+                    b, jcfg.enc_frames, jcfg.d_model).astype(np.float32)
+                frames = jnp.asarray(out[f"{pre}/frames"])
+            logits, jc = jax_zoo.prefill(jcfg, jparams, jnp.asarray(prompt),
+                                         64, frames=frames)
+            out.update({f"{pre}/prefill/logits": np.asarray(logits),
+                        **_flat_jax(f"{pre}/prefill/cache", jc)})
+            logits, jc = jax_zoo.decode_step(jcfg, jparams, jc,
+                                             jnp.asarray(toks))
+            out.update({f"{pre}/decode/logits": np.asarray(logits),
+                        **_flat_jax(f"{pre}/decode/cache", jc)})
+    np.savez(path, **out)
+
+
+MOE = ("granite_moe_1b_a400m", "deepseek_moe_16b")
+
+
+def _jax_routes(jcfg, jparams, jb):
+    """(gate_idx, pos, keep) of every layer of JAX's forward, from a
+    ``jax.debug.callback`` on the reference's ``_route``, in layer
+    order."""
+    real, seen = jax_mlp._route, []
+
+    def spy(cfg, params, xt):
+        out = real(cfg, params, xt)
+        jax.debug.callback(lambda *a: seen.append([np.asarray(t) for t in a]),
+                           *out[2:5], ordered=True)
+        return out
+    jax_mlp._route = spy
+    try:
+        jax.block_until_ready(jax.jit(
+            lambda p, b: jax_zoo.loss_fn(jcfg, p, b))(jparams, jb))
+        jax.effects_barrier()
+    finally:
+        jax_mlp._route = real
+    assert len(seen) == jcfg.n_layers, len(seen)
+    return seen
+
+
+def _moe_train_oracle(path):
+    """JAX's fp32 train step of both MoE smoke archs with moe_shards 1,
+    4 and 8 from JAX-initialised params, on the port's batch 8 x 32 from
+    seed 3, and the routing of its forward."""
+    batch = {k: v.numpy() for k, v in inputs.make_train_batch(
+        configs.get_config(MOE[0], smoke=True), 8, 32, seed=3).items()}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    opt = jax_opt.OptimizerConfig(**OPT)
+    out = dict(batch)
+    for arch in MOE:
+        jcfg, jparams = _jax_params(arch, 0)
+        out.update(_flat_jax(f"{arch}/params", jparams))
+        for ns in (1, 4, 8):
+            c = jcfg.with_(moe_shards=ns)
+            p, o, m = jax.jit(jax_steps.make_train_step(c, opt))(
+                jparams, jax_opt.init_opt_state(jparams), jb)
+            pre = f"{arch}/ns{ns}"
+            out.update({**_flat_jax(f"{pre}/want/params", p),
+                        **_flat_jax(f"{pre}/want/mu", o["mu"]),
+                        **_flat_jax(f"{pre}/want/nu", o["nu"]),
+                        **{f"{pre}/metrics/{k}": np.asarray(v)
+                           for k, v in m.items()}})
+            for layer, route in enumerate(_jax_routes(c, jparams, jb)):
+                for name, a in zip(("gate_idx", "pos", "keep"), route):
+                    out[f"{pre}/route/{layer}/{name}"] = a
+    np.savez(path, **out)
+
+
+def _moe_decode_oracle(path):
+    """JAX's fp32 prefill of 16 tokens into a 64-slot cache and one
+    decode step at batch 8 for both MoE smoke archs."""
+    prompt = np.random.RandomState(7).randint(0, 256, (8, 16)).astype(
+        np.int32)
+    toks = np.arange(8).astype(np.int32)
+    out = {"prompt": prompt, "tokens": toks}
+    for arch in MOE:
+        jcfg, jparams = _jax_params(arch, 5)
+        _, jc = jax_zoo.prefill(jcfg, jparams, jnp.asarray(prompt), 64)
+        logits, jc = jax_zoo.decode_step(jcfg, jparams, jc,
+                                         jnp.asarray(toks))
+        out.update({**_flat_jax(f"{arch}/params", jparams),
+                    f"{arch}/logits": np.asarray(logits),
+                    f"{arch}/cache/k": np.asarray(jc["layers"]["k"]),
+                    f"{arch}/cache/v": np.asarray(jc["layers"]["v"])})
+    np.savez(path, **out)
+
+
 def test_overlap_schedule_equals_reference():
     """The port's overlap_schedule is the reference's stable argsort; the
     reference also calls transform_schedule and discards its result,
@@ -493,16 +895,40 @@ def test_train_launcher_under_torchrun(tmp_path):
     assert res is not None and res[0] == 2 and res[2]["mesh"] == [1, 2]
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_train_launcher_under_torchrun(tmp_path, arch):
+    """``launch.train --arch <moe> --model-parallel 2`` under torchrun:
+    two gloo ranks train the MoE smoke config on a (1, 2) mesh (its
+    experts sharded over "model") and checkpoint."""
+    d = str(tmp_path / "ck")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--arch", arch, "--model-parallel", "2", "--device", "cpu",
+         "--steps", "2", "--batch", "4", "--seq", "16", "--ckpt", d],
+        env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "'mesh': [1, 2]" in r.stdout and "'aux'" in r.stdout, r.stdout
+    assert ckpt.latest_step(d) == 2
+
+
 def test_distributed_parity(tmp_path):
     _pipeline_oracle(tmp_path / "pipeline.npz")
     _train_oracle(tmp_path / "train.npz")
     _decode_oracle(tmp_path / "decode.npz")
+    _serve_oracle(tmp_path / "serve.npz")
+    _moe_train_oracle(tmp_path / "moe_train.npz")
+    _moe_decode_oracle(tmp_path / "moe_decode.npz")
     script = tmp_path / "ranks.py"
-    script.write_text(SCRIPT)
+    script.write_text(SCRIPT.replace(
+        "SERVE = %r", f"SERVE = {SERVE!r}\nSERVE_GROUPS = {SERVE_GROUPS!r}"))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, str(script), str(tmp_path)],
                        env=env, capture_output=True, text=True,
                        timeout=600, cwd=ROOT)
     assert r.returncode == 0, r.stderr[-4000:]
-    for tag in ("TRAIN_OK", "PIPELINE_OK", "DECODE_OK", "ELASTIC_OK"):
+    for tag in ("TRAIN_OK", "PIPELINE_OK", "DECODE_OK", "SERVE_OK",
+                "ELASTIC_OK", "MOE_TRAIN_OK", "MOE_DECODE_OK"):
         assert tag in r.stdout, (tag, r.stdout, r.stderr[-2000:])
