@@ -31,7 +31,9 @@ Phases, each raising on failure:
                 with each call's launch counted.
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
-                CPU in fp32, on the same weights: granite_8b, mamba2_780m,
+                CPU in fp32, on the same weights: granite_8b, stablelm_3b
+                (head dim 80, vocab 50304 padded to 50688), phi3_mini_3_8b
+                (head dim 96, vocab 32064 padded to 32256), mamba2_780m,
                 granite_moe_1b_a400m and deepseek_moe_16b at 2 layers,
                 zamba2_1_2b at 6 (its shared block fires once), whisper_base
                 at full depth (6 + 6, 2 x (1500 frames + 64 tokens)),
@@ -115,7 +117,22 @@ Phases, each raising on failure:
                 at most the counted FLOPs of all chips, no kernel launch;
                 each cell's roofline, peak against this card's memory and
                 seconds.
-  9. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
+  9. mapping -- the Fast-OverlaPIM mapper (numpy, on the host CPU): lowers
+                the 20 full-size scenarios of ``list_scenarios()`` (layers
+                and MACs of each); answers the full-size requests of
+                ``scripts/mapping_frontier_hashes.py`` (resnet18,
+                granite_8b:prefill@2048, mamba2_780m:prefill@2048,
+                deepseek_moe_16b:decode@1024; grid explorer, budget 4)
+                through ``MappingService`` on a fresh journal, printing
+                each winner, ``evaluated``, wall time and the sha256 of
+                its ``frontier_json``; replays each from the memo and from
+                a fresh service over the same journal (evaluated 0, the
+                same bytes); one HTTP round trip equal to the in-process
+                answer; one ``distributed=2`` request (forked workers,
+                after the CUDA context and torch's thread pool exist,
+                under a watchdog) equal to the serial one. Prints the host
+                CPU's model: these are host times, not card times.
+ 10. launchers -- ``launch.train`` (2 steps) and ``launch.serve`` with
                 their defaults (the smoke config on cuda) for olmo_1b,
                 mamba2_780m, zamba2_1_2b, granite_moe_1b_a400m and
                 deepseek_moe_16b, and ``launch.serve`` for whisper_base and
@@ -128,12 +145,16 @@ printing no result, without a GPU or without the repo.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+import platform
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -149,6 +170,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from calibrate_train_numerics import (leaf_rel_rms,  # noqa: E402
                                       record_routes, route_flips)
+from mapping_frontier_hashes import REQUESTS as MAPPING_REQUESTS  # noqa: E402
+from mapping_frontier_hashes import frontier_sha256  # noqa: E402
 from repro_torch.data.synthetic import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
                                             attention_ref, flash_attention)
@@ -171,11 +194,14 @@ from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models.common import (keeps_fp32, tree_get,  # noqa: E402
                                        tree_map)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.serve import (MappingHTTPServer, MappingRequest,  # noqa: E402
+                               MappingService)
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
                                          adamw_update, global_norm)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.workloads import describe_scenario, list_scenarios  # noqa: E402
 
 # H100 SXM data sheet: dense bf16 tensor rate, float32 rate outside the
 # tensor cores, and HBM3 bandwidth.
@@ -309,7 +335,8 @@ SERVE = (("granite_8b", 4, 512, None), ("mamba2_780m", 4, 2048, 24),
 # whisper_base's depth is the decoder's (its 6 encoder layers run in full,
 # on 1500 frames), llava_next_34b also runs its forward with 576 image
 # embeddings prepended
-NUMERICS = (("granite_8b", 2, 2, 64), ("mamba2_780m", 2, 2, 512),
+NUMERICS = (("granite_8b", 2, 2, 64), ("stablelm_3b", 2, 2, 256),
+            ("phi3_mini_3_8b", 2, 2, 256), ("mamba2_780m", 2, 2, 512),
             ("zamba2_1_2b", 6, 2, 512), ("granite_moe_1b_a400m", 2, 2, 512),
             ("deepseek_moe_16b", 2, 2, 512), ("whisper_base", 6, 2, 64),
             ("llava_next_34b", 2, 1, 64))
@@ -1900,6 +1927,176 @@ def dryrun_phase():
     return out
 
 
+# seconds a ``distributed=2`` request may take before its workers count as
+# hung (the serial request of the same network takes about 1 s)
+MAPPING_DIST_TIMEOUT_S = 120.0
+
+
+def _no_wall(x):
+    """``x`` with every ``wall_s`` (host clock) dropped."""
+    if isinstance(x, dict):
+        return {k: _no_wall(v) for k, v in x.items() if k != "wall_s"}
+    if isinstance(x, list):
+        return [_no_wall(v) for v in x]
+    return x
+
+
+def _same_answer(label, got, want):
+    """MappingResponse ``got`` carries ``want``'s frontier bytes and
+    winner."""
+    if got.frontier_json != want.frontier_json or \
+            _no_wall(got.best) != _no_wall(want.best):
+        raise RuntimeError(f"{label}: the answer differs from the cold one")
+
+
+def _watchdog(label, fn, timeout_s):
+    """``fn()`` in a thread; past ``timeout_s`` the children it forked are
+    terminated and the phase fails instead of hanging."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:   # handed to the caller below
+            box["err"] = e
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        for child in multiprocessing.active_children():
+            child.terminate()
+        raise RuntimeError(f"{label}: no answer in {timeout_s:.0f} s (hung "
+                           "worker processes terminated)")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def host_cpu() -> str:
+    """The host CPU's model as /proc/cpuinfo gives it (x86 "model name";
+    where that is missing or "unknown", as on a sandboxed host, its
+    vendor, family and model numbers), with the machine type."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            if not ln.strip():
+                break                      # the first processor's block
+            k, _, v = ln.partition(":")
+            fields.setdefault(k.strip(), v.strip())
+    if fields.get("model name", "unknown") != "unknown":
+        keys = ("model name",)
+    else:
+        keys = ("vendor_id", "cpu family", "model", "CPU implementer",
+                "CPU part")
+    desc = ", ".join(f"{k} {fields[k]}" for k in keys if k in fields)
+    return f"{desc or 'no model in /proc/cpuinfo'} ({platform.machine()})"
+
+
+def mapping_phase():
+    """Phase 9 (module docstring): the Fast-OverlaPIM mapper on this
+    machine's host CPU. Returns the cold answers' hashes."""
+    print(f"  host CPU {host_cpu()}, os.cpu_count() {os.cpu_count()}; every "
+          "time below is host wall time on the GPU machine, not card time",
+          flush=True)
+    t0 = time.perf_counter()
+    for name in list_scenarios():
+        d = describe_scenario(name)
+        macs = sum(layer.macs for layer in d.layers)
+        if not d.layers or macs <= 0:
+            raise RuntimeError(f"{name}: lowered to nothing")
+        print(f"  {name}: {len(d.layers)} layers, {macs} MACs", flush=True)
+    print(f"  lowered {len(list_scenarios())} full-size scenarios in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        def service(name):
+            return MappingService(
+                journal_path=os.path.join(root, f"{name}.jsonl"),
+                shared_root=os.path.join(root, f"{name}_shared"))
+        svc, cold = service("main"), {}
+        try:
+            for kw in MAPPING_REQUESTS:
+                req = MappingRequest(**kw)
+                t1 = time.perf_counter()
+                r = cold[kw["network"]] = svc.request(req)
+                wall = time.perf_counter() - t1
+                if r.served_from != "search" or r.evaluated <= 0:
+                    raise RuntimeError(f"{kw['network']}: cold answer served "
+                                       f"from {r.served_from}")
+                sha = frontier_sha256(r)
+                out[kw["network"]] = {"best": r.best["arch_name"],
+                                      "evaluated": r.evaluated,
+                                      "wall_s": wall, "sha256": sha}
+                print(f"  {kw['network']}: best {r.best['arch_name']}, "
+                      f"evaluated {r.evaluated}, {wall:.3f} s, frontier "
+                      f"sha256 {sha}", flush=True)
+                memo = svc.request(req)
+                if memo.served_from != "memo" or memo.evaluated != 0:
+                    raise RuntimeError(f"{kw['network']}: replay served from "
+                                       f"{memo.served_from}, evaluated "
+                                       f"{memo.evaluated}")
+                _same_answer(f"{kw['network']} memo replay", memo, r)
+        finally:
+            svc.close()
+        svc = service("main")       # a restart over the same journal
+        try:
+            for kw in MAPPING_REQUESTS:
+                r = svc.request(MappingRequest(**kw))
+                if r.served_from != "journal" or r.evaluated != 0:
+                    raise RuntimeError(f"{kw['network']}: restart served from "
+                                       f"{r.served_from}, evaluated "
+                                       f"{r.evaluated}")
+                _same_answer(f"{kw['network']} journal replay", r,
+                             cold[kw["network"]])
+        finally:
+            svc.close()
+        print(f"  memo and journal replays of {len(MAPPING_REQUESTS)} "
+              "requests: evaluated 0, frontiers byte-identical", flush=True)
+        kw = MAPPING_REQUESTS[0]
+        want = cold[kw["network"]]
+        srv = MappingHTTPServer(service("http"), port=0).start()
+        try:
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    srv.url + "/v1/mapping", data=json.dumps(kw).encode(),
+                    headers={"Content-Type": "application/json"}),
+                    timeout=120) as resp:
+                body = json.loads(resp.read())
+            wall = time.perf_counter() - t1
+        finally:
+            srv.close()
+            srv.service.close()
+        if body["served_from"] != "search" or \
+                _no_wall(body) != _no_wall(json.loads(want.to_json())):
+            raise RuntimeError("the HTTP answer differs from the in-process "
+                               "one")
+        print(f"  HTTP POST /v1/mapping {kw['network']}: {wall:.3f} s, body "
+              "equal to the in-process answer (wall_s aside)", flush=True)
+        # the fork below happens after the CUDA context and torch's CPU
+        # thread pool exist
+        a = torch.randn(512, 512, device="cuda")
+        torch.cuda.synchronize()
+        b = torch.randn(512, 512)
+        if not (bool(torch.isfinite(a @ a).all())
+                and bool(torch.isfinite(b @ b).all())):
+            raise RuntimeError("torch warm-up gave non-finite values")
+        dist_svc = service("distributed")
+        try:
+            t1 = time.perf_counter()
+            r = _watchdog("distributed=2", lambda: dist_svc.request(
+                MappingRequest(**kw, distributed=2)), MAPPING_DIST_TIMEOUT_S)
+            wall = time.perf_counter() - t1
+        finally:
+            dist_svc.close()
+        if r.served_from != "search" or r.evaluated <= 0:
+            raise RuntimeError(f"distributed=2 served from {r.served_from}")
+        _same_answer("distributed=2", r, want)
+        print(f"  distributed=2 {kw['network']} (2 forked workers): "
+              f"{wall:.3f} s, evaluated {r.evaluated}, frontier equal to the "
+              "serial one", flush=True)
+    return out
+
+
 def run_launchers(arch, train=True):
     """``python -m repro_torch.launch.train`` (2 steps, unless not
     ``train``) and ``...serve`` with their defaults (the smoke config, on
@@ -2103,6 +2300,12 @@ def main():
     cells = dryrun_phase()
     print(f"  dryrun phase wall {time.perf_counter() - t_dry:.1f} s; cells "
           f"{json.dumps(cells)}", flush=True)
+
+    phase("mapping")
+    t_map = time.perf_counter()
+    answers = mapping_phase()
+    print(f"  mapping phase wall {time.perf_counter() - t_map:.1f} s (host); "
+          f"answers {json.dumps(answers)}", flush=True)
 
     phase("launchers")
     for arch in ("olmo_1b", "mamba2_780m", "zamba2_1_2b",

@@ -1,9 +1,8 @@
 """Architecture registry: the 10 assigned configs + input-shape cells.
 
 A data-only copy of ``repro.configs`` for the PyTorch port (the port
-imports nothing of the JAX package). Every family is registered; the
-port's models run the dense, moe, ssm and hybrid families and raise
-``NotImplementedError`` for the others.
+imports nothing of the JAX package). Every family is registered, and
+the port's models run all six: dense, moe, ssm, hybrid, audio and vlm.
 
 Every config cites its public source (see per-file docstrings). Use
 ``get_config(arch_id)`` for the full config and

@@ -9,10 +9,14 @@ JAX, so it runs on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.synthetic import DataConfig  # noqa: E402

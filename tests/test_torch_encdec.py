@@ -7,11 +7,14 @@ across with ``params_from_numpy``; inputs come from seeded numpy. fp32
 compute, within 1e-4.
 """
 import functools
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 
@@ -46,7 +48,8 @@ def _frames(cfg, b=2):
                                           cfg.d_model).astype(np.float32)
 
 
-@pytest.mark.parametrize("arch", ["granite_8b", "olmo_1b", "mamba2_780m",
+@pytest.mark.parametrize("arch", ["granite_8b", "olmo_1b", "stablelm_3b",
+                                  "phi3_mini_3_8b", "mamba2_780m",
                                   "zamba2_1_2b", "granite_moe_1b_a400m",
                                   "deepseek_moe_16b", "whisper_base",
                                   "llava_next_34b"])
@@ -202,23 +205,40 @@ def test_serve_launcher_encdec_vlm_on_cpu(arch, capsys):
     assert [ln.split(":")[0] for ln in lines] == ["seq0", "seq1"]
 
 
-def test_port_imports_no_jax_and_nothing_of_repro():
+def test_port_imports_no_jax_and_nothing_of_repro(tmp_path):
     """Every module of the port (the training half's ``train/``,
-    ``data/`` and ``launch/train.py`` included), and chip_smoke.py, in a
-    fresh process: neither jax nor any ``repro`` module gets imported."""
+    ``data/`` and ``launch/train.py`` and the mapper's ``core/``,
+    ``dse/``, ``obs/``, ``workloads/`` and ``serve/service.py`` included),
+    and chip_smoke.py, in a fresh process, which then lowers a zoo
+    scenario and answers a mapping request (the mapper's lazy imports):
+    neither jax nor any ``repro`` module gets imported."""
     code = (
-        "import importlib, importlib.util, pkgutil, sys\n"
+        "import importlib, importlib.util, os, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{os.path.join(ROOT, 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "from repro_torch.core.interface import describe\n"
+        "assert len(describe('granite_8b_smoke:prefill@64').layers) > 0\n"
+        "from repro_torch.serve import MappingRequest, MappingService\n"
+        f"root = {str(tmp_path)!r}\n"
+        "svc = MappingService(journal_path=os.path.join(root, 'j.jsonl'), "
+        "shared_root=os.path.join(root, 'shared'))\n"
+        "r = svc.request(MappingRequest(network='mamba2_780m_smoke:decode@16', "
+        "explorer='grid', budget=2, n_candidates=2, max_steps=256))\n"
+        "svc.close()\n"
+        "assert r.served_from == 'search' and r.evaluated > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "need = ['repro_torch.train.' + m for m in ('optimizer', "
         "'checkpoint', '_msgpack', 'trainer')] + ["
-        "'repro_torch.data.synthetic', 'repro_torch.launch.train']\n"
+        "'repro_torch.data.synthetic', 'repro_torch.launch.train'] + ["
+        "'repro_torch.' + m for m in ('obs.metrics', 'core.engine', "
+        "'core.search', 'dse.explore', 'dse.distrib.coordinator', "
+        "'workloads.lowering', 'workloads.scenarios', 'serve.service', "
+        "'serve.jobs', 'serve.transport')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "n = sum(m.startswith('repro_torch.') for m in sys.modules)\n"
         "print(n, bad)\n")
@@ -226,4 +246,4 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, check=True, timeout=120).stdout
     n, bad = out.strip().split(" ", 1)
-    assert bad == "[]" and int(n) >= 27
+    assert bad == "[]" and int(n) >= 89

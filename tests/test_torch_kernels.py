@@ -5,10 +5,14 @@ scan also against the models' chunked form (``ssd_chunked``).
 On CPU tensors each op runs its plain version; the CUDA kernels are
 checked against the same plain versions in tests/test_torch_cuda.py.
 """
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -6,11 +6,14 @@ across with ``params_from_numpy``; tokens come from numpy. Logits are
 compared in fp32 (``compute_dtype="float32"``) within 1e-4.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -22,7 +25,7 @@ from repro.models import model_zoo as jax_zoo  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import common, convert, inputs, model_zoo  # noqa: E402
 
-DENSE = ["granite_8b", "olmo_1b"]
+DENSE = ["granite_8b", "olmo_1b", "stablelm_3b", "phi3_mini_3_8b"]
 MOE = ["granite_moe_1b_a400m", "deepseek_moe_16b"]
 SSM = ["mamba2_780m", "zamba2_1_2b"]
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -8,10 +8,14 @@ equal, probabilities and gates within 1e-6, outputs within 2e-5 and aux
 within 1e-5 relative (the reference's own gather-vs-einsum tolerances,
 ``tests/test_models_smoke.py``), gradients within 1e-4.
 """
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -14,12 +14,15 @@ entries). ``param_shapes`` and ``opt_state_shapes`` (the meta device)
 must equal ``jax.eval_shape``'s shapes and dtypes.
 """
 import functools
+import os
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402

@@ -8,10 +8,14 @@ The Function's forward on CPU tensors is the op's plain version
 (``ssd_ref``); its backward is the explicit torch chain rule that runs
 after the kernel on the card.
 """
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

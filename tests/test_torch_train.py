@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -95,6 +97,8 @@ def _flat_torch(tree):
 @pytest.mark.parametrize("arch,mask", [("granite_8b", False),
                                        ("olmo_1b", False),
                                        ("olmo_1b", True),
+                                       ("stablelm_3b", False),
+                                       ("phi3_mini_3_8b", False),
                                        ("mamba2_780m", False),
                                        ("zamba2_1_2b", False),
                                        ("granite_moe_1b_a400m", False),
@@ -288,6 +292,57 @@ def test_train_steps_match_jax(arch):
             np.testing.assert_allclose(float(m[k]), float(jm[k]),
                                        err_msg=k, **TOL)
     _assert_state_close(params, opt, jparams, jopt)
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "phi3_mini_3_8b"])
+def test_train_step_matches_jax_above_gradient_noise(arch):
+    """One make_train_step step against the reference's. The two smoke
+    configs (the same shapes) have gradient elements at fp32 noise: at
+    layers/mlp/w2[0, 89, 52] JAX gives -2.27e-8 and the port -2.80e-8,
+    against a leaf maximum of 0.056. Adam's first update there is
+    lr_t * g / (|g| + eps) with eps 1e-8, so that noise moves the param
+    by ~2e-5 on one side and not the other; over three steps it reaches
+    the moments of the same hidden unit, which is why these configs are
+    not in test_train_steps_match_jax. Here: metrics within 1e-4, every
+    gradient within 1e-4 of its leaf's maximum, the moments as
+    _assert_state_close holds them, and every param within its 1e-5
+    except where the JAX gradient is nonzero but below 1e-6 of its
+    leaf's maximum; such elements are few, and both gradients there are
+    noise."""
+    jcfg, cfg, jparams, params = _pair(arch)
+    batch = _batch(cfg.vocab, b=4, s=16, seed=0)
+    _, jgrads = jax.value_and_grad(
+        lambda p, b: jax_zoo.loss_fn(jcfg, p, b), has_aux=True)(
+            jparams, _jax(batch))
+    _, _, grads = steps.value_and_grad(cfg, params, _torch(batch))
+    jgrads, grads = _flat_jax(jgrads), _flat_torch(grads)
+    jstep = jax.jit(jax_steps.make_train_step(
+        jcfg, jax_opt.OptimizerConfig(**OPT)))
+    step = steps.make_train_step(cfg, OptimizerConfig(**OPT))
+    jparams, jopt, jm = jstep(jparams, jax_opt.init_opt_state(jparams),
+                              _jax(batch))
+    params, opt, m = step(params, init_opt_state(params), _torch(batch))
+    for k in jm:
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), err_msg=k,
+                                   **TOL)
+    want = _flat_jax({"params": jparams, "opt": jopt})
+    got = _flat_torch({"params": params, "opt": opt})
+    noise = 0
+    for path, g in jgrads.items():
+        scale = float(np.abs(g).max())
+        np.testing.assert_allclose(grads[path], g, rtol=0,
+                                   atol=1e-4 * scale, err_msg=path)
+        quiet = (g != 0) & (np.abs(g) < 1e-6 * scale)
+        noise += int(quiet.sum())
+        assert (np.abs(grads[path][quiet]) < 1e-5 * scale).all(), path
+        p = "params/" + path
+        np.testing.assert_allclose(got[p][~quiet], want[p][~quiet],
+                                   rtol=1e-5, atol=1e-5, err_msg=p)
+        for moment in ("mu", "nu"):
+            np.testing.assert_allclose(
+                got[f"opt/{moment}/{path}"], want[f"opt/{moment}/{path}"],
+                rtol=1e-4, atol=1e-8, err_msg=moment + path)
+    assert 0 < noise < 1e-3 * sum(g.size for g in jgrads.values())
 
 
 def _extra(cfg, batch, b, seed=5):
