@@ -58,14 +58,21 @@ Phases, each raising on failure:
                 step's weight-read bound is printed beside its time; then
                 each is profiled over one prefill and 3 decode steps.
   6. train   -- the training half: (a) each kernel's autograd Function
-                (kernel forward, explicit torch backward) at the train
-                shapes (flash and fused_mlp at olmo_1b's, SSDScan at
+                (kernel forward; flash's and SSDScan's backwards are the
+                backward kernels, csrc/flash_attn_bwd.cu and
+                csrc/ssd_scan_bwd.cu, FusedMLP's explicit torch) at the
+                train shapes (flash and fused_mlp at olmo_1b's, SSDScan at
                 mamba2_780m's, flash also in whisper_base's three regimes
                 at B=4: the encoder's non-causal 1500 x 1500, the decoder's
-                causal 448 and its cross-attention 448 x 1500): its output
-                against the plain version, its gradients against autograd
-                of the plain version (SSDScan: of the chunked form
-                ``ssd_chunked``), with its backward's time; (b) one train
+                causal 448 and its cross-attention 448 x 1500, at
+                llava_next_34b's, at hd 80 and 96 and at the smoke hd 16;
+                SSDScan also at the smoke P 16): its output against the
+                plain version, its gradients against autograd of the plain
+                version (SSDScan: of the chunked form ``ssd_chunked``),
+                two backward calls bit-identical, with the backward's time
+                beside the explicit-torch backward's (``attention_bwd``,
+                ``ssd_scan_bwd``), plain autograd's and a library
+                yardstick's; (b) one train
                 step's loss, gradient norm and every gradient leaf on the
                 card in bf16 through the kernels against the port's CPU
                 fp32 path, at full width: olmo_1b, mamba2_780m,
@@ -175,12 +182,13 @@ from mapping_frontier_hashes import frontier_sha256  # noqa: E402
 from repro_torch.data.synthetic import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
                                             attention_ref, flash_attention)
-from repro_torch.kernels.flash_attn.ops import REGIMES  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import REGIMES, attention_bwd  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
 from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
-                                          ssd_ref, ssd_scan, to_pallas_layout)
+                                          ssd_ref, ssd_scan, ssd_scan_bwd,
+                                          to_pallas_layout)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
@@ -250,13 +258,15 @@ CALIBRATED = {  # arch: (prefill rel RMS, decode rel RMS, routes differ)
     "deepseek_moe_16b": (7.092e-3, 7.169e-3, [0.0171, 0.0327], [0.0, 0.0]),
 }
 LOGITS_REL_RMS = {"granite_moe_1b_a400m": 2.3e-2, "deepseek_moe_16b": 2.9e-2}
-# Gradients of a kernel's Function (kernel forward, explicit torch backward)
-# vs autograd of its plain version, same bf16 inputs: the fused MLP's
-# backward rounds g, u, dg and du to bf16 where autograd of the fp32 plain
-# version does not (one bf16 step, ~3.5e-3 relative RMS on the CPU,
+# Gradients of a kernel's Function (kernel forward; flash's backward the
+# backward kernels, the fused MLP's explicit torch) vs autograd of its plain
+# version, same bf16 inputs: the fused MLP's backward rounds g, u, dg and du
+# to bf16 where autograd of the fp32 plain version does not (one bf16 step,
+# ~3.5e-3 relative RMS on the CPU,
 # tests/test_torch_kernels.py::test_functions_match_autograd_of_plain_bf16);
-# flash's rounds P and dS to bf16 before its products (~3e-3 relative RMS,
-# at most 7e-3 of the largest gradient there). Each gradient is scaled by
+# flash's rounds P and dS to bf16 before its products, as its explicit torch
+# version attention_bwd does (~3e-3 relative RMS, at most 7e-3 of the
+# largest gradient there). Each gradient is scaled by
 # its largest magnitude, so it is O(1) like the outputs the repo's bf16
 # tolerance was set for, and held to that tolerance.
 GRAD_ATOL = GRAD_RTOL = 2e-2
@@ -276,8 +286,13 @@ GRAD_ATOL = GRAD_RTOL = 2e-2
 # so the two differ by fp32 sums in another order, and dx, dB, dC (bf16, as
 # x, B, C) by at most one bf16 step where those sums round to neighbouring
 # values: below 2^-7 = 7.8e-3 of the largest magnitude. Measured on an H100
-# at mamba2_780m's train shape (PERF.md): dx 1.19e-3, dB 5.78e-3, dC 5.81e-3
-# (one step at the top binade), ddt 7.9e-6, dA 2.3e-5 to 3.2e-5.
+# at mamba2_780m's train shape (PERF.md), the explicit torch backward: dx
+# 1.19e-3, dB 5.78e-3, dC 5.81e-3 (one step at the top binade), ddt 7.9e-6,
+# dA 2.3e-5 to 3.2e-5. The backward kernels (csrc/ssd_scan_bwd.cu) also
+# feed M and dS to their products as bf16, and the state side as bf16
+# hi/lo: a CPU emulation of that rounding
+# (tests/test_torch_ssd_grad.py::test_ssd_bwd_kernel_rounding_at_mamba2_geometry)
+# puts dx, dB, dC at ~3e-3 and ddt, dA below 1e-5 of the exact gradient.
 SSD_GRAD_BF16 = 8e-3    # one bf16 step of the largest magnitude
 SSD_GRAD_FP32 = 1e-4    # ~4x the larger fp32 error measured
 TRAIN_LOSS_REL = 1e-4
@@ -739,7 +754,7 @@ def check_smoke_shapes(gen):
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"  smoke-shape launches {counts} (2 calls of each op)", flush=True)
-    if counts != {op: 2 for op in counts}:
+    if counts != {op: 2 if op in FWD_OPS else 0 for op in counts}:
         raise RuntimeError("a smoke-shape call did not launch its kernel")
     shapes = {"flash_attention": f"B=4 S=16 and B=8 S=128, H={h} hd={hd}",
               "fused_mlp": f"M=64 and M=1024, K={k} F={f}",
@@ -785,14 +800,21 @@ def rel_rms(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
+FWD_OPS = ("flash_attention", "fused_mlp", "ssd_scan")
+BWD_OPS = ("flash_attention_bwd", "ssd_scan_bwd")   # the backward kernels
+
+
 def launch_counts():
     return {"flash_attention": flash_attention.launches,
-            "fused_mlp": fused_mlp.launches, "ssd_scan": ssd_scan.launches}
+            "fused_mlp": fused_mlp.launches, "ssd_scan": ssd_scan.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "ssd_scan_bwd": ssd_scan.bwd_launches}
 
 
 def reset_launch_counts():
     for fn in (flash_attention, fused_mlp, ssd_scan):
         fn.launches = 0
+    flash_attention.bwd_launches = ssd_scan.bwd_launches = 0
     flash_attention.launches_by_regime = dict.fromkeys(REGIMES, 0)
 
 
@@ -813,10 +835,11 @@ def fused_mlps(cfg):
 def expected_launches(cfg, prefills: int, decode_steps: int):
     """Kernel launches for ``prefills`` prefills and ``decode_steps`` decode
     steps: flash once per attention block in prefill, fused_mlp once per
-    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill. The
-    encoder-decoder's prefill runs its encoder once (enc_layers
-    non-causal blocks) and each decoder layer's causal self-attention and
-    non-causal cross-attention; its decode step runs no kernel."""
+    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill, no
+    backward kernel. The encoder-decoder's prefill runs its encoder once
+    (enc_layers non-causal blocks) and each decoder layer's causal
+    self-attention and non-causal cross-attention; its decode step runs
+    no kernel."""
     L = cfg.n_layers
     if cfg.family == "audio":
         blocks = cfg.enc_layers + 2 * L
@@ -824,7 +847,8 @@ def expected_launches(cfg, prefills: int, decode_steps: int):
         blocks = L if not cfg.is_ssm_family else fused_mlps(cfg)
     return {"flash_attention": blocks * prefills,
             "fused_mlp": fused_mlps(cfg) * (prefills + decode_steps),
-            "ssd_scan": L * prefills if cfg.is_ssm_family else 0}
+            "ssd_scan": L * prefills if cfg.is_ssm_family else 0,
+            **dict.fromkeys(BWD_OPS, 0)}
 
 
 def expected_flash_regimes(cfg, prefills: int, prompt_len: int):
@@ -1065,7 +1089,9 @@ def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
     return launches, regimes
 
 
-# kernel name prefix in csrc/ -> the op whose wrapper launches it
+# kernel name prefix in csrc/ -> the op whose wrapper launches it (a
+# "_bwd_" kernel: that op's backward; the SSD backward's re-run of the
+# forward's chunk-state and state-passing kernels counts as ssd_scan)
 PORT_OPS = {"ssd": "ssd_scan", "mlp": "fused_mlp", "flash": "flash_attention"}
 
 
@@ -1086,16 +1112,17 @@ def report(prof, label, wall, top=8):
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     ops = {}                    # the port's kernels, by op
     for e in evts:
-        m = re.search(r"::(ssd|mlp|flash)_", e.key)
+        m = re.search(r"::(ssd|mlp|flash)_(bwd_)?", e.key)
         if m:
-            op = PORT_OPS[m.group(1)]
+            op = PORT_OPS[m.group(1)] + ("_bwd" if m.group(2) else "")
             ms, n = ops.get(op, (0.0, 0))
             ops[op] = (ms + e.self_device_time_total / 1e3, n + e.count)
     print("    port kernels: " + (", ".join(
         f"{op} {ms:.3f} ms ({100 * ms / busy:.1f}%, {n} launches)"
         for op, (ms, n) in sorted(ops.items())) or "none"), flush=True)
-    # the Functions' explicit torch backwards: device time of every kernel
-    # launched under each autograd node
+    # the Functions' backwards (flash's and SSDScan's kernels, FusedMLP's
+    # explicit torch): device time of every kernel launched under each
+    # autograd node
     bwd = [e for e in averages if e.key.startswith(
         "autograd::engine::evaluate_function: ") and e.key.endswith(
         ("FlashAttentionBackward", "FusedMLPBackward", "SSDScanBackward"))]
@@ -1156,10 +1183,13 @@ def backward_ms(out, inputs, dy, flush, reps=5):
                    flush)
 
 
-def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal):
-    """FlashAttention (kernel forward, explicit torch backward) against
-    the plain version at one shape: the forward, the gradients (autograd
-    of the plain version), and the backward's time beside plain
+def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal,
+                     timed=True):
+    """FlashAttention (kernel forward, kernel backward) against the plain
+    version at one shape: the forward, the gradients (autograd of the
+    plain version), two backward calls bit-identical, and, when
+    ``timed``, the backward kernels' time beside the explicit-torch
+    backward's (``attention_bwd``, the kernels' plain version), plain
     autograd's, SDPA's backward and its bound. Returns the entry."""
     mask = "causal" if causal else "non-causal"
     sizes = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
@@ -1172,12 +1202,29 @@ def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal):
     torch.cuda.synchronize()
     fwd_err = compare(f"FlashAttention forward [{label}]", y, y_ref)
     got = torch.autograd.grad(y, (q, kk, v), do, retain_graph=True)
+    again = torch.autograd.grad(y, (q, kk, v), do, retain_graph=True)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    print(f"  FlashAttention backward kernels [{label}]: two calls "
+          f"bit-identical: {same}", flush=True)
+    if not same:
+        raise RuntimeError("the flash backward kernels are not "
+                           "deterministic")
     want = torch.autograd.grad(y_ref, (q, kk, v), do, retain_graph=True)
     torch.cuda.synchronize()
     err = compare_grads(f"FlashAttention grads [{label}]", got, want)
+    entry = {"max_abs_err": fwd_err, "grad_max_err": err,
+             "shape": label + " bf16"}
+    del got, again, want
+    if not timed:
+        del y, y_ref, q, kk, v, do
+        torch.cuda.empty_cache()
+        return entry
     ms = backward_ms(y, (q, kk, v), do, flush)
+    qd, kd, vd = (t.detach() for t in (q, kk, v))
+    torch_ms = cuda_ms(lambda: attention_bwd(qd, kd, vd, do, causal), 3,
+                       flush)
     plain = backward_ms(y_ref, (q, kk, v), do, flush, reps=2)
-    del y_ref, want
+    del y_ref
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
     y_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
@@ -1189,16 +1236,16 @@ def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal):
              else sq * skv)
     bms, by = bound_ms(10.0 * b * h * hd * pairs,
                        2.0 * b * hd * (3 * sq * h + 4 * skv * kv))
-    print(f"  FlashAttention backward [{label}]: {ms:.4f} ms (explicit "
-          f"torch: bf16 cuBLAS products, materialised fp32 softmax), plain "
-          f"autograd {plain:.4f} ms, SDPA backward {lib:.4f} ms, bound "
-          f"{bms:.4f} ms ({by})", flush=True)
-    del y, y_lib, got, q, kk, v, do, qt, kt, vt
+    print(f"  FlashAttention backward [{label}]: kernels {ms:.4f} ms, "
+          f"explicit torch (attention_bwd: bf16 cuBLAS products, "
+          f"materialised fp32 softmax) {torch_ms:.4f} ms, plain autograd "
+          f"{plain:.4f} ms, SDPA backward {lib:.4f} ms, bound {bms:.4f} ms "
+          f"({by})", flush=True)
+    del y, y_lib, q, kk, v, do, qt, kt, vt, qd, kd, vd
     torch.cuda.empty_cache()
-    return {"max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
+    return {**entry, "backward_ms": ms, "torch_backward_ms": torch_ms,
             "plain_backward_ms": plain, "library_backward_ms": lib,
-            "backward_bound_ms": bms, "backward_bound_by": by,
-            "shape": label + " bf16"}
+            "backward_bound_ms": bms, "backward_bound_by": by}
 
 
 def mlp_train_case(gen, flush, m, k, f):
@@ -1253,8 +1300,12 @@ def check_train_kernels(gen, flush):
     1500), and both at llava_next_34b's train step (1 x (576 + 64) rows:
     flash H=56 KV=8 hd=128 causal, fused_mlp K 7168 F 20480); the forward
     (the kernel) and the gradients (autograd of the
-    plain version). Returns {op: entry} with the forward's error and the
-    backward's times (Function, plain, library)."""
+    plain version); the flash backward kernels also at head dims 80 and 96
+    (stablelm_3b, phi3_mini_3_8b; 1 x 512) and at olmo_1b_smoke's hd 16,
+    which the ops pad to 64 (8 x 128). Returns {op: entry} with the
+    forward's error and the backward's times (the kernels or the
+    Function's backward, the explicit-torch backward, plain autograd,
+    library)."""
     cfg = get_config("olmo_1b")
     b, s, h, hd = 4, 2048, cfg.n_heads, cfg.hd
     k, f, m = cfg.d_model, cfg.d_ff, 4 * 2048
@@ -1274,19 +1325,59 @@ def check_train_kernels(gen, flush):
     rows = LLAVA_TRAIN_TOKENS + ll.img_tokens
     out["flash_attention"]["llava"] = flash_train_case(
         gen, flush, 1, rows, rows, ll.n_heads, ll.n_kv_heads, ll.hd, True)
+    more = {}
+    for arch, smoke, b_, s_ in (("stablelm_3b", False, 1, 512),
+                                ("phi3_mini_3_8b", False, 1, 512),
+                                ("olmo_1b", True, 8, 128)):
+        c = get_config(arch, smoke=smoke)
+        more[arch + ("_smoke" if smoke else "")] = flash_train_case(
+            gen, flush, b_, s_, s_, c.n_heads, c.n_kv_heads, c.hd, True,
+            timed=False)
+    out["flash_attention"]["head_dims"] = more
     out["fused_mlp"]["llava"] = mlp_train_case(gen, flush, rows, ll.d_model,
                                                ll.d_ff)
     out["ssd_scan"] = check_ssd_train(gen, flush)
     return out
 
 
+def ssd_grad_errors(label, args, dy, chunk, y):
+    """SSDScan's gradients through ``y`` (its output on ``args``) against
+    autograd of the chunked form ``ssd_chunked`` in fp32 on the card, each
+    scaled by its largest magnitude (dx, dB, dC within SSD_GRAD_BF16, ddt
+    and dA within SSD_GRAD_FP32), all finite, and two backward calls
+    bit-identical. Returns ({gradient: error}, autograd's output)."""
+    got = torch.autograd.grad(y, args, dy, retain_graph=True)
+    again = torch.autograd.grad(y, args, dy, retain_graph=True)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    print(f"  SSDScan backward kernels [{label}]: two calls bit-identical: "
+          f"{same}", flush=True)
+    if not same:
+        raise RuntimeError("the SSD backward kernels are not deterministic")
+    del again
+    y_chain, _ = ssd_chunked(*args, chunk)
+    want = torch.autograd.grad(y_chain, args, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, gt, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        if not bool(torch.isfinite(gt).all()):
+            raise RuntimeError(f"SSDScan {name} is not finite")
+        top = float(w.float().abs().max())
+        limit = SSD_GRAD_BF16 if gt.dtype == BF16 else SSD_GRAD_FP32
+        errs[name] = compare(f"SSDScan {name} {str(gt.dtype)[6:]} (scaled "
+                             f"by max {top:.3e}) [{label}]",
+                             gt.float() / top, w.float() / top, limit, 0.0)
+    return errs, y_chain
+
+
 def check_ssd_train(gen, flush):
     """SSDScan at mamba2_780m's train shape (B=4 S=2048 H=48 P=64 N=128,
     chunk 256): its forward (the kernel) against the plain version, its
-    gradients (the final state unused, as in training) against autograd
-    of the chunked form ``ssd_chunked`` in fp32 on the card, each scaled
-    by its largest magnitude, all finite; the backward's time against that
-    autograd's and the plain version's."""
+    gradients (the backward kernels; the final state unused, as in
+    training) against autograd of the chunked form ``ssd_chunked`` in fp32
+    on the card (``ssd_grad_errors``); the backward kernels' time against
+    the explicit-torch backward's (``ssd_scan_bwd``, their plain
+    version), that autograd's and plain autograd's; and the gradients at
+    mamba2_780m_smoke's P 16, N 16 (8 x 128), which the op pads to 64."""
     cfg = get_config("mamba2_780m")
     b, s, h, p = 4, 2048, cfg.ssm_heads, cfg.ssm_head_dim
     g, n, chunk = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
@@ -1298,21 +1389,11 @@ def check_ssd_train(gen, flush):
     torch.cuda.synchronize()
     fwd_err = compare(f"SSDScan forward [{label}]", y, y_ref, SSD_ATOL,
                       SSD_RTOL)
-    got = torch.autograd.grad(y, args, dy, retain_graph=True)
-    y_chain, _ = ssd_chunked(*args, chunk)
-    want = torch.autograd.grad(y_chain, args, dy, retain_graph=True)
-    torch.cuda.synchronize()
-    errs = {}
-    for name, gt, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
-        if not bool(torch.isfinite(gt).all()):
-            raise RuntimeError(f"SSDScan {name} is not finite")
-        top = float(w.float().abs().max())
-        limit = SSD_GRAD_BF16 if gt.dtype == BF16 else SSD_GRAD_FP32
-        errs[name] = compare(f"SSDScan {name} {str(gt.dtype)[6:]} (scaled "
-                             f"by max {top:.3e})", gt.float() / top,
-                             w.float() / top, limit, 0.0)
-    del got, want
+    errs, y_chain = ssd_grad_errors(label, args, dy, chunk, y)
     ms = backward_ms(y, args, dy, flush)
+    detached = [t.detach() for t in args]
+    torch_ms = cuda_ms(lambda: ssd_scan_bwd(*detached, dy, None, chunk), 2,
+                       flush)
     lib = backward_ms(y_chain, args, dy, flush)
     del y_chain
     plain = backward_ms(y_ref, args, dy, flush, reps=2)
@@ -1327,18 +1408,32 @@ def check_ssd_train(gen, flush):
     nbytes = (3 * 2 * b * s * h * p + 2 * 4 * b * s * h + 2 * 4 * h
               + 4 * 2 * b * s * g * n)
     bms, by = bound_ms(flops, nbytes)
-    print(f"  SSDScan backward: {ms:.4f} ms (explicit torch, fp32 cuBLAS "
-          f"products), autograd of ssd_chunked {lib:.4f} ms, plain autograd "
-          f"(sequential ssd_ref) {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
+    print(f"  SSDScan backward: kernels {ms:.4f} ms, explicit torch "
+          f"(ssd_scan_bwd: fp32 cuBLAS products) {torch_ms:.4f} ms, autograd "
+          f"of ssd_chunked {lib:.4f} ms, plain autograd (sequential "
+          f"ssd_ref) {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
           f"{flops / 1e9:.2f} GFLOP at the bf16 rate, "
-          f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 rate of the "
-          f"products it runs; {nbytes / 1e6:.2f} MB)", flush=True)
-    del y, args, dy
+          f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 rate; "
+          f"{nbytes / 1e6:.2f} MB)", flush=True)
+    del y, args, dy, detached
+    sm = get_config("mamba2_780m", smoke=True)
+    slabel = (f"smoke B=8 S=128 H={sm.ssm_heads} P={sm.ssm_head_dim} "
+              f"N={sm.ssm_state} chunk {sm.ssm_chunk}, P padded to 64")
+    sargs = [t.requires_grad_() for t in ssd_inputs(
+        gen, 8, 128, sm.ssm_heads, sm.ssm_groups, sm.ssm_state,
+        sm.ssm_head_dim)]
+    sdy = randn(gen, 8, 128, sm.ssm_heads, sm.ssm_head_dim)
+    smoke_errs, _ = ssd_grad_errors(
+        slabel, sargs, sdy, sm.ssm_chunk, SSDScan.apply(*sargs,
+                                                        sm.ssm_chunk)[0])
+    del sargs, sdy
     torch.cuda.empty_cache()
     return {"max_abs_err": fwd_err, "grad_max_err": errs, "backward_ms": ms,
-            "plain_backward_ms": plain, "library_backward_ms": lib,
+            "torch_backward_ms": torch_ms, "plain_backward_ms": plain,
+            "library_backward_ms": lib,
             "library_backward": "autograd of the torch chain ssd_chunked",
             "backward_bound_ms": bms, "backward_bound_by": by,
+            "smoke": {"grad_max_err": smoke_errs, "shape": slabel},
             "shape": label + ", bf16 x/B/C, fp32 dt/A"}
 
 
@@ -1346,9 +1441,14 @@ def expected_train_launches(cfg, steps: int):
     """Kernel launches of ``steps`` train steps under remat "full": each
     attention block, SwiGLU MLP (an MoE layer's shared expert) and
     Mamba-2 layer runs its kernel in the forward and again in the
-    backward's recompute (the hybrid's shared block once per firing)."""
+    backward's recompute (the hybrid's shared block once per firing);
+    each attention block (firing) and Mamba-2 layer runs its backward
+    kernel once."""
     per_step = expected_launches(cfg, 1, 0)
-    return {op: 2 * n * steps for op, n in per_step.items()}
+    want = {op: 2 * n * steps for op, n in per_step.items()}
+    want["flash_attention_bwd"] = per_step["flash_attention"] * steps
+    want["ssd_scan_bwd"] = per_step["ssd_scan"] * steps
+    return want
 
 
 def dead_leaves(grads, grads32):
@@ -2137,8 +2237,80 @@ def run_launchers(arch, train=True):
           f"{t_train:.1f} s, launches {trained} (expected {want}); "
           f"launch.serve --arch {arch}: {t_serve:.1f} s, launches {served}",
           flush=True)
-    if trained != want or any(served[op] == 0 for op, n in want.items() if n):
+    if (trained != want or any(served[op] == 0 for op in FWD_OPS if want[op])
+            or any(served[op] for op in BWD_OPS)):
         raise RuntimeError(f"{arch}: a launcher did not run the kernels")
+
+
+def backward_entries(train_entries, train_launches, steps):
+    """The ``kernels`` JSON entries of the two backward kernels, from the
+    train phase: their times and errors at the Functions' train shapes
+    (olmo_1b's attention, mamba2_780m's scan) and their launches in the
+    ``TRAIN`` runs (olmo_1b and mamba2_780m, whose counts were zeroed just
+    before each run), with each run's launches per step."""
+    fl, ss = train_entries["flash_attention"], train_entries["ssd_scan"]
+    keys = ("backward_ms", "torch_backward_ms", "plain_backward_ms",
+            "library_backward_ms", "backward_bound_ms", "grad_max_err",
+            "shape")
+
+    def per_step(op):
+        return {arch: run[op] // steps for arch, run in train_launches.items()}
+
+    flash = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:73",
+        "replaces_note": "the gradient of that forward-only kernel, which "
+                         "the reference takes by XLA's autodiff of its "
+                         "einsums",
+        "launches": train_launches["olmo_1b"]["flash_attention_bwd"],
+        "launches_path": f"olmo_1b train, {steps} steps, remat full",
+        "launches_per_step": per_step("flash_attention_bwd"),
+        "max_abs_err": fl["grad_max_err"],
+        "max_abs_err_of": "dq, dk, dv scaled by their largest magnitude, "
+                          "against autograd of attention_ref",
+        "ms": fl["backward_ms"], "plain_ms": fl["torch_backward_ms"],
+        "plain": "attention_bwd (explicit torch)",
+        "plain_autograd_ms": fl["plain_backward_ms"],
+        "bound_ms": fl["backward_bound_ms"],
+        "bound_by": fl["backward_bound_by"],
+        "library_ms": fl["library_backward_ms"],
+        "library": "backward of F.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)",
+        "shape": fl["shape"],
+        "whisper": {r: {k: c[k] for k in keys}
+                    for r, c in fl["whisper"].items()},
+        "llava": {k: fl["llava"][k] for k in keys},
+        "head_dims": fl["head_dims"]}
+    ssd = {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:63",
+        "replaces_note": "the gradient of that forward-only kernel, which "
+                         "the reference takes by XLA's autodiff of "
+                         "models/ssm.py:ssd_chunked",
+        "launches": train_launches["mamba2_780m"]["ssd_scan_bwd"],
+        "launches_path": f"mamba2_780m train (24 of 48 layers), {steps} "
+                         "steps, remat full",
+        "launches_per_step": per_step("ssd_scan_bwd"),
+        "max_abs_err": max(ss["grad_max_err"].values()),
+        "max_abs_err_of": "dx, ddt, dA, dB, dC scaled by their largest "
+                          "magnitude, against autograd of ssd_chunked (fp32)",
+        "grad_max_err": ss["grad_max_err"],
+        "ms": ss["backward_ms"], "plain_ms": ss["torch_backward_ms"],
+        "plain": "ssd_scan_bwd (explicit torch)",
+        "plain_autograd_ms": ss["plain_backward_ms"],
+        "chunked_autograd_ms": ss["library_backward_ms"],
+        "bound_ms": ss["backward_bound_ms"],
+        "bound_by": ss["backward_bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan's "
+                   "gradient (chunked_autograd_ms: autograd of the torch "
+                   "chain ssd_chunked)",
+        "smoke": ss["smoke"], "shape": ss["shape"]}
+    for e in (flash, ssd):
+        print(f"  {e['name']}: {e['launches']} launches in {e['launches_path']}"
+              f", per step {e['launches_per_step']}", flush=True)
+    return [flash, ssd]
 
 
 def _leaves(tree):
@@ -2278,6 +2450,7 @@ def main():
     for e in entries[:2]:
         e["train"]["llava_next_34b_step_numerics"] = numerics[
             "llava_next_34b"]
+    entries.extend(backward_entries(train_entries, train_launches, steps))
     print(f"  train phase wall {time.perf_counter() - t_train:.1f} s",
           flush=True)
 
@@ -2294,6 +2467,14 @@ def main():
             arch: {"train_launches": mesh["moe_train"][arch]["launches"][
                 e["name"]], "decode_launches": mesh["moe_decode"][arch][
                 "launches"][e["name"]]} for arch, *_ in MESH_MOE_TRAIN}
+    flash_bwd = entries[-2]     # the flash backward kernels behind local_map
+    flash_bwd["mesh"] = {
+        "train_launches": mesh["train"]["launches"][flash_bwd["name"]],
+        "path": f"{MESH_TRAIN[0]} train on a (1, 1) (data, model) mesh",
+        "moe": {arch: mesh["moe_train"][arch]["launches"][flash_bwd["name"]]
+                for arch, *_ in MESH_MOE_TRAIN}}
+    if not flash_bwd["mesh"]["train_launches"]:
+        raise RuntimeError("the mesh train step ran no flash backward kernel")
 
     phase("dryrun")
     t_dry = time.perf_counter()

@@ -28,7 +28,9 @@
 //     max and sum shared by the 4 threads that hold it; P is packed to
 //     bf16 in registers and fed as wgmma's register A operand for O += P V;
 //   - O, m and l stay in registers for the whole key sweep and are
-//     written once;
+//     written once; in training (a non-null `lse`) each row's
+//     log-sum-exp m + log2(l) in log2 units too, one store a row, for
+//     the backward kernels (csrc/flash_attn_bwd.cu);
 //   - causal tiles above the diagonal are not visited, and the grid hands
 //     out the longest (last) query tiles first.
 //
@@ -77,8 +79,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-          int H, int KV, int sq, int skv, int causal, float scale_log2,
-          Strides os) {
+          float* __restrict__ lse, int H, int KV, int sq, int skv,
+          int causal, float scale_log2, Strides os) {
   using T = Tiles<HD>;
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[STAGES];
@@ -220,13 +222,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
       // P (bf16) as the register A operand: k step kk covers keys
       // 16 kk .. 16 kk + 15, i.e. accumulator columns blocks 2 kk, 2 kk + 1
       uint32_t pa[TK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      pack_a<TK / 16>(s, pa);
       fence_regs(acc_o);
       wgmma_fence();
 #pragma unroll
@@ -249,6 +245,11 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / fmaxf(l, 1e-20f);
       const int row = row0 + 8 * half;
+      // the row's log-sum-exp in the log2 units of the scaled scores, for
+      // the backward (csrc/flash_attn_bwd.cu): one store from m and l
+      if (lse != nullptr && lane % 4 == 0 && row < sq)
+        lse[(static_cast<long long>(b) * H + h) * sq + row] =
+            m_r[half] + log2f(fmaxf(l, 1e-20f));
       if (row < sq) {
         bf16* orow = o + b * os.b + h * os.h + row * os.s;
 #pragma unroll
@@ -278,8 +279,9 @@ bool make_tmap_bshd(CUtensorMap* map, const void* base, int hd, int B, int S,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, bf16* o,
-                   int B, int H, int KV, int sq, int skv, int causal,
-                   float scale, const long long* st, cudaStream_t stream) {
+                   float* lse, int B, int H, int KV, int sq, int skv,
+                   int causal, float scale, const long long* st,
+                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_tmap_bshd(&tq, q, HD, B, sq, H, st, TQ) ||
       !make_tmap_bshd(&tk, k, HD, B, skv, KV, st + 3, TK) ||
@@ -291,7 +293,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, bf16* o,
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (sq + TQ - 1) / TQ);
   flash_fwd<HD><<<grid, THREADS, bytes, stream>>>(
-      tq, tk, tv, o, H, KV, sq, skv, causal, scale * LOG2E,
+      tq, tk, tv, o, lse, H, KV, sq, skv, causal, scale * LOG2E,
       Strides{st[9], st[10], st[11]});
   return cudaGetLastError();
 }
@@ -301,21 +303,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, bf16* o,
 extern "C" {
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
-// all multiples of 8, hd has unit stride, pointers 16-byte aligned.
-// Returns the launch's cudaGetLastError() (0 on success).
+// all multiples of 8, hd has unit stride, pointers 16-byte aligned. lse:
+// null, or a contiguous fp32 [B, H, sq] that gets each row's log-sum-exp
+// of the scaled, masked scores in log2 units (training asks for it;
+// serving passes null). Returns the launch's cudaGetLastError() (0 on
+// success).
 int flash_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KV, int sq, int skv, int hd,
-                        int causal, float scale, const long long* strides,
-                        void* stream) {
+                        void* lse, int B, int H, int KV, int sq, int skv,
+                        int hd, int causal, float scale,
+                        const long long* strides, void* stream) {
   if (B < 1 || sq < 1 || skv < 1 || KV < 1 || H % KV != 0)
     return cudaErrorInvalidValue;
   bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch<64>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
-    case 80: return launch<80>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
-    case 96: return launch<96>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
-    case 128: return launch<128>(q, k, v, op, B, H, KV, sq, skv, causal, scale, strides, s);
+    case 64: return launch<64>(q, k, v, op, lp, B, H, KV, sq, skv, causal, scale, strides, s);
+    case 80: return launch<80>(q, k, v, op, lp, B, H, KV, sq, skv, causal, scale, strides, s);
+    case 96: return launch<96>(q, k, v, op, lp, B, H, KV, sq, skv, causal, scale, strides, s);
+    case 128: return launch<128>(q, k, v, op, lp, B, H, KV, sq, skv, causal, scale, strides, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -295,6 +295,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Accumulator fragments (wgmma's layout below) of a [64 x 16 KSTEPS]
+// product as the bf16 register A operands of a next product, k step kk
+// covering accumulator column blocks 2 kk and 2 kk + 1.
+template <int KSTEPS>
+__device__ __forceinline__ void pack_a(const float (&v)[8 * KSTEPS],
+                                       uint32_t (&a)[KSTEPS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      a[kk][q] = pack_bf16(v[8 * kk + 2 * q], v[8 * kk + 2 * q + 1]);
+}
+
 // Two floats as a bf16 pair hi (round to nearest) and the bf16 pair lo of
 // what hi leaves over, so that hi + lo carries ~16 significant bits: a
 // product with an fp32 operand taken as two bf16 wgmmas into one fp32

@@ -1,2 +1,2 @@
-from .ops import FlashAttention, flash_attention
-from .ref import attention_ref
+from .ops import FlashAttention, flash_attention, flash_attention_backward
+from .ref import attention_lse, attention_ref

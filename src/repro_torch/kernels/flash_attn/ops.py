@@ -1,11 +1,15 @@
 """Flash attention op: the CUDA kernel ``csrc/flash_attn.cu`` on CUDA
-tensors, its plain version (``ref.attention_ref``) on CPU tensors.
+tensors, its plain version (``ref.attention_ref``) on CPU tensors; and
+its backward: the CUDA kernels ``csrc/flash_attn_bwd.cu`` on CUDA
+tensors, the plain ``attention_bwd`` on CPU tensors.
 
 Replaces ``repro/kernels/flash_attn/flash_attn.py:flash_attention``.
-``flash_attention.launches`` counts kernel launches (forwards only), and
+``flash_attention.launches`` counts forward kernel launches, and
 ``flash_attention.launches_by_regime`` splits the same launches by
 ``regime``: causal, non-causal with Sq == Skv (an encoder's
 self-attention), non-causal with Sq != Skv (cross-attention).
+``flash_attention.bwd_launches`` counts calls of the backward op
+(``flash_attention_backward``) that launched its kernels.
 
 Head dims the kernel does not take natively (any multiple of 8 up to 128,
 e.g. the smoke configs' 16) are zero-padded inside the op to the next
@@ -16,8 +20,9 @@ are native, so their path never pads.
 
 ``FlashAttention`` puts the op under autograd: its forward is the op
 (the kernel on the card, in every forward, the recompute under remat
-included), its backward is explicit torch (``attention_bwd``). The raw
-op refuses to launch when autograd would record it
+included; under grad it also keeps each row's log-sum-exp), its
+backward is ``flash_attention_backward`` (the backward kernels on the card).
+The raw op refuses to launch when autograd would record it
 (``_build.refuse_grad``).
 """
 from __future__ import annotations
@@ -45,7 +50,16 @@ def padded_head_dim(hd: int) -> int:
 
 def _bind(lib):
     fn = lib.flash_attn_fwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_bwd(lib):
+    fn = lib.flash_attn_bwd_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -104,10 +118,18 @@ def flash_attention(q, k, v, causal: bool = True):
     Pallas layout: q [BH, Sq, hd], k/v [BKV, Skv, hd] -> [BH, Sq, hd].
     Model layout: q [B, Sq, H, hd], k/v [B, Skv, KV, hd] -> [B, Sq, H, hd].
     """
+    return _attend(q, k, v, causal, with_lse=False)[0]
+
+
+def _attend(q, k, v, causal: bool, with_lse: bool):
+    """``flash_attention``'s (out, lse): the plain version on CPU tensors
+    (lse None), else the forward kernel, and with ``with_lse`` each row's
+    fp32 log-sum-exp of the scaled, masked scores in log2 units, [B, H,
+    Sq] (Pallas layout: [1, BH, Sq]), which the backward kernels read."""
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
         raise ValueError("q, k, v must all be 3-D or all 4-D")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
+        return attention_ref(q, k, v, causal), None
     _build.refuse_grad("flash_attention", (q, k, v),
                        "call FlashAttention.apply, which has a backward")
     hd = q.shape[-1]
@@ -124,21 +146,86 @@ def flash_attention(q, k, v, causal: bool = True):
     _check(q4, k4, v4)
     b, sq, h, hdp = q4.shape
     skv, kv = k4.shape[1], k4.shape[2]
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
     lib = _build.load("flash_attn")
     with _build.on_device(q):
         rc = _bind(lib)(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                        o4.data_ptr(), b, h, kv, sq, skv, hdp, int(causal),
+                        o4.data_ptr(), None if lse is None else lse.data_ptr(),
+                        b, h, kv, sq, skv, hdp, int(causal),
                         1.0 / (hd ** 0.5), strides, _build.stream_ptr(q))
     _build.check(lib, "flash_attn", rc)
     flash_attention.launches += 1
     flash_attention.launches_by_regime[regime(causal, sq, skv)] += 1
-    return out[..., :hd].contiguous() if pad else out
+    return (out[..., :hd].contiguous() if pad else out), lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``flash_attention`` for its output's
+    gradient ``do``, in either layout of the op: on CUDA tensors the
+    backward kernels (``csrc/flash_attn_bwd.cu``: D = rowsum(do o o),
+    then dk/dv and dq, P recomputed from ``lse``, the forward's log-sum-
+    exp from ``_attend(..., with_lse=True)``); on CPU tensors the plain
+    ``attention_bwd``, which recomputes everything from q, k, v and reads
+    neither ``o`` nor ``lse``. Head dims the kernels do not take natively
+    are zero-padded as the forward pads them (o and do too), with the
+    scale of the real head dim, and the gradients sliced. A causal call
+    needs Sq <= Skv on the card (every causal call the models make)."""
+    if q.device.type == "cpu":
+        if q.dim() == 3:  # Pallas layout as [1, S, BH, hd] views
+            grads = attention_bwd(*(_to_bshd(t) for t in (q, k, v, do)),
+                                  causal)
+            return tuple(t[0].permute(1, 0, 2) for t in grads)
+        return attention_bwd(q, k, v, do, causal)
+    hd = q.shape[-1]
+    pad = padded_head_dim(hd) - hd
+    if pad:
+        q, k, v, o, do = (F.pad(t, (0, pad)) for t in (q, k, v, o, do))
+    o, do = o.contiguous(), do.contiguous()
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    ts = (q, k, v, o, do, dq, dk, dv)
+    if q.dim() == 3:
+        ts = tuple(_to_bshd(t) for t in ts)
+    q4, k4, v4, o4, do4 = ts[:5]
+    _check(q4, k4, v4)
+    _build.require_cuda(q4, o4, do4, lse)
+    b, sq, h, hdp = q4.shape
+    skv, kv = k4.shape[1], k4.shape[2]
+    if o4.shape != q4.shape or do4.shape != q4.shape or o4.dtype != q.dtype \
+            or do4.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, sq)}, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    if causal and sq > skv:
+        raise ValueError(f"the causal backward kernel needs Sq <= Skv, got "
+                         f"Sq={sq} Skv={skv}")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in ts for s in t.stride()[:3]))
+    lib = _build.load("flash_attn_bwd")
+    with _build.on_device(q):
+        rc = _bind_bwd(lib)(*(t.data_ptr() for t in (q4, k4, v4, o4, do4)),
+                            lse.data_ptr(), *(t.data_ptr() for t in ts[5:]),
+                            delta.data_ptr(), b, h, kv, sq, skv, hdp,
+                            int(causal), 1.0 / (hd ** 0.5), strides,
+                            _build.stream_ptr(q))
+    _build.check(lib, "flash_attn_bwd", rc)
+    flash_attention.bwd_launches += 1
+    if pad:
+        return tuple(t[..., :hd].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_regime = dict.fromkeys(REGIMES, 0)
+flash_attention.bwd_launches = 0
 
 
 def _bmm_acc(a, b, acc):
@@ -210,24 +297,25 @@ class FlashAttention(torch.autograd.Function):
 
     Forward is the op as it is: the hand-written kernel on CUDA tensors
     (so the kernel runs in every forward, including the recompute under
-    remat), the plain version on CPU tensors. Backward is explicit torch
-    recomputed from the saved q, k, v (``attention_bwd``): the TPU kernel
-    is forward-only and the reference's gradients come from XLA's
-    autodiff of einsums outside any Pallas kernel, so there is no backward
-    kernel to port. This is not a fallback; a Hopper backward kernel is
-    later speed work (ROADMAP Queue 2)."""
+    remat), the plain version on CPU tensors; on the card it also writes
+    each row's log-sum-exp when an input needs a gradient. Backward is
+    ``flash_attention_backward``: the hand-written backward kernels on CUDA
+    tensors, recomputing P from the saved log-sum-exp; the plain
+    ``attention_bwd`` on CPU tensors. The TPU kernel is forward-only and
+    the reference's gradients come from XLA's autodiff of einsums
+    outside any Pallas kernel; the backward kernels compute that
+    gradient. It saves q, k, v, the output and the log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _attend(q, k, v, causal,
+                           with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
-        return flash_attention(q, k, v, causal=causal)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        if q.dim() == 3:  # Pallas layout as [1, S, BH, hd] views
-            grads = attention_bwd(*(_to_bshd(t) for t in (q, k, v, do)),
-                                  ctx.causal)
-            return (*(t[0].permute(1, 0, 2) for t in grads), None)
-        return (*attention_bwd(q, k, v, do, ctx.causal), None)
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, o, lse, do, ctx.causal),
+                None)

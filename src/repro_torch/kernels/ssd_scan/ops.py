@@ -1,11 +1,15 @@
 """SSD chunk-scan op: the CUDA kernels ``csrc/ssd_scan.cu`` on CUDA
-tensors, its plain version (``ref.ssd_ref``) on CPU tensors.
+tensors, its plain version (``ref.ssd_ref``) on CPU tensors; and its
+backward: the CUDA kernels ``csrc/ssd_scan_bwd.cu`` on CUDA tensors, the
+plain ``ssd_scan_bwd`` on CPU tensors.
 
 Replaces ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan``; like
 ``models.ssm.ssd_chunked`` it also returns the final state. One call of
 the op is one call of the C entry, which issues three kernel launches
 (chunk states, state passing, chunk scan) into a workspace this wrapper
-allocates; ``ssd_scan.launches`` counts calls of the op (forwards only).
+allocates; ``ssd_scan.launches`` counts calls of the forward op. One call
+of ``ssd_scan_backward`` on the card is one call of its C entry (nine
+launches); ``ssd_scan.bwd_launches`` counts those calls.
 
 Head dims below the kernel's 64 (any multiple of 8, e.g. the smoke
 configs' 16) are zero-padded on P inside the op (``padded_head_dim``):
@@ -15,9 +19,10 @@ pad.
 
 ``SSDScan`` puts the op under autograd: its forward is the op (the
 kernel on the card, in every forward, the recompute under remat
-included), its backward is explicit torch (``ssd_scan_bwd``), the
-chain rule of the chunked form ``models.ssm.ssd_chunked``. The raw op
-refuses to launch when autograd would record it (``_build.refuse_grad``).
+included), its backward is ``ssd_scan_backward`` (the backward kernels
+on the card; on the CPU ``ssd_scan_bwd``, the chain rule of the chunked
+form ``models.ssm.ssd_chunked``). The raw op refuses to launch when
+autograd would record it (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -57,6 +62,20 @@ def _bind(lib):
     return lib._ssd_fns
 
 
+def _bind_bwd(lib):
+    """(entry, workspace-size function) of the backward's library."""
+    if not hasattr(lib, "_ssd_bwd_fns"):
+        fn = lib.ssd_scan_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ws = lib.ssd_scan_bwd_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_longlong
+        lib._ssd_bwd_fns = (fn, ws)
+    return lib._ssd_bwd_fns
+
+
 def _check(x, dt, a, bm, cm):
     _build.require_cuda(x, dt, a, bm, cm)
     if not (x.dtype == bm.dtype == cm.dtype == torch.bfloat16
@@ -83,6 +102,16 @@ def _check(x, dt, a, bm, cm):
                              "aligned data")
 
 
+def _clip_chunk(s: int, chunk: int) -> int:
+    """``chunk`` clipped to the sequence length ``s``; raises ValueError
+    unless it divides ``s`` (the reference's rule)."""
+    chunk = min(chunk, s)
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {chunk}")
+    return chunk
+
+
 def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
     """Mamba-2 SSD scan, fp32 inside; returns (y in x.dtype, final state
     fp32). ``chunk`` is clipped to S and must divide S (the reference's
@@ -98,10 +127,7 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
                          f"{tuple(x.shape)}")
     pallas_layout = x.dim() == 3
     s = x.shape[1]
-    chunk = min(chunk, s)
-    if chunk < 1 or s % chunk:
-        raise ValueError(f"sequence length {s} is not a multiple of the "
-                         f"chunk {chunk}")
+    chunk = _clip_chunk(s, chunk)
     if x.device.type == "cpu":
         if pallas_layout:
             return ssd_ref(x, dt, a, bm, cm)
@@ -153,6 +179,7 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
 
 
 ssd_scan.launches = 0
+ssd_scan.bwd_launches = 0
 
 
 BWD_BYTES = 1 << 30  # bound of one [rows, S/L, H, L, L] tensor of the backward
@@ -290,6 +317,62 @@ def ssd_scan_bwd(x, dt, a, bm, cm, dy, dstate, chunk: int):
     return dx, ddt, da, db, dc
 
 
+def ssd_scan_backward(x, dt, a, bm, cm, dy, dstate, chunk: int):
+    """Gradients (dx, ddt, dA, dB, dC) of the SSD scan in the model layout
+    for y's gradient ``dy`` and the final state's ``dstate`` (None when
+    the state is unused, as in training): on CUDA tensors the backward
+    kernels (``csrc/ssd_scan_bwd.cu``), on CPU tensors the plain
+    ``ssd_scan_bwd``. dx comes back in x's dtype, ddt and dA in fp32, dB
+    and dC in B's dtype summed over each group's heads. Head dims below
+    the kernel's 64 are zero-padded as the forward pads them (x, dy and
+    dstate; dx sliced)."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd(x, dt, a, bm, cm, dy, dstate, chunk)
+    b, s, h, p0 = x.shape
+    chunk = _clip_chunk(s, chunk)
+    pad = padded_head_dim(p0) - p0
+    if pad:
+        x, dy = F.pad(x, (0, pad)), F.pad(dy, (0, pad))
+        if dstate is not None:
+            dstate = F.pad(dstate, (0, pad))
+    dy = dy.contiguous()
+    _check(x, dt, a, bm, cm)
+    g, n = bm.shape[2], bm.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if dstate is not None:
+        dstate = dstate.to(torch.float32).contiguous()
+        if dstate.shape != (b, h, n, HEAD_DIM) or dstate.device != x.device:
+            raise ValueError(f"dstate {tuple(dstate.shape)} must be "
+                             f"{(b, h, n, p0)}")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
+    da = torch.empty((h,), dtype=torch.float32, device=x.device)
+    db = torch.empty(bm.shape, dtype=bm.dtype, device=x.device)
+    dc = torch.empty(cm.shape, dtype=cm.dtype, device=x.device)
+    strides = (ctypes.c_longlong * 22)(
+        *x.stride()[:3], *dt.stride(), a.stride(0), *bm.stride()[:3],
+        *cm.stride()[:3], *dy.stride()[:3], *dx.stride()[:3],
+        *ddt.stride())
+    lib = _build.load("ssd_scan_bwd")
+    fn, ws_bytes = _bind_bwd(lib)
+    # the forward's workspace, the gradient of each chunk's state and the
+    # per-head fp32 dB and dC: ~0.9 GB at mamba2_780m's train shape
+    work = torch.empty(ws_bytes(b, s, h, n, chunk), dtype=torch.uint8,
+                       device=x.device)
+    with _build.on_device(x):
+        rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+                cm.data_ptr(), dy.data_ptr(),
+                None if dstate is None else dstate.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+                dc.data_ptr(), work.data_ptr(), b, s, h, g, n, HEAD_DIM,
+                chunk, strides, _build.stream_ptr(x))
+    _build.check(lib, "ssd_scan_bwd", rc)
+    ssd_scan.bwd_launches += 1
+    return (dx[..., :p0].contiguous() if pad else dx), ddt, da, db, dc
+
+
 class SSDScan(torch.autograd.Function):
     """``ssd_scan`` under autograd, in the model layout (x [B,S,H,P], dt
     [B,S,H], a [H], bm/cm [B,S,G,N]); returns (y, final state), as the op
@@ -297,13 +380,14 @@ class SSDScan(torch.autograd.Function):
 
     Forward is the op as it is: the hand-written kernels on CUDA tensors
     (so the kernel runs in every forward, including the recompute under
-    remat), the plain version on CPU tensors. Backward is explicit torch
-    recomputed from the saved inputs (``ssd_scan_bwd``): the TPU kernel
-    is forward-only, and the reference's gradients come from XLA's
-    autodiff of its chunked einsums outside any Pallas kernel, so there
-    is no backward kernel to port. This is not a fallback; a Hopper
-    backward kernel is later speed work (ROADMAP Queue 2). An unused
-    output's gradient arrives as None (the final state, in training)."""
+    remat), the plain version on CPU tensors. Backward is
+    ``ssd_scan_backward``, recomputed from the saved inputs: the
+    hand-written backward kernels on CUDA tensors, the plain
+    ``ssd_scan_bwd`` on CPU tensors. The TPU kernel is forward-only and
+    the reference's gradients come from XLA's autodiff of its chunked
+    einsums outside any Pallas kernel; the backward kernels compute that
+    gradient. An unused output's gradient arrives as None (the final
+    state, in training)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, bm, cm, chunk=128):
@@ -320,5 +404,5 @@ class SSDScan(torch.autograd.Function):
         x, dt, a, bm, cm = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        return (*ssd_scan_bwd(x, dt, a, bm, cm, dy, dstate, ctx.chunk),
-                None)
+        return (*ssd_scan_backward(x, dt, a, bm, cm, dy, dstate,
+                                   ctx.chunk), None)

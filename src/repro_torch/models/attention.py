@@ -4,8 +4,8 @@ PyTorch counterpart of ``repro.models.attention``. GQA is computed on
 grouped queries ([B, S, KV, G, hd] against [B, S, KV, hd]); the KV
 tensor is never repeated to H heads. On CUDA tensors prefill attention
 runs the hand-written flash kernel through its autograd Function
-(``kernels.flash_attn.FlashAttention``: the kernel forward, an explicit
-torch backward); on CPU tensors it runs ``flash_attention`` below, the
+(``kernels.flash_attn.FlashAttention``: the kernel forward, the
+backward kernels); on CPU tensors it runs ``flash_attention`` below, the
 reference's chunked online softmax, under plain autograd. The decode
 path has no kernel and stays in torch.
 
@@ -35,8 +35,15 @@ KV_CHUNK = 1024
 
 
 def init_attn(cfg: ModelConfig, gen: torch.Generator,
-              dtype=torch.float32) -> Dict:
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+              d_model: Optional[int] = None, n_heads: Optional[int] = None,
+              n_kv: Optional[int] = None, dtype=torch.float32) -> Dict:
+    """wq/wk/wv/wo of one attention block; ``d_model``, ``n_heads`` and
+    ``n_kv`` override the config's, as the reference's keywords do (the
+    head dim stays ``cfg.hd``)."""
+    d = d_model or cfg.d_model
+    h = n_heads or cfg.n_heads
+    kv = n_kv or cfg.n_kv_heads
+    hd = cfg.hd
     return {
         "wq": dense_init(gen, d, h * hd, dtype),
         "wk": dense_init(gen, d, kv * hd, dtype),

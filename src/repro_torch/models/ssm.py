@@ -3,7 +3,7 @@
 PyTorch counterpart of ``repro.models.ssm``. Prefill and training run
 the chunked SSD scan: on CUDA tensors the hand-written kernel through
 its autograd Function (``kernels.ssd_scan.SSDScan``: the kernel forward,
-an explicit torch backward), on CPU tensors ``ssd_chunked`` below, the
+the backward kernels), on CPU tensors ``ssd_chunked`` below, the
 reference's chunked dual form (intra-chunk quadratic term plus the
 inter-chunk state recurrence) under plain autograd. Both return the
 final state, so prefill fills the decode cache from the same scan that

@@ -21,12 +21,17 @@ torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.synthetic import DataConfig  # noqa: E402
 from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
-                                            attention_ref, flash_attention)
+                                            attention_lse, attention_ref,
+                                            flash_attention,
+                                            flash_attention_backward)
+from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import REGIMES, regime  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
-                                          ssd_ref, ssd_scan, to_pallas_layout)
+                                          ssd_ref, ssd_scan,
+                                          ssd_scan_backward, to_pallas_layout)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
@@ -413,12 +418,155 @@ def test_flash_function_grads_match_plain(cuda, b, s, h, kv, hd):
     q = _randn(gen, b, s, h, hd).requires_grad_()
     k, v = (_randn(gen, b, s, kv, hd).requires_grad_() for _ in range(2))
     do = _randn(gen, b, s, h, hd)
-    before = flash_attention.launches
+    before, bwd = flash_attention.launches, flash_attention.bwd_launches
     y = FlashAttention.apply(q, k, v, True)
     got = torch.autograd.grad(y, (q, k, v), do)
     assert flash_attention.launches == before + 1
+    assert flash_attention.bwd_launches == bwd + 1
     want = torch.autograd.grad(attention_ref(q, k, v, True), (q, k, v), do)
     _scaled_close(got, want)
+
+
+# the training path's attention shapes (chip_smoke.py's check_train_kernels)
+# and the head dims and smoke sizes the ops pad: b, sq, skv, h, kv, hd,
+# causal
+FLASH_BWD_SHAPES = [
+    (4, 2048, 2048, 16, 16, 128, True),   # olmo_1b
+    (2, 2048, 2048, 16, 8, 64, True),     # granite_moe_1b_a400m, GQA 16/8
+    (4, 448, 448, 8, 8, 64, True),        # whisper_base decoder
+    (2, 1500, 1500, 8, 8, 64, False),     # whisper_base encoder
+    (4, 448, 1500, 8, 8, 64, False),      # whisper_base cross-attention
+    (1, 640, 640, 56, 8, 128, True),      # llava_next_34b, GQA 56/8
+    (2, 300, 300, 32, 32, 80, True),      # stablelm_3b's hd 80
+    (2, 256, 256, 32, 32, 96, True),      # phi3_mini_3_8b's hd 96
+    (8, 128, 128, 4, 2, 16, True),        # a smoke train step, hd 16
+    (1, 100, 260, 4, 2, 64, True),        # end-aligned Sq < Skv, ragged
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal", FLASH_BWD_SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd,
+                                             causal):
+    """The backward kernels (through FlashAttention) against autograd of
+    the plain version, each gradient scaled by its largest magnitude and
+    held to the repo's bf16 tolerance; one backward launch a call; the
+    forward's log-sum-exp (log2 units) against the plain one."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _randn(gen, b, sq, h, hd).requires_grad_()
+    k, v = (_randn(gen, b, skv, kv, hd).requires_grad_() for _ in range(2))
+    do = _randn(gen, b, sq, h, hd)
+    bwd = flash_attention.bwd_launches
+    got = torch.autograd.grad(FlashAttention.apply(q, k, v, causal),
+                              (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == bwd + 1
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+    want = torch.autograd.grad(attention_ref(q, k, v, causal), (q, k, v), do)
+    _scaled_close(got, want)
+    if hd in flash_ops.HEAD_DIMS:
+        with torch.no_grad():
+            _, lse = flash_ops._attend(q, k, v, causal, with_lse=True)
+        torch.testing.assert_close(
+            lse, attention_lse(q, k, causal) * 1.4426950408889634,
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,skv,hd,causal", [(63, 63, 80, True),
+                                              (129, 200, 96, False),
+                                              (200, 200, 16, True)])
+def test_flash_backward_kernel_pallas_layout(cuda, sq, skv, hd, causal):
+    """The Pallas layout [BH, S, hd] (as B = 1, H = BH through the same
+    descriptors) gives the gradients of autograd of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = _randn(gen, 8, sq, hd).requires_grad_()
+    k, v = (_randn(gen, 4, skv, hd).requires_grad_() for _ in range(2))
+    do = _randn(gen, 8, sq, hd)
+    got = torch.autograd.grad(FlashAttention.apply(q, k, v, causal),
+                              (q, k, v), do)
+    want = torch.autograd.grad(attention_ref(q, k, v, causal), (q, k, v), do)
+    _scaled_close(got, want)
+
+
+def test_flash_backward_kernel_is_deterministic(cuda):
+    """Two backward calls give the same bits (no atomics): GQA, causal."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = _randn(gen, 2, 700, 16, 64)
+    k, v = _randn(gen, 2, 700, 8, 64), _randn(gen, 2, 700, 8, 64)
+    do = _randn(gen, 2, 700, 16, 64)
+    with torch.no_grad():
+        o, lse = flash_ops._attend(q, k, v, True, with_lse=True)
+        one = flash_attention_backward(q, k, v, o, lse, do, True)
+        two = flash_attention_backward(q, k, v, o, lse, do, True)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+SSD_BWD_SHAPES = [   # b, s, h, g, n, p, chunk, with dstate
+    (4, 2048, 48, 1, 128, 64, 256, False),   # mamba2_780m's train shape
+    (2, 1024, 64, 1, 64, 64, 256, False),    # zamba2_1_2b's geometry
+    (2, 512, 4, 2, 128, 64, 64, True),       # chunk 64, grouped B/C
+    (1, 300, 4, 2, 24, 64, 100, True),       # ragged chunk, N 24
+    (8, 128, 8, 1, 16, 16, 16, False),       # a smoke train step, P 16
+]
+SSD_GRAD_BF16, SSD_GRAD_FP32 = 8e-3, 1e-4   # chip_smoke.py's limits
+
+
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk,with_state", SSD_BWD_SHAPES)
+def test_ssd_backward_kernel_matches_plain(cuda, b, s, h, g, n, p, chunk,
+                                           with_state):
+    """The backward kernels (through SSDScan) against autograd of the
+    plain chunked form ``ssd_chunked`` (fp32) on the same inputs, each
+    gradient scaled by its largest magnitude: dx, dB, dC (bf16) within one
+    bf16 step, ddt and dA (fp32) within 1e-4, all finite, one backward
+    launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    args = [t.requires_grad_() for t in _ssd_inputs(gen, b, s, h, g, n, p=p)]
+    dy = _randn(gen, b, s, h, p)
+    dstate = (torch.randn((b, h, n, p), generator=gen, device=cuda)
+              if with_state else None)
+    bwd = ssd_scan.bwd_launches
+    y, state = SSDScan.apply(*args, chunk)
+    outs, cots = ((y, state), (dy, dstate)) if with_state else ((y,), (dy,))
+    got = torch.autograd.grad(outs, args, cots)
+    torch.cuda.synchronize()
+    assert ssd_scan.bwd_launches == bwd + 1
+    y_ref, state_ref = ssd_chunked(*args, chunk)
+    outs = (y_ref, state_ref) if with_state else (y_ref,)
+    want = torch.autograd.grad(outs, args, cots)
+    for name, gt, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert gt.dtype == w.dtype and bool(torch.isfinite(gt).all()), name
+        top = w.float().abs().max()
+        limit = SSD_GRAD_BF16 if gt.dtype == torch.bfloat16 \
+            else SSD_GRAD_FP32
+        torch.testing.assert_close(gt.float() / top, w.float() / top,
+                                   rtol=0, atol=limit, msg=name)
+
+
+def test_ssd_backward_kernel_is_deterministic(cuda):
+    """Two backward calls give the same bits (no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x, dt, a, bm, cm = _ssd_inputs(gen, 2, 1024, 8, 1, 128)
+    dy = _randn(gen, 2, 1024, 8, 64)
+    one = ssd_scan_backward(x, dt, a, bm, cm, dy, None, 256)
+    two = ssd_scan_backward(x, dt, a, bm, cm, dy, None, 256)
+    assert all(torch.equal(u, v) for u, v in zip(one, two))
+
+
+def test_backward_kernels_never_call_plain_versions(cuda, monkeypatch):
+    """On CUDA tensors the Functions' backwards launch the kernels: the
+    plain ``attention_bwd`` and ``ssd_scan_bwd`` are never called."""
+    def refuse(*_, **__):
+        raise AssertionError("a plain backward ran on CUDA tensors")
+
+    monkeypatch.setattr(flash_ops, "attention_bwd", refuse)
+    monkeypatch.setattr(ssd_ops, "ssd_scan_bwd", refuse)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    q = _randn(gen, 2, 128, 4, 64).requires_grad_()
+    k, v = (_randn(gen, 2, 128, 2, 64).requires_grad_() for _ in range(2))
+    FlashAttention.apply(q, k, v, True).float().sum().backward()
+    args = [t.requires_grad_() for t in _ssd_inputs(gen, 1, 256, 4, 1, 64)]
+    SSDScan.apply(*args, 128)[0].float().sum().backward()
+    assert all(t.grad is not None for t in (q, k, v, *args))
 
 
 def test_raw_kernels_refuse_to_drop_gradients(cuda):
@@ -448,20 +596,22 @@ def test_raw_kernels_refuse_to_drop_gradients(cuda):
     (2, 64, 4, 1, 16, 16, 16),      # the smoke configs' padded P = 16
 ])
 def test_ssd_function_grads_match_plain(cuda, b, s, h, g, n, p, chunk):
-    """SSDScan (kernel forward, explicit torch backward) against autograd
-    of the plain chunked form ``ssd_chunked`` on the same inputs: the
-    backward reads no kernel output, so it differs from that autograd only
-    by fp32 sums in another order (and one bf16 rounding of dx, dB, dC);
-    every gradient is finite (dt ~ softplus(N(0,1)) at chunk 256 overflows
-    exp above the diagonal, which the masked decay never reaches)."""
+    """SSDScan (kernel forward, kernel backward) against autograd of the
+    plain chunked form ``ssd_chunked`` on the same inputs: the backward
+    reads no kernel output, so it differs from that autograd by fp32 sums
+    in another order, bf16 hi/lo state operands and one bf16 rounding of
+    dx, dB, dC; every gradient is finite (dt ~ softplus(N(0,1)) at chunk
+    256 overflows exp above the diagonal, which the masked decay never
+    reaches)."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     args = [t.requires_grad_() for t in _ssd_inputs(gen, b, s, h, g, n, p=p)]
     dy = _randn(gen, b, s, h, p)
     dstate = torch.randn((b, h, n, p), generator=gen, device=cuda)
-    before = ssd_scan.launches
+    before, bwd = ssd_scan.launches, ssd_scan.bwd_launches
     y, state = SSDScan.apply(*args, chunk)
     got = torch.autograd.grad((y, state), args, (dy, dstate))
-    assert ssd_scan.launches == before + 1   # the backward is torch
+    assert ssd_scan.launches == before + 1
+    assert ssd_scan.bwd_launches == bwd + 1
     y_ref, state_ref = ssd_chunked(*args, chunk)
     want = torch.autograd.grad((y_ref, state_ref), args, (dy, dstate))
     for g_, w in zip(got, want):
@@ -472,8 +622,9 @@ def test_ssd_function_grads_match_plain(cuda, b, s, h, g, n, p, chunk):
 def _train_launches(cfg, policy="full"):
     """Kernel launches of one train step: every attention block, MLP and
     Mamba-2 layer runs its kernel in the forward and again in the remat
-    recompute, except the MLP under "mlp", which keeps its input. An MoE
-    layer's only fused MLP is its shared expert (deepseek)."""
+    recompute, except the MLP under "mlp", which keeps its input; every
+    attention block and Mamba-2 layer runs its backward kernel once. An
+    MoE layer's only fused MLP is its shared expert (deepseek)."""
     if cfg.is_ssm_family:
         blocks = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         mlps, ssd = blocks, 2 * cfg.n_layers
@@ -481,12 +632,18 @@ def _train_launches(cfg, policy="full"):
         blocks, ssd = cfg.n_layers, 0
         mlps = blocks if cfg.family != "moe" or cfg.n_shared_experts else 0
     return {"flash": 2 * blocks, "mlp": (1 if policy == "mlp" else 2) * mlps,
-            "ssd": ssd}
+            "ssd": ssd, "flash_bwd": blocks, "ssd_bwd": ssd // 2}
+
+
+FORWARD = ("flash", "mlp", "ssd")          # forward kernel counters
+NO_BWD = {"flash_bwd": 0, "ssd_bwd": 0}    # what serving launches
 
 
 def _counts():
     return {"flash": flash_attention.launches, "mlp": fused_mlp.launches,
-            "ssd": ssd_scan.launches}
+            "ssd": ssd_scan.launches,
+            "flash_bwd": flash_attention.bwd_launches,
+            "ssd_bwd": ssd_scan.bwd_launches}
 
 
 def _delta(before):
@@ -521,9 +678,10 @@ def test_mamba2_train_step_raises_on_card(cuda):
 def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
     """One card train step of olmo_1b_smoke (hd 16, K 64: padded inside
     the kernels' ops) runs flash twice per layer (forward and remat
-    recompute) and the fused MLP twice (once under "mlp", which keeps the
-    MLP's input); every projection and MLP weight of every layer gets a
-    non-zero gradient; the policies agree."""
+    recompute) and its backward kernel once, and the fused MLP twice
+    (once under "mlp", which keeps the MLP's input); every projection and
+    MLP weight of every layer gets a non-zero gradient; the policies
+    agree."""
     cfg = get_config("olmo_1b", smoke=True).with_(remat_policy=policy)
     params = tree_map(lambda _, t: t.to(cuda), model_zoo.init_params(
         cfg, torch.Generator().manual_seed(0)))
@@ -531,10 +689,12 @@ def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
         0, cfg.vocab, (2, 65)).astype(np.int32)).to(cuda)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     f0, m0 = flash_attention.launches, fused_mlp.launches
+    b0 = flash_attention.bwd_launches
     loss, _, grads = value_and_grad(cfg, params, batch)
     torch.cuda.synchronize()
     assert flash_attention.launches - f0 == 2 * cfg.n_layers
     assert fused_mlp.launches - m0 == mlp_per_layer * cfg.n_layers
+    assert flash_attention.bwd_launches - b0 == cfg.n_layers
     assert torch.isfinite(loss)
     for name in ("wq", "wk", "wv", "wo"):
         assert (grads["layers"]["attn"][name].flatten(1).abs().sum(1)
@@ -549,9 +709,10 @@ def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
 def test_ssm_train_step_launches_under_each_policy(cuda, arch, policy):
     """The smoke ssm and hybrid configs' card train step (P 16, hd 16,
     K 64: padded inside the ops): ssd_scan runs twice per Mamba-2 layer
-    under every policy (the Mamba-2 sublayer is always recomputed), the
-    hybrid's shared block as the dense layers do; the loss and gradients
-    are finite, and the policies give the same loss."""
+    under every policy (the Mamba-2 sublayer is always recomputed) and its
+    backward kernel once, the hybrid's shared block as the dense layers do
+    (one flash backward a firing); the loss and gradients are finite, and
+    the policies give the same loss."""
     cfg = get_config(arch, smoke=True).with_(remat_policy=policy)
     params = tree_map(lambda _, t: t.to(cuda), model_zoo.init_params(
         cfg, torch.Generator().manual_seed(0)))
@@ -622,7 +783,8 @@ def test_launchers_defaults_run_on_card(cuda, arch, capsys):
     assert out.count("seq") == 4
     launched = _delta(before)
     assert all(launched[k] > 0 for k, v in _train_launches(cfg).items()
-               if v), launched
+               if v and k in FORWARD), launched
+    assert {k: launched[k] for k in NO_BWD} == NO_BWD   # serving
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +818,7 @@ def test_moe_layer_card_matches_cpu(cuda, arch):
         want_route = mlp._route(cfg, cpu, x.float().reshape(
             1, -1, cfg.d_model))
     assert launched == {"flash": 0, "mlp": int(bool(cfg.n_shared_experts)),
-                        "ssd": 0}
+                        "ssd": 0, **NO_BWD}
     for i in (2, 3, 4):             # gate_idx, pos, keep
         assert torch.equal(route[i].cpu(), want_route[i])
     assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
@@ -681,7 +843,8 @@ def test_moe_smoke_serves_on_card(cuda, arch):
     shared = int(bool(cfg.n_shared_experts))
     # one prefill and 4 decode steps (the Engine runs one per new token)
     assert _delta(before) == {"flash": cfg.n_layers,
-                              "mlp": shared * cfg.n_layers * 5, "ssd": 0}
+                              "mlp": shared * cfg.n_layers * 5, "ssd": 0,
+                              **NO_BWD}
     assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab)).all()
 
 
@@ -786,9 +949,9 @@ def _serve_launches(cfg, decode_steps):
     per layer in prefill, one fused MLP per layer and step."""
     if cfg.family == "audio":
         return {"flash": cfg.enc_layers + 2 * cfg.n_layers, "mlp": 0,
-                "ssd": 0}
+                "ssd": 0, **NO_BWD}
     return {"flash": cfg.n_layers, "mlp": cfg.n_layers * (1 + decode_steps),
-            "ssd": 0}
+            "ssd": 0, **NO_BWD}
 
 
 @pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])

@@ -27,6 +27,8 @@ from repro.models.attention import flash_attention as jax_model_flash  # noqa: E
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attn import attention_lse, flash_attention_backward  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import admit as flash_admit  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import REGIMES as FLASH_REGIMES  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import regime as flash_regime  # noqa: E402
@@ -37,6 +39,10 @@ from repro_torch.kernels.fused_mlp.ops import (decode_split, regime,  # noqa: E4
 from repro_torch.kernels.ssd_scan import (from_pallas_layout, ssd_ref,  # noqa: E402
                                           ssd_scan, to_pallas_layout)
 from repro_torch.models.attention import flash_attention as model_flash  # noqa: E402
+from repro_torch.models.attention import init_attn  # noqa: E402
+from repro.models.attention import init_attn as jax_init_attn  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
 DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
@@ -309,6 +315,124 @@ def test_model_flash_matches_kernel_oracle():
     torch.testing.assert_close(model_flash(q, k, v, causal=True, chunk=16),
                                attention_ref(q, k, v, causal=True),
                                rtol=2e-5, atol=2e-5)
+
+
+def _jax_lse(q, k, causal):
+    """jax.nn.logsumexp of the reference oracle's scaled and masked scores
+    (repro/kernels/flash_attn/ref.py: GQA by repeat, scale 1/sqrt(hd),
+    the causal mask end-aligned at -inf); Pallas layout."""
+    bh, sq, hd = q.shape
+    bkv, skv, _ = k.shape
+    kk = jnp.repeat(k, bh // bkv, axis=0)
+    s = jnp.einsum("bqd,bkd->bqk", q, kk) / (hd ** 0.5)
+    if causal:
+        mask = jnp.tril(jnp.ones((sq, skv), bool), k=skv - sq)
+        s = jnp.where(mask[None], s, -jnp.inf)
+    return jax.nn.logsumexp(s, axis=-1)
+
+
+@pytest.mark.parametrize("causal,sq,sk,h,kv", [
+    (True, 64, 64, 4, 2),       # causal, end-aligned at Sq = Skv, GQA
+    (True, 37, 130, 4, 1),      # causal end-aligned, Sq < Skv, MQA
+    (False, 96, 96, 4, 4),      # non-causal self-attention
+    (False, 48, 150, 8, 2),     # non-causal cross-attention, Sq != Skv
+])
+def test_attention_lse_matches_jax_logsumexp(causal, sq, sk, h, kv):
+    """The plain version's row log-sum-exp (what the forward kernel keeps,
+    in log2 units, for its backward) against jax.nn.logsumexp of the
+    reference's scaled, masked scores, in fp32 within 1e-5, in both
+    layouts."""
+    rng = np.random.RandomState(12)
+    b, hd = 2, 32
+    q = rng.randn(b * h, sq, hd).astype(np.float32)
+    k = rng.randn(b * kv, sk, hd).astype(np.float32)
+    want = np.asarray(_jax_lse(jnp.asarray(q), jnp.asarray(k), causal))
+    got = attention_lse(torch.from_numpy(q), torch.from_numpy(k), causal)
+    assert got.dtype == torch.float32 and got.shape == (b * h, sq)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    q4 = torch.from_numpy(q).reshape(b, h, sq, hd).permute(0, 2, 1, 3)
+    k4 = torch.from_numpy(k).reshape(b, kv, sk, hd).permute(0, 2, 1, 3)
+    got4 = attention_lse(q4, k4, causal)
+    assert got4.shape == (b, h, sq)
+    np.testing.assert_allclose(got4.reshape(b * h, sq).numpy(), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["model", "pallas"])
+@pytest.mark.parametrize("causal,sq,sk,h,kv", [
+    (True, 40, 40, 8, 2), (True, 24, 56, 4, 4), (False, 40, 40, 4, 1),
+    (False, 32, 72, 8, 2)])
+def test_flash_function_matches_jax_vjp(layout, causal, sq, sk, h, kv):
+    """FlashAttention on CPU tensors (the plain forward, the plain
+    backward that ``flash_attention_backward`` runs there) against
+    jax.vjp of the reference oracle, fp32, in both layouts: causal at
+    Sq = Skv and end-aligned at Sq < Skv, non-causal self and cross, GQA
+    and MHA; within the repo's fp32 tolerance."""
+    rng = np.random.RandomState(13)
+    b, hd = 2, 16
+    q, k, v = (rng.randn(*shape).astype(np.float32) for shape in
+               ((b * h, sq, hd), (b * kv, sk, hd), (b * kv, sk, hd)))
+    do = rng.randn(b * h, sq, hd).astype(np.float32)
+    want = _vjp_jax(lambda q, k, v: jax_attention_ref(q, k, v, causal),
+                    (q, k, v), do)
+
+    def model(t, heads):  # [B*heads, S, hd] -> [B, S, heads, hd]
+        return t.reshape(b, heads, -1, hd).permute(0, 2, 1, 3)
+
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    if layout == "model":
+        args = (model(ts[0], h), model(ts[1], kv), model(ts[2], kv))
+        cot = model(torch.from_numpy(do), h)
+    else:
+        args, cot = ts, torch.from_numpy(do)
+    y = FlashAttention.apply(*args, causal)
+    assert y.grad_fn.name() == "FlashAttentionBackward"
+    got = torch.autograd.grad(y, ts, cot)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **_tol("float32"))
+
+
+def test_backward_ops_take_plain_versions_on_cpu():
+    """On CPU tensors the backward ops are their plain versions:
+    ``flash_attention_backward`` gives ``attention_bwd``'s gradients (it
+    reads neither o nor lse) in both layouts, bitwise, and launches
+    nothing."""
+    rng = np.random.RandomState(14)
+    q, k, v, do = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                   for s in ((2, 20, 4, 16), (2, 28, 2, 16), (2, 28, 2, 16),
+                             (2, 20, 4, 16)))
+    before = flash_attention.bwd_launches
+    got = flash_attention_backward(q, k, v, None, None, do, True)
+    for g, w in zip(got, attention_bwd(q, k, v, do, True)):
+        assert torch.equal(g, w)
+    pal = [t.permute(0, 2, 1, 3).flatten(0, 1) for t in (q, k, v, do)]
+    got3 = flash_attention_backward(pal[0], pal[1], pal[2], None, None,
+                                    pal[3], True)
+    for g3, g in zip(got3, got):
+        torch.testing.assert_close(
+            g3, g.permute(0, 2, 1, 3).flatten(0, 1), rtol=0, atol=0)
+    assert flash_attention.bwd_launches == before
+
+
+@pytest.mark.parametrize("arch", ["granite_8b", "zamba2_1_2b",
+                                  "whisper_base"])
+@pytest.mark.parametrize("overrides", [
+    {}, {"d_model": 96}, {"n_heads": 6}, {"n_kv": 3},
+    {"d_model": 80, "n_heads": 4, "n_kv": 2}])
+def test_init_attn_overrides_match_reference_shapes(arch, overrides):
+    """init_attn's d_model / n_heads / n_kv keywords override the config
+    as the reference's do (repro/models/attention.py:24-30): every weight
+    has the reference's shape under each override, the head dim stays
+    the config's."""
+    cfg = get_config(arch, smoke=True)
+    want = jax.eval_shape(lambda key: jax_init_attn(
+        jax_get_config(arch, smoke=True), key, **overrides),
+        jax.random.PRNGKey(0))
+    got = init_attn(cfg, torch.Generator().manual_seed(0), **overrides)
+    assert set(got) == set(want)
+    for name, t in got.items():
+        assert tuple(t.shape) == tuple(want[name].shape), name
+        assert t.dtype == torch.float32
 
 
 def test_ops_reject_bad_input():
