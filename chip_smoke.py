@@ -58,21 +58,22 @@ Phases, each raising on failure:
                 step's weight-read bound is printed beside its time; then
                 each is profiled over one prefill and 3 decode steps.
   6. train   -- the training half: (a) each kernel's autograd Function
-                (kernel forward; flash's and SSDScan's backwards are the
-                backward kernels, csrc/flash_attn_bwd.cu and
-                csrc/ssd_scan_bwd.cu, FusedMLP's explicit torch) at the
+                (kernel forward; its backward the backward kernels,
+                csrc/flash_attn_bwd.cu, csrc/fused_mlp_bwd.cu and
+                csrc/ssd_scan_bwd.cu) at the
                 train shapes (flash and fused_mlp at olmo_1b's, SSDScan at
                 mamba2_780m's, flash also in whisper_base's three regimes
                 at B=4: the encoder's non-causal 1500 x 1500, the decoder's
                 causal 448 and its cross-attention 448 x 1500, at
                 llava_next_34b's, at hd 80 and 96 and at the smoke hd 16;
-                SSDScan also at the smoke P 16): its output against the
-                plain version, its gradients against autograd of the plain
-                version (SSDScan: of the chunked form ``ssd_chunked``),
-                two backward calls bit-identical, with the backward's time
-                beside the explicit-torch backward's (``attention_bwd``,
-                ``ssd_scan_bwd``), plain autograd's and a library
-                yardstick's; (b) one train
+                SSDScan also at the smoke P 16, FusedMLP at the smoke K 64,
+                F 128): its output against the plain version, its
+                gradients against autograd of the plain version (SSDScan:
+                of the chunked form ``ssd_chunked``), two backward calls
+                bit-identical, with the backward's time beside the
+                explicit-torch backward's (``attention_bwd``,
+                ``fused_mlp_bwd``, ``ssd_scan_bwd``), plain autograd's and
+                a library yardstick's; (b) one train
                 step's loss, gradient norm and every gradient leaf on the
                 card in bf16 through the kernels against the port's CPU
                 fp32 path, at full width: olmo_1b, mamba2_780m,
@@ -185,7 +186,7 @@ from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import REGIMES, attention_bwd  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
-from repro_torch.kernels.fused_mlp.ops import regime  # noqa: E402
+from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, regime  # noqa: E402
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
                                           ssd_ref, ssd_scan, ssd_scan_bwd,
                                           to_pallas_layout)
@@ -258,12 +259,13 @@ CALIBRATED = {  # arch: (prefill rel RMS, decode rel RMS, routes differ)
     "deepseek_moe_16b": (7.092e-3, 7.169e-3, [0.0171, 0.0327], [0.0, 0.0]),
 }
 LOGITS_REL_RMS = {"granite_moe_1b_a400m": 2.3e-2, "deepseek_moe_16b": 2.9e-2}
-# Gradients of a kernel's Function (kernel forward; flash's backward the
-# backward kernels, the fused MLP's explicit torch) vs autograd of its plain
-# version, same bf16 inputs: the fused MLP's backward rounds g, u, dg and du
-# to bf16 where autograd of the fp32 plain version does not (one bf16 step,
-# ~3.5e-3 relative RMS on the CPU,
-# tests/test_torch_kernels.py::test_functions_match_autograd_of_plain_bf16);
+# Gradients of a kernel's Function (kernel forward, backward kernels) vs
+# autograd of its plain version, same bf16 inputs: the fused MLP's backward
+# rounds g, u, h, dg and du to bf16 where autograd of the fp32 plain version
+# does not (one bf16 step, ~3.5e-3 relative RMS on the CPU,
+# tests/test_torch_kernels.py::test_functions_match_autograd_of_plain_bf16;
+# its kernels' rounding emulated at olmo_1b's K:F in
+# tests/test_torch_mlp_grad.py::test_bwd_kernel_rounding_at_olmo_ratio);
 # flash's rounds P and dS to bf16 before its products, as its explicit torch
 # version attention_bwd does (~3e-3 relative RMS, at most 7e-3 of the
 # largest gradient there). Each gradient is scaled by
@@ -801,20 +803,21 @@ def rel_rms(got, want):
 
 
 FWD_OPS = ("flash_attention", "fused_mlp", "ssd_scan")
-BWD_OPS = ("flash_attention_bwd", "ssd_scan_bwd")   # the backward kernels
+BWD_OPS = ("flash_attention_bwd", "fused_mlp_bwd",   # the backward kernels
+           "ssd_scan_bwd")
 
 
 def launch_counts():
     return {"flash_attention": flash_attention.launches,
             "fused_mlp": fused_mlp.launches, "ssd_scan": ssd_scan.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
+            "fused_mlp_bwd": fused_mlp.bwd_launches,
             "ssd_scan_bwd": ssd_scan.bwd_launches}
 
 
 def reset_launch_counts():
     for fn in (flash_attention, fused_mlp, ssd_scan):
-        fn.launches = 0
-    flash_attention.bwd_launches = ssd_scan.bwd_launches = 0
+        fn.launches = fn.bwd_launches = 0
     flash_attention.launches_by_regime = dict.fromkeys(REGIMES, 0)
 
 
@@ -1120,9 +1123,8 @@ def report(prof, label, wall, top=8):
     print("    port kernels: " + (", ".join(
         f"{op} {ms:.3f} ms ({100 * ms / busy:.1f}%, {n} launches)"
         for op, (ms, n) in sorted(ops.items())) or "none"), flush=True)
-    # the Functions' backwards (flash's and SSDScan's kernels, FusedMLP's
-    # explicit torch): device time of every kernel launched under each
-    # autograd node
+    # the Functions' backwards (the backward kernels): device time of
+    # every kernel launched under each autograd node
     bwd = [e for e in averages if e.key.startswith(
         "autograd::engine::evaluate_function: ") and e.key.endswith(
         ("FlashAttentionBackward", "FusedMLPBackward", "SSDScanBackward"))]
@@ -1248,11 +1250,15 @@ def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal,
             "backward_bound_ms": bms, "backward_bound_by": by}
 
 
-def mlp_train_case(gen, flush, m, k, f):
-    """FusedMLP (kernel forward, explicit torch backward) against the
-    plain version at x [M, K], W1/W3 [K, F], W2 [F, K]: the forward, the
-    gradients, and the backward's time beside plain autograd's, the
-    cuBLAS chain's autograd and its bound. Returns the entry."""
+def mlp_train_case(gen, flush, m, k, f, timed=True):
+    """FusedMLP (kernel forward keeping g and u, backward kernels) against
+    the plain version at x [M, K], W1/W3 [K, F], W2 [F, K]: the forward,
+    the gradients (autograd of the plain version), two backward calls
+    bit-identical, and, when ``timed``, the backward kernels' time beside
+    the explicit-torch backward's (``fused_mlp_bwd``, the kernels' plain
+    version), plain autograd's, the cuBLAS chain's autograd and its bound.
+    Returns the entry."""
+    label = f"M={m} K={k} F={f}"
     x = randn(gen, m, k).requires_grad_()
     w1, w3 = (randn(gen, k, f, scale=k ** -0.5).requires_grad_()
               for _ in range(2))
@@ -1262,32 +1268,47 @@ def mlp_train_case(gen, flush, m, k, f):
     y = FusedMLP.apply(*args)
     y_ref = fused_mlp_ref(*args)
     torch.cuda.synchronize()
-    fwd_err = compare(f"FusedMLP forward [M={m} K={k} F={f}, {regime(m)} "
-                      "kernels]", y, y_ref)
+    fwd_err = compare(f"FusedMLP forward [{label}, prefill kernels keeping "
+                      "g and u]", y, y_ref)
     got = torch.autograd.grad(y, args, dy, retain_graph=True)
+    again = torch.autograd.grad(y, args, dy, retain_graph=True)
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    print(f"  FusedMLP backward kernels [{label}]: two calls bit-identical: "
+          f"{same}", flush=True)
+    if not same:
+        raise RuntimeError("the fused MLP backward kernels are not "
+                           "deterministic")
     want = torch.autograd.grad(y_ref, args, dy, retain_graph=True)
     torch.cuda.synchronize()
-    err = compare_grads(f"FusedMLP grads [M={m} K={k} F={f}]", got, want)
+    err = compare_grads(f"FusedMLP grads [{label}]", got, want)
+    entry = {"max_abs_err": fwd_err, "grad_max_err": err,
+             "shape": label + " bf16"}
+    del got, again, want
+    if not timed:
+        del y, y_ref, args, x, w1, w3, w2, dy
+        torch.cuda.empty_cache()
+        return entry
     ms = backward_ms(y, args, dy, flush)
+    xd, w1d, w3d, w2d = (t.detach() for t in args)
+    torch_ms = cuda_ms(lambda: fused_mlp_bwd(xd, w1d, w3d, w2d, dy), 3,
+                       flush)
     plain = backward_ms(y_ref, args, dy, flush, reps=2)
-    del y_ref, want
+    del y_ref
     y_lib = (F.silu(x @ w1) * (x @ w3)) @ w2
     lib = backward_ms(y_lib, args, dy, flush)
-    # eight products of 2 M K F (g and u recomputed, dW2, dh, dx's two,
-    # dW1, dW3); x, W1, W3, W2, dy read and dx, dW1, dW3, dW2 written once
-    bms, by = bound_ms(16.0 * m * k * f, 2.0 * (3 * m * k + 6 * k * f))
-    print(f"  FusedMLP backward [M={m} K={k} F={f}]: {ms:.4f} ms (explicit "
-          f"torch, bf16 cuBLAS products), plain autograd {plain:.4f} ms, "
-          f"cuBLAS-chain autograd {lib:.4f} ms, bound {bms:.4f} ms ({by})",
-          flush=True)
-    entry = {
-        "max_abs_err": fwd_err, "grad_max_err": err, "backward_ms": ms,
-        "plain_backward_ms": plain,
-        "library_backward_ms": lib, "backward_bound_ms": bms,
-        "backward_bound_by": by, "shape": f"M={m} K={k} F={f} bf16"}
-    del y, y_lib, got, args, x, w1, w3, w2, dy
+    # six products of 2 M K F (dh, dx's two, dW1, dW3, dW2; g and u are
+    # the forward's, not recomputed); x, W1, W3, W2, dy read and dx, dW1,
+    # dW3, dW2 written once
+    bms, by = bound_ms(12.0 * m * k * f, 2.0 * (3 * m * k + 6 * k * f))
+    print(f"  FusedMLP backward [{label}]: kernels {ms:.4f} ms, explicit "
+          f"torch (fused_mlp_bwd: bf16 cuBLAS products, g and u recomputed) "
+          f"{torch_ms:.4f} ms, plain autograd {plain:.4f} ms, cuBLAS-chain "
+          f"autograd {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    del y, y_lib, args, x, w1, w3, w2, dy, xd, w1d, w3d, w2d
     torch.cuda.empty_cache()
-    return entry
+    return {**entry, "backward_ms": ms, "torch_backward_ms": torch_ms,
+            "plain_backward_ms": plain, "library_backward_ms": lib,
+            "backward_bound_ms": bms, "backward_bound_by": by}
 
 
 def check_train_kernels(gen, flush):
@@ -1302,7 +1323,8 @@ def check_train_kernels(gen, flush):
     (the kernel) and the gradients (autograd of the
     plain version); the flash backward kernels also at head dims 80 and 96
     (stablelm_3b, phi3_mini_3_8b; 1 x 512) and at olmo_1b_smoke's hd 16,
-    which the ops pad to 64 (8 x 128). Returns {op: entry} with the
+    which the ops pad to 64 (8 x 128), and the fused MLP's at its K 64,
+    F 128 (K padded to 128). Returns {op: entry} with the
     forward's error and the backward's times (the kernels or the
     Function's backward, the explicit-torch backward, plain autograd,
     library)."""
@@ -1336,6 +1358,10 @@ def check_train_kernels(gen, flush):
     out["flash_attention"]["head_dims"] = more
     out["fused_mlp"]["llava"] = mlp_train_case(gen, flush, rows, ll.d_model,
                                                ll.d_ff)
+    sm = get_config("olmo_1b", smoke=True)
+    out["fused_mlp"]["smoke"] = mlp_train_case(gen, flush, 8 * 128,
+                                               sm.d_model, sm.d_ff,
+                                               timed=False)
     out["ssd_scan"] = check_ssd_train(gen, flush)
     return out
 
@@ -1442,12 +1468,12 @@ def expected_train_launches(cfg, steps: int):
     attention block, SwiGLU MLP (an MoE layer's shared expert) and
     Mamba-2 layer runs its kernel in the forward and again in the
     backward's recompute (the hybrid's shared block once per firing);
-    each attention block (firing) and Mamba-2 layer runs its backward
-    kernel once."""
+    each attention block (firing), SwiGLU MLP and Mamba-2 layer runs its
+    backward kernel once."""
     per_step = expected_launches(cfg, 1, 0)
     want = {op: 2 * n * steps for op, n in per_step.items()}
-    want["flash_attention_bwd"] = per_step["flash_attention"] * steps
-    want["ssd_scan_bwd"] = per_step["ssd_scan"] * steps
+    for op in ("flash_attention", "fused_mlp", "ssd_scan"):
+        want[op + "_bwd"] = per_step[op] * steps
     return want
 
 
@@ -2243,12 +2269,13 @@ def run_launchers(arch, train=True):
 
 
 def backward_entries(train_entries, train_launches, steps):
-    """The ``kernels`` JSON entries of the two backward kernels, from the
+    """The ``kernels`` JSON entries of the three backward kernels, from the
     train phase: their times and errors at the Functions' train shapes
-    (olmo_1b's attention, mamba2_780m's scan) and their launches in the
-    ``TRAIN`` runs (olmo_1b and mamba2_780m, whose counts were zeroed just
-    before each run), with each run's launches per step."""
+    (olmo_1b's attention and MLP, mamba2_780m's scan) and their launches
+    in the ``TRAIN`` runs (olmo_1b and mamba2_780m, whose counts were
+    zeroed just before each run), with each run's launches per step."""
     fl, ss = train_entries["flash_attention"], train_entries["ssd_scan"]
+    ml = train_entries["fused_mlp"]
     keys = ("backward_ms", "torch_backward_ms", "plain_backward_ms",
             "library_backward_ms", "backward_bound_ms", "grad_max_err",
             "shape")
@@ -2282,6 +2309,29 @@ def backward_entries(train_entries, train_launches, steps):
                     for r, c in fl["whisper"].items()},
         "llava": {k: fl["llava"][k] for k in keys},
         "head_dims": fl["head_dims"]}
+    mlp = {
+        "name": "fused_mlp_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "src/repro/kernels/fused_mlp/fused_mlp.py:52",
+        "replaces_note": "the gradient of that forward-only kernel, which "
+                         "the reference takes by XLA's autodiff of "
+                         "models/mlp.py's einsums",
+        "launches": train_launches["olmo_1b"]["fused_mlp_bwd"],
+        "launches_path": f"olmo_1b train, {steps} steps, remat full",
+        "launches_per_step": per_step("fused_mlp_bwd"),
+        "max_abs_err": ml["grad_max_err"],
+        "max_abs_err_of": "dx, dW1, dW3, dW2 scaled by their largest "
+                          "magnitude, against autograd of fused_mlp_ref",
+        "ms": ml["backward_ms"], "plain_ms": ml["torch_backward_ms"],
+        "plain": "fused_mlp_bwd (explicit torch)",
+        "plain_autograd_ms": ml["plain_backward_ms"],
+        "bound_ms": ml["backward_bound_ms"],
+        "bound_by": ml["backward_bound_by"],
+        "library_ms": ml["library_backward_ms"],
+        "library": "autograd of the cuBLAS chain (silu(x W1) * (x W3)) W2",
+        "shape": ml["shape"],
+        "llava": {k: ml["llava"][k] for k in keys},
+        "smoke": ml["smoke"]}
     ssd = {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -2307,10 +2357,10 @@ def backward_entries(train_entries, train_launches, steps):
                    "gradient (chunked_autograd_ms: autograd of the torch "
                    "chain ssd_chunked)",
         "smoke": ss["smoke"], "shape": ss["shape"]}
-    for e in (flash, ssd):
+    for e in (flash, mlp, ssd):
         print(f"  {e['name']}: {e['launches']} launches in {e['launches_path']}"
               f", per step {e['launches_per_step']}", flush=True)
-    return [flash, ssd]
+    return [flash, mlp, ssd]
 
 
 def _leaves(tree):
@@ -2467,14 +2517,18 @@ def main():
             arch: {"train_launches": mesh["moe_train"][arch]["launches"][
                 e["name"]], "decode_launches": mesh["moe_decode"][arch][
                 "launches"][e["name"]]} for arch, *_ in MESH_MOE_TRAIN}
-    flash_bwd = entries[-2]     # the flash backward kernels behind local_map
-    flash_bwd["mesh"] = {
-        "train_launches": mesh["train"]["launches"][flash_bwd["name"]],
-        "path": f"{MESH_TRAIN[0]} train on a (1, 1) (data, model) mesh",
-        "moe": {arch: mesh["moe_train"][arch]["launches"][flash_bwd["name"]]
-                for arch, *_ in MESH_MOE_TRAIN}}
-    if not flash_bwd["mesh"]["train_launches"]:
-        raise RuntimeError("the mesh train step ran no flash backward kernel")
+    # the flash and fused MLP backward kernels behind local_map
+    for e in entries:
+        if e["name"] not in ("flash_attention_bwd", "fused_mlp_bwd"):
+            continue
+        e["mesh"] = {
+            "train_launches": mesh["train"]["launches"][e["name"]],
+            "path": f"{MESH_TRAIN[0]} train on a (1, 1) (data, model) mesh",
+            "moe": {arch: mesh["moe_train"][arch]["launches"][e["name"]]
+                    for arch, *_ in MESH_MOE_TRAIN}}
+        if not e["mesh"]["train_launches"]:
+            raise RuntimeError(f"the mesh train step ran no {e['name']} "
+                               "kernel")
 
     phase("dryrun")
     t_dry = time.perf_counter()

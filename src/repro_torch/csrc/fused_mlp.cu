@@ -16,7 +16,10 @@
 // against a 0.73 ms bound) turns the MLP into two plain GEMMs with fused
 // epilogues, each written by hand here:
 //   1. gate/up: h[M, F] = silu(x W1) * (x W3), both products in one block
-//      over one x tile, the epilogue in fp32, h stored in bf16;
+//      over one x tile, the epilogue in fp32, h stored in bf16; under
+//      grad the epilogue also stores g = x W1 and u = x W3 in bf16, which
+//      the backward (csrc/fused_mlp_bwd.cu) reads instead of recomputing
+//      two products (serving stores neither);
 //   2. down: y[M, K] = h W2, stored in bf16.
 // No atomics: the result does not depend on the run (bit-identical for the
 // same inputs). The wrapper (kernels/fused_mlp/ops.py) picks the regime by
@@ -82,7 +85,8 @@ __global__ void __launch_bounds__(P_THREADS, 1)
 mlp_prefill(const __grid_constant__ CUtensorMap ta,
             const __grid_constant__ CUtensorMap tb0,
             const __grid_constant__ CUtensorMap tb1, bf16* __restrict__ out,
-            int M, int N, int R) {
+            bf16* __restrict__ g_out, bf16* __restrict__ u_out, int M, int N,
+            int R) {
   using C = Prefill<GATED>;
   __shared__ __align__(8) uint64_t full[C::STAGES];
   __shared__ __align__(8) uint64_t empty[C::STAGES];
@@ -178,15 +182,20 @@ mlp_prefill(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = r0 + 8 * half;
+          const long long at = static_cast<long long>(row) * N + col;
           float v0 = acc0[4 * i + 2 * half], v1 = acc0[4 * i + 2 * half + 1];
           if constexpr (GATED) {
-            v0 = silu_mul(v0, acc1[4 * i + 2 * half]);
-            v1 = silu_mul(v1, acc1[4 * i + 2 * half + 1]);
+            const float u0 = acc1[4 * i + 2 * half];
+            const float u1 = acc1[4 * i + 2 * half + 1];
+            if (g_out != nullptr && row < M) {
+              *reinterpret_cast<uint32_t*>(g_out + at) = pack_bf16(v0, v1);
+              *reinterpret_cast<uint32_t*>(u_out + at) = pack_bf16(u0, u1);
+            }
+            v0 = silu_mul(v0, u0);
+            v1 = silu_mul(v1, u1);
           }
           if (row < M)
-            *reinterpret_cast<uint32_t*>(
-                out + static_cast<long long>(row) * N + col) =
-                pack_bf16(v0, v1);
+            *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(v0, v1);
         }
       }
     }
@@ -325,15 +334,16 @@ mlp_decode(const __grid_constant__ CUtensorMap ta0,
 
 template <bool GATED>
 cudaError_t launch_prefill(const CUtensorMap& ta, const CUtensorMap& tb0,
-                           const CUtensorMap& tb1, bf16* out, int M, int N,
-                           int R, int sms, cudaStream_t s) {
+                           const CUtensorMap& tb1, bf16* out, bf16* g,
+                           bf16* u, int M, int N, int R, int sms,
+                           cudaStream_t s) {
   using C = Prefill<GATED>;
   static unsigned long long devices = 0;
   cudaError_t err = allow_smem(mlp_prefill<GATED>, C::SMEM, devices);
   if (err != cudaSuccess) return err;
   const int tiles = ((M + PM - 1) / PM) * (N / PN);
   mlp_prefill<GATED><<<tiles < sms ? tiles : sms, P_THREADS, C::SMEM, s>>>(
-      ta, tb0, tb1, out, M, N, R);
+      ta, tb0, tb1, out, g, u, M, N, R);
   return cudaGetLastError();
 }
 
@@ -385,17 +395,21 @@ cudaError_t decode(const bf16* x, const bf16* w1, const bf16* w3,
 extern "C" {
 
 // x [M, K], w1/w3 [K, F], w2 [F, K], h [M, F] (scratch), y [M, K]; bf16,
-// contiguous, 16-byte aligned; K % 128 == 0, F % 128 == 0.
+// contiguous, 16-byte aligned; K % 128 == 0, F % 128 == 0. g and u: null,
+// or [M, F] outputs that receive x W1 and x W3 in bf16 (the backward's
+// inputs; prefill kernels only).
 // decode != 0 (M <= 64): the swap-AB cluster kernels, reduction split over
 // split_up (gate/up, over K) and split_down (down, over F) blocks, each in
 // {1, 2, 4, 8} and at most the reduction's 64-wide blocks. decode == 0:
 // the persistent wgmma kernels on `sms` blocks at most.
 // Returns the first CUDA error of the two launches (0 on success).
 int fused_mlp_fwd_bf16(const void* x, const void* w1, const void* w3,
-                       const void* w2, void* h, void* y, int M, int K, int F,
-                       int decode_regime, int split_up, int split_down,
-                       int sms, void* stream) {
-  if (M < 1 || K % 128 != 0 || F % 128 != 0) return cudaErrorInvalidValue;
+                       const void* w2, void* h, void* y, void* g, void* u,
+                       int M, int K, int F, int decode_regime, int split_up,
+                       int split_down, int sms, void* stream) {
+  if (M < 1 || K % 128 != 0 || F % 128 != 0 ||
+      (g == nullptr) != (u == nullptr) || (g != nullptr && decode_regime))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* w1p = static_cast<const bf16*>(w1);
@@ -426,12 +440,15 @@ int fused_mlp_fwd_bf16(const void* x, const void* w1, const void* w3,
       !make_tmap_2d(&t_w1, w1, K, F, F, PK) ||
       !make_tmap_2d(&t_w3, w3, K, F, F, PK))
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_prefill<true>(t_x, t_w1, t_w3, hp, M, F, K, sms, s);
+  cudaError_t err =
+      launch_prefill<true>(t_x, t_w1, t_w3, hp, static_cast<bf16*>(g),
+                           static_cast<bf16*>(u), M, F, K, sms, s);
   if (err != cudaSuccess) return err;
   if (!make_tmap_2d(&t_h, h, M, F, F, PM) ||
       !make_tmap_2d(&t_w2, w2, F, K, K, PK))
     return cudaErrorInvalidValue;
-  return launch_prefill<false>(t_h, t_w2, t_w2, yp, M, K, F, sms, s);
+  return launch_prefill<false>(t_h, t_w2, t_w2, yp, nullptr, nullptr, M, K,
+                               F, sms, s);
 }
 
 const char* fused_mlp_error_string(int code) {

@@ -74,6 +74,18 @@ inline bool make_tmap(CUtensorMap* map, const void* base, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Make the primary context of the device that holds `p` current on this
+// thread. cuTensorMapEncodeTiled fails with
+// CUDA_ERROR_INVALID_CONTEXT on a thread that has made no CUDA call yet,
+// as autograd's backward thread may not have when a backward's first call
+// is a kernel of this repo.
+inline cudaError_t bind_device_of(const void* p) {
+  cudaPointerAttributes a;
+  cudaError_t err = cudaPointerGetAttributes(&a, p);
+  if (err != cudaSuccess) return err;
+  return cudaSetDevice(a.device);
+}
+
 // Allow `kernel` `bytes` of dynamic shared memory, once per device (the
 // call costs host time on a host-bound decode path). `devices` is the
 // caller's per-kernel bit set of devices already done.
@@ -192,6 +204,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA store of a box from shared memory (laid out as a TMA load would
+// leave it) to the tensor at coordinates (c0, c1); out-of-bounds parts
+// are not written. Completes in a bulk group: commit after issuing, then
+// `bulk_wait_read` before the shared memory is written again and
+// `bulk_wait` before the thread exits.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Make this thread's generic-proxy writes to shared memory visible to the

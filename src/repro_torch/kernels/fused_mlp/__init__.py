@@ -1,2 +1,2 @@
-from .ops import FusedMLP, fused_mlp
+from .ops import FusedMLP, fused_mlp, fused_mlp_backward
 from .ref import fused_mlp_ref

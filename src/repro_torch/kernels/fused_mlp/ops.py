@@ -2,13 +2,17 @@
 tensors, its plain version (``ref.fused_mlp_ref``) on CPU tensors.
 
 Replaces ``repro/kernels/fused_mlp/fused_mlp.py:fused_mlp``.
-``fused_mlp.launches`` counts calls that ran the kernels (one per MLP;
-each is a gate/up and a down launch per row chunk); only forwards count.
+``fused_mlp.launches`` counts calls that ran the forward kernels (one per
+MLP; each is a gate/up and a down launch per row chunk);
+``fused_mlp.bwd_launches`` counts calls of the backward kernels
+(``csrc/fused_mlp_bwd.cu``, four launches a call).
 
 ``FusedMLP`` puts the op under autograd: its forward is the op (the
 kernels on the card, in every forward, the recompute under remat
-included), its backward is explicit torch (``fused_mlp_bwd``). The raw
-op refuses to launch when autograd would record it (``_build.refuse_grad``).
+included; under grad they also keep g = x W1 and u = x W3 in bf16), its
+backward is ``fused_mlp_backward``: the backward kernels on CUDA
+tensors, the explicit torch ``fused_mlp_bwd`` on CPU tensors. The raw op
+refuses to launch when autograd would record it (``_build.refuse_grad``).
 
 K and F that are multiples of 64 but not of the kernels' 128-wide tiles
 (the smoke configs' K = 64) are zero-padded inside the op
@@ -21,7 +25,8 @@ path never pads.
 Two regimes, chosen by M here: ``decode`` (M <= 64) runs the swap-AB
 cluster kernels, whose reduction is split over ``decode_split`` blocks;
 ``prefill`` runs the persistent wgmma kernels over ``row_chunks``, which
-bound the bf16 h scratch.
+bound the bf16 h scratch. A forward that keeps g and u runs the prefill
+kernels at every M (only their epilogue stores them).
 """
 from __future__ import annotations
 
@@ -99,11 +104,13 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(m: int, k: int, f: int, sms: int):
+def _plan(m: int, k: int, f: int, sms: int, keep: bool = False):
     """(row chunks, rows of h, decode flag, split_up, split_down) for one
-    shape: computed once, since decode calls this 36 times a step."""
+    shape: computed once, since decode calls this 36 times a step. With
+    ``keep`` (g and u stored for the backward) the prefill kernels run at
+    every M, a decode-sized M as one chunk."""
     chunks = tuple(row_chunks(m, k, f))
-    decode = regime(m) == "decode"
+    decode = regime(m) == "decode" and not keep
     return (chunks, max(r for _, r in chunks), int(decode),
             decode_split(f, k, sms) if decode else 1,
             decode_split(k, f, sms) if decode else 1)
@@ -112,7 +119,16 @@ def _plan(m: int, k: int, f: int, sms: int):
 @functools.lru_cache(maxsize=None)
 def _bound():
     fn = _build.load("fused_mlp").fused_mlp_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bound_bwd():
+    fn = _build.load("fused_mlp_bwd").fused_mlp_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -138,6 +154,17 @@ def _check(x, w1, w3, w2):
     return padded_dims(k, f)
 
 
+def _pad(x, w1, w3, w2, kp: int, fp: int):
+    """The operands zero-padded to the kernels' (K, F) = (kp, fp)
+    (module docstring); unchanged where they already are."""
+    k0, f0 = x.shape[1], w1.shape[1]
+    if (kp, fp) == (k0, f0):
+        return x, w1, w3, w2
+    return (F.pad(x, (0, kp - k0)),
+            *(F.pad(w, (0, fp - f0, 0, kp - k0)) for w in (w1, w3)),
+            F.pad(w2, (0, kp - k0, 0, fp - f0)))
+
+
 def fused_mlp(x, w1, w3, w2):
     """x [M, K]; w1/w3 [K, F]; w2 [F, K] -> [M, K]:
     silu(x W1) * (x W3) formed in fp32, rounded to x.dtype, times W2."""
@@ -147,48 +174,104 @@ def fused_mlp(x, w1, w3, w2):
         return fused_mlp_ref(x, w1, w3, w2)
     _build.refuse_grad("fused_mlp", (x, w1, w3, w2),
                        "call FusedMLP.apply, which has a backward")
+    return _forward(x, w1, w3, w2, keep=False)[0]
+
+
+def _forward(x, w1, w3, w2, keep: bool):
+    """The forward kernels on CUDA tensors -> (y, g, u): with ``keep``, g =
+    x W1 and u = x W3 in bf16 at the padded [M, F] (the backward's
+    inputs), else None, None."""
     kp, fp = _check(x, w1, w3, w2)
-    k0, f0 = x.shape[1], w1.shape[1]
-    if (kp, fp) != (k0, f0):
-        x = F.pad(x, (0, kp - k0))
-        w1, w3 = (F.pad(w, (0, fp - f0, 0, kp - k0)) for w in (w1, w3))
-        w2 = F.pad(w2, (0, kp - k0, 0, fp - f0))
+    k0 = x.shape[1]
+    x, w1, w3, w2 = _pad(x, w1, w3, w2, kp, fp)
     m, k = x.shape
     f = w1.shape[1]
     sms = _sm_count(x.device.index)
-    chunks, h_rows, decode, split_up, split_down = _plan(m, k, f, sms)
+    chunks, h_rows, decode, split_up, split_down = _plan(m, k, f, sms, keep)
     y = torch.empty_like(x)
     h = torch.empty((h_rows, f), dtype=x.dtype, device=x.device)
+    g, u = ((torch.empty((m, f), dtype=x.dtype, device=x.device)
+             for _ in range(2)) if keep else (None, None))
     fn = _bound()
     row_bytes = k * x.element_size()
+    gu_bytes = f * x.element_size()
     with _build.on_device(x):
         stream = _build.stream_ptr(x)
         for start, rows in chunks:
             rc = fn(x.data_ptr() + start * row_bytes, w1.data_ptr(),
                     w3.data_ptr(), w2.data_ptr(), h.data_ptr(),
-                    y.data_ptr() + start * row_bytes, rows, k, f, decode,
-                    split_up, split_down, sms, stream)
+                    y.data_ptr() + start * row_bytes,
+                    *((t.data_ptr() + start * gu_bytes for t in (g, u))
+                      if keep else (None, None)),
+                    rows, k, f, decode, split_up, split_down, sms, stream)
             if rc:
                 _build.check(_build.load("fused_mlp"), "fused_mlp", rc)
     fused_mlp.launches += 1
-    return y[:, :k0].contiguous() if k != k0 else y
+    return (y[:, :k0].contiguous() if k != k0 else y), g, u
+
+
+def fused_mlp_backward(x, w1, w3, w2, dy, g=None, u=None):
+    """Gradients (dx, dW1, dW3, dW2) of ``fused_mlp`` for its output's
+    gradient ``dy``: on CUDA tensors the backward kernels
+    (``csrc/fused_mlp_bwd.cu``, four launches), which read g = x W1 and
+    u = x W3 as the forward kept them (``_forward(..., keep=True)``: bf16,
+    at the padded [M, F]); on CPU tensors the plain ``fused_mlp_bwd``
+    (which recomputes g and u when they are None). K and F the kernels do
+    not take natively are zero-padded as the forward pads them (dy too),
+    and the gradients sliced."""
+    if x.device.type == "cpu":
+        return fused_mlp_bwd(x, w1, w3, w2, dy, g, u)
+    kp, fp = _check(x, w1, w3, w2)
+    m, k0 = x.shape
+    f0 = w1.shape[1]
+    dy = dy.contiguous()
+    for name, t, shape in (("dy", dy, (m, k0)), ("g", g, (m, fp)),
+                           ("u", u, (m, fp))):
+        if t is None:
+            raise ValueError(f"the backward kernels need the forward's {name}")
+        _build.require_cuda(x, t)
+        if (t.dtype != x.dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{x.dtype} {shape}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    x, w1, w3, w2 = _pad(x, w1, w3, w2, kp, fp)
+    if kp != k0:
+        dy = F.pad(dy, (0, kp - k0))
+    h, dg, du = (torch.empty((m, fp), dtype=x.dtype, device=x.device)
+                 for _ in range(3))
+    dx = torch.empty_like(x)
+    dw1, dw3 = (torch.empty_like(w1) for _ in range(2))
+    dw2 = torch.empty_like(w2)
+    with _build.on_device(x):
+        rc = _bound_bwd()(*(t.data_ptr() for t in (
+            x, w1, w3, w2, dy, g, u, h, dg, du, dx, dw1, dw3, dw2)),
+            m, kp, fp, _sm_count(x.device.index), _build.stream_ptr(x))
+    _build.check(_build.load("fused_mlp_bwd"), "fused_mlp_bwd", rc)
+    fused_mlp.bwd_launches += 1
+    if (kp, fp) == (k0, f0):
+        return dx, dw1, dw3, dw2
+    return (dx[:, :k0].contiguous(), dw1[:k0, :f0].contiguous(),
+            dw3[:k0, :f0].contiguous(), dw2[:f0, :k0].contiguous())
 
 
 fused_mlp.launches = 0
+fused_mlp.bwd_launches = 0
 
 
-def fused_mlp_bwd(x, w1, w3, w2, dy):
-    """Gradients (dx, dW1, dW3, dW2) of the fused MLP, recomputed from its
-    inputs in explicit torch: g = xW1, u = xW3, h = silu(g)*u;
-    dW2 = h^T dy; dh = dy W2^T; dg = dh*u*silu'(g); du = dh*silu(g);
-    dx = dg W1^T + du W3^T; dW1 = x^T dg; dW3 = x^T du. Products run in
-    x.dtype with fp32 accumulation (cuBLAS on the card, as the
-    reference's XLA backward does in bf16), the elementwise part in fp32
-    (float64 for float64 inputs); h, dg and du are rounded to x.dtype
-    before their products, as h is in the forward."""
+def fused_mlp_bwd(x, w1, w3, w2, dy, g=None, u=None):
+    """Gradients (dx, dW1, dW3, dW2) of the fused MLP in explicit torch:
+    g = xW1, u = xW3 (the given ones, as the forward kept them, else
+    recomputed), h = silu(g)*u; dW2 = h^T dy; dh = dy W2^T;
+    dg = dh*u*silu'(g); du = dh*silu(g); dx = dg W1^T + du W3^T;
+    dW1 = x^T dg; dW3 = x^T du. Products run in x.dtype with fp32
+    accumulation (cuBLAS on the card, as the reference's XLA backward
+    does in bf16), the elementwise part in fp32 (float64 for float64
+    inputs); g and u are x.dtype products, and h, dg and du are rounded
+    to x.dtype before their products, as h is in the forward."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    g = (x @ w1).to(acc)
-    u = (x @ w3).to(acc)
+    g = (x @ w1 if g is None else g).to(acc)
+    u = (x @ w3 if u is None else u).to(acc)
     sig = torch.sigmoid(g)
     sg = g * sig                                   # silu(g)
     dw2 = (sg * u).to(x.dtype).T @ dy
@@ -205,18 +288,26 @@ class FusedMLP(torch.autograd.Function):
 
     Forward is the op as it is: the hand-written kernels on CUDA tensors
     (so the kernel runs in every forward, including the recompute under
-    remat), the plain version on CPU tensors. Backward is explicit torch
-    recomputed from the saved inputs (``fused_mlp_bwd``): the TPU kernel
-    is forward-only and the reference's gradients come from XLA's
-    autodiff of einsums outside any Pallas kernel, so there is no backward
-    kernel to port. This is not a fallback; a Hopper backward kernel is
-    later speed work (ROADMAP Queue 2)."""
+    remat), the plain version on CPU tensors; on the card, when an input
+    needs a gradient, it also keeps g = x W1 and u = x W3 in bf16.
+    Backward is ``fused_mlp_backward``: the hand-written backward kernels
+    (``csrc/fused_mlp_bwd.cu``) on CUDA tensors, from the saved g and u;
+    the explicit torch ``fused_mlp_bwd`` on CPU tensors, recomputed from
+    the saved inputs. The TPU kernel is forward-only and the reference's
+    gradients come from XLA's autodiff of einsums outside any Pallas
+    kernel; the backward kernels compute that gradient."""
 
     @staticmethod
     def forward(ctx, x, w1, w3, w2):
-        ctx.save_for_backward(x, w1, w3, w2)
-        return fused_mlp(x, w1, w3, w2)
+        if x.device.type == "cpu":
+            y, g, u = fused_mlp(x, w1, w3, w2), None, None
+        else:
+            y, g, u = _forward(x, w1, w3, w2,
+                               keep=any(ctx.needs_input_grad))
+        ctx.save_for_backward(x, w1, w3, w2, g, u)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        return fused_mlp_bwd(*ctx.saved_tensors, dy)
+        x, w1, w3, w2, g, u = ctx.saved_tensors   # unpacked once (remat)
+        return fused_mlp_backward(x, w1, w3, w2, dy, g, u)

@@ -2,11 +2,13 @@
 dispatch).
 
 PyTorch counterpart of ``repro.models.mlp``. On CUDA tensors SwiGLU runs
-the hand-written fused MLP kernel through its autograd Function
-(``kernels.fused_mlp.FusedMLP``: the kernel forward, an explicit torch
-backward), which forms h in fp32 and rounds it once; on CPU tensors it
-runs the reference's formula, which rounds each product to x.dtype,
-under plain autograd. In bf16 the two round differently.
+the hand-written fused MLP kernels through their autograd Function
+(``kernels.fused_mlp.FusedMLP``: the forward kernels, which form h in
+fp32 and round it once and under grad keep g = x W1 and u = x W3 in
+bf16; the backward kernels ``csrc/fused_mlp_bwd.cu``, which start from
+that g and u); on CPU tensors it runs the reference's formula, which
+rounds each product to x.dtype, under plain autograd. In bf16 the two
+round differently.
 
 MoE: the router and the routed experts have no Pallas kernel in the
 reference (jnp einsums), so here they are torch ops: an fp32 router

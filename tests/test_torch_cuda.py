@@ -27,7 +27,8 @@ from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import REGIMES, regime  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
-                                           fused_mlp_ref)
+                                           fused_mlp_backward, fused_mlp_ref)
+from repro_torch.kernels.fused_mlp import ops as mlp_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
                                           ssd_ref, ssd_scan,
                                           ssd_scan_backward, to_pallas_layout)
@@ -402,13 +403,109 @@ def test_fused_mlp_function_grads_match_plain(cuda, m, k, f):
             _randn(gen, k, f, scale=k ** -0.5).requires_grad_(),
             _randn(gen, f, k, scale=f ** -0.5).requires_grad_())
     dy = _randn(gen, m, k)
-    before = fused_mlp.launches
+    before, bwd = fused_mlp.launches, fused_mlp.bwd_launches
     y = FusedMLP.apply(*args)
     assert fused_mlp.launches == before + 1
     got = torch.autograd.grad(y, args, dy)
-    assert fused_mlp.launches == before + 1   # the backward is torch
+    assert fused_mlp.launches == before + 1   # no forward in the backward
+    assert fused_mlp.bwd_launches == bwd + 1
     want = torch.autograd.grad(fused_mlp_ref(*args), args, dy)
     _scaled_close(got, want)
+
+
+def _mlp_args(gen, m, k, f):
+    """bf16 x [M, K], W1/W3 [K, F], W2 [F, K] (fan-in scaled) that require
+    grad, and dy [M, K]."""
+    return ((_randn(gen, m, k).requires_grad_(),
+             _randn(gen, k, f, scale=k ** -0.5).requires_grad_(),
+             _randn(gen, k, f, scale=k ** -0.5).requires_grad_(),
+             _randn(gen, f, k, scale=f ** -0.5).requires_grad_()),
+            _randn(gen, m, k))
+
+
+@pytest.mark.parametrize("m,k,f", [
+    (512, 2048, 8192),     # olmo_1b's width, M cut from 8192
+    (640, 7168, 20480),    # llava_next_34b's one-step check (576 + 64 rows)
+    (128, 64, 128),        # the smoke configs' K 64 (padded to 128)
+    (200, 64, 64),         # deepseek smoke's shared expert, both padded
+    (1, 256, 512),         # M tails: one row, one 64-row box, past 128
+    (64, 256, 512),
+    (200, 256, 512),
+])
+def test_fused_mlp_backward_kernel_matches_plain(cuda, m, k, f):
+    """FusedMLP (kernel forward keeping g and u, backward kernels) against
+    autograd of ``fused_mlp_ref`` on the same bf16 inputs, each gradient
+    scaled by its largest magnitude and held to the repo's bf16 tolerance
+    (the kernels round g, u, h, dg and du to bf16, as ``fused_mlp_bwd``
+    does); one backward launch counted a call, and no forward launch."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    args, dy = _mlp_args(gen, m, k, f)
+    y = FusedMLP.apply(*args)
+    before, bwd = fused_mlp.launches, fused_mlp.bwd_launches
+    got = torch.autograd.grad(y, args, dy)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp.bwd_launches) == (before, bwd + 1)
+    for g_, a in zip(got, args):
+        assert g_.shape == a.shape and g_.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g_).all())
+    want = torch.autograd.grad(fused_mlp_ref(*args), args, dy)
+    _scaled_close(got, want)
+
+
+def test_fused_mlp_backward_kernel_is_deterministic(cuda):
+    """Two backward calls, and two ``retain_graph`` passes through one
+    graph, give the same bits (no atomics; no saved tensor is
+    overwritten)."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    args, dy = _mlp_args(gen, 300, 256, 1024)
+    y = FusedMLP.apply(*args)
+    one = torch.autograd.grad(y, args, dy, retain_graph=True)
+    two = torch.autograd.grad(y, args, dy, retain_graph=True)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    x, w1, w3, w2 = (t.detach() for t in args)
+    with torch.no_grad():
+        _, g, u = mlp_ops._forward(x, w1, w3, w2, keep=True)
+    three = fused_mlp_backward(x, w1, w3, w2, dy, g, u)
+    four = fused_mlp_backward(x, w1, w3, w2, dy, g, u)
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(three, four, one))
+
+
+def test_fused_mlp_forward_keeps_g_and_u(cuda):
+    """Under grad the forward stores g = x W1 and u = x W3 in bf16 (the
+    prefill kernels at every M, decode-sized too) and its output equals
+    the serving forward's bitwise at prefill M."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    for m in (4, 64, 200):
+        (x, w1, w3, w2), _ = _mlp_args(gen, m, 256, 512)
+        x, w1, w3, w2 = (t.detach() for t in (x, w1, w3, w2))
+        y, g, u = mlp_ops._forward(x, w1, w3, w2, keep=True)
+        for got, w in ((g, w1), (u, w3)):
+            torch.testing.assert_close(got.float(), (x.float() @ w.float()),
+                                       **BF16_TOL)
+        torch.testing.assert_close(y.float(), fused_mlp_ref(
+            x, w1, w3, w2).float(), **BF16_TOL)
+        if m > 64:
+            assert torch.equal(y, fused_mlp(x, w1, w3, w2))
+
+
+def test_fused_mlp_backward_refuses_what_it_cannot_take(cuda):
+    """The backward kernels take bf16 only, and need the forward's g and
+    u; neither falls back to the torch backward."""
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    (x, w1, w3, w2), dy = _mlp_args(gen, 64, 128, 256)
+    x, w1, w3, w2 = (t.detach() for t in (x, w1, w3, w2))
+    g = u = torch.zeros((64, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_mlp_backward(*(t.float() for t in (x, w1, w3, w2)),
+                           dy.float(), g.float(), u.float())
+    with pytest.raises(ValueError, match="forward's g"):
+        fused_mlp_backward(x, w1, w3, w2, dy)
+    with pytest.raises(ValueError, match="dy must be"):
+        fused_mlp_backward(x, w1, w3, w2, dy.float(), g, u)
+    with pytest.raises(ValueError, match="bfloat16"):
+        FusedMLP.apply(*(t.float().requires_grad_() for t in (x, w1, w3,
+                                                              w2)))
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd", [(2, 128, 4, 2, 64),
@@ -554,19 +651,23 @@ def test_ssd_backward_kernel_is_deterministic(cuda):
 
 def test_backward_kernels_never_call_plain_versions(cuda, monkeypatch):
     """On CUDA tensors the Functions' backwards launch the kernels: the
-    plain ``attention_bwd`` and ``ssd_scan_bwd`` are never called."""
+    plain ``attention_bwd``, ``ssd_scan_bwd`` and ``fused_mlp_bwd`` are
+    never called."""
     def refuse(*_, **__):
         raise AssertionError("a plain backward ran on CUDA tensors")
 
     monkeypatch.setattr(flash_ops, "attention_bwd", refuse)
     monkeypatch.setattr(ssd_ops, "ssd_scan_bwd", refuse)
+    monkeypatch.setattr(mlp_ops, "fused_mlp_bwd", refuse)
     gen = torch.Generator(device=cuda).manual_seed(16)
     q = _randn(gen, 2, 128, 4, 64).requires_grad_()
     k, v = (_randn(gen, 2, 128, 2, 64).requires_grad_() for _ in range(2))
     FlashAttention.apply(q, k, v, True).float().sum().backward()
     args = [t.requires_grad_() for t in _ssd_inputs(gen, 1, 256, 4, 1, 64)]
     SSDScan.apply(*args, 128)[0].float().sum().backward()
-    assert all(t.grad is not None for t in (q, k, v, *args))
+    mlp_args, _ = _mlp_args(gen, 100, 128, 256)
+    FusedMLP.apply(*mlp_args).float().sum().backward()
+    assert all(t.grad is not None for t in (q, k, v, *args, *mlp_args))
 
 
 def test_raw_kernels_refuse_to_drop_gradients(cuda):
@@ -623,8 +724,8 @@ def _train_launches(cfg, policy="full"):
     """Kernel launches of one train step: every attention block, MLP and
     Mamba-2 layer runs its kernel in the forward and again in the remat
     recompute, except the MLP under "mlp", which keeps its input; every
-    attention block and Mamba-2 layer runs its backward kernel once. An
-    MoE layer's only fused MLP is its shared expert (deepseek)."""
+    attention block, MLP and Mamba-2 layer runs its backward kernel once.
+    An MoE layer's only fused MLP is its shared expert (deepseek)."""
     if cfg.is_ssm_family:
         blocks = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
         mlps, ssd = blocks, 2 * cfg.n_layers
@@ -632,17 +733,19 @@ def _train_launches(cfg, policy="full"):
         blocks, ssd = cfg.n_layers, 0
         mlps = blocks if cfg.family != "moe" or cfg.n_shared_experts else 0
     return {"flash": 2 * blocks, "mlp": (1 if policy == "mlp" else 2) * mlps,
-            "ssd": ssd, "flash_bwd": blocks, "ssd_bwd": ssd // 2}
+            "ssd": ssd, "flash_bwd": blocks, "mlp_bwd": mlps,
+            "ssd_bwd": ssd // 2}
 
 
 FORWARD = ("flash", "mlp", "ssd")          # forward kernel counters
-NO_BWD = {"flash_bwd": 0, "ssd_bwd": 0}    # what serving launches
+NO_BWD = {"flash_bwd": 0, "mlp_bwd": 0, "ssd_bwd": 0}  # what serving launches
 
 
 def _counts():
     return {"flash": flash_attention.launches, "mlp": fused_mlp.launches,
             "ssd": ssd_scan.launches,
             "flash_bwd": flash_attention.bwd_launches,
+            "mlp_bwd": fused_mlp.bwd_launches,
             "ssd_bwd": ssd_scan.bwd_launches}
 
 
@@ -679,7 +782,8 @@ def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
     """One card train step of olmo_1b_smoke (hd 16, K 64: padded inside
     the kernels' ops) runs flash twice per layer (forward and remat
     recompute) and its backward kernel once, and the fused MLP twice
-    (once under "mlp", which keeps the MLP's input); every projection and
+    (once under "mlp", which keeps the MLP's input) and its backward
+    kernels once; every projection and
     MLP weight of every layer gets a non-zero gradient; the policies
     agree."""
     cfg = get_config("olmo_1b", smoke=True).with_(remat_policy=policy)
@@ -689,12 +793,13 @@ def test_card_train_step_launches_and_gradients(cuda, policy, mlp_per_layer):
         0, cfg.vocab, (2, 65)).astype(np.int32)).to(cuda)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     f0, m0 = flash_attention.launches, fused_mlp.launches
-    b0 = flash_attention.bwd_launches
+    b0, mb0 = flash_attention.bwd_launches, fused_mlp.bwd_launches
     loss, _, grads = value_and_grad(cfg, params, batch)
     torch.cuda.synchronize()
     assert flash_attention.launches - f0 == 2 * cfg.n_layers
     assert fused_mlp.launches - m0 == mlp_per_layer * cfg.n_layers
     assert flash_attention.bwd_launches - b0 == cfg.n_layers
+    assert fused_mlp.bwd_launches - mb0 == cfg.n_layers
     assert torch.isfinite(loss)
     for name in ("wq", "wk", "wv", "wo"):
         assert (grads["layers"]["attn"][name].flatten(1).abs().sum(1)
@@ -739,12 +844,14 @@ def test_olmo_smoke_trains_on_card(cuda):
                  TrainerConfig(steps=2, log_every=1),
                  DataConfig(batch=4, seq=64), device=cuda)
     f0, m0 = flash_attention.launches, fused_mlp.launches
+    mb0 = fused_mlp.bwd_launches
     tr.run()
     losses = [h["loss"] for h in tr.metrics_history]
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert losses[1] < losses[0]
     assert flash_attention.launches - f0 == 2 * 2 * cfg.n_layers
     assert fused_mlp.launches - m0 == 2 * 2 * cfg.n_layers
+    assert fused_mlp.bwd_launches - mb0 == 2 * cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
@@ -883,17 +990,17 @@ def test_moe_train_step_on_card(cuda, arch, policy):
         assert (g.flatten(1).abs().sum(1) > 0).all(), name
 
 
-def test_moe_mesh_step_at_world_size_one_is_meshless(cuda, tmp_path):
-    """granite_moe_1b_a400m smoke: one train step on a one-rank NCCL
-    group's (1, 1) mesh (params, ZeRO moments and batch DTensors; the MoE
-    layer's three local_calls) is bitwise the meshless step, with the
-    same kernel launches (flash twice a layer: forward and recompute)."""
+def _mesh_step_is_meshless(cuda, tmp_path, arch):
+    """One smoke train step of ``arch`` on a one-rank NCCL group's (1, 1)
+    mesh (params, ZeRO moments and batch DTensors; the kernels behind
+    ``local_call``) against the meshless step: bitwise equal, with the
+    same kernel launches, which are ``_train_launches``'."""
     import torch.distributed as dist
     from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.train.optimizer import init_opt_state
-    cfg = get_config("granite_moe_1b_a400m", smoke=True)
+    cfg = get_config(arch, smoke=True)
     opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     toks = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab, (4, 65)).astype(np.int32)).to(cuda)
@@ -935,6 +1042,26 @@ def test_moe_mesh_step_at_world_size_one_is_meshless(cuda, tmp_path):
     want = {"params": p1, "mu": o1["mu"], "nu": o1["nu"]}
     tree_map(lambda path, t: None if torch.equal(
         t, tree_get(want, path)) else pytest.fail(path), got)
+    return meshed
+
+
+def test_moe_mesh_step_at_world_size_one_is_meshless(cuda, tmp_path):
+    """granite_moe_1b_a400m smoke: one train step on a one-rank NCCL
+    group's (1, 1) mesh (params, ZeRO moments and batch DTensors; the MoE
+    layer's three local_calls) is bitwise the meshless step, with the
+    same kernel launches (flash twice a layer: forward and recompute)."""
+    _mesh_step_is_meshless(cuda, tmp_path, "granite_moe_1b_a400m")
+
+
+def test_dense_mesh_step_launches_mlp_backward_through_local_call(
+        cuda, tmp_path):
+    """olmo_1b smoke on the (1, 1) mesh: ``_swiglu_sharded`` reaches the
+    fused MLP through ``local_call``, and its backward kernels launch
+    there once per layer, as in the meshless step, which it equals
+    bitwise."""
+    cfg = get_config("olmo_1b", smoke=True)
+    meshed = _mesh_step_is_meshless(cuda, tmp_path, "olmo_1b")
+    assert meshed["mlp_bwd"] == cfg.n_layers > 0
 
 
 # ---------------------------------------------------------------------------
