@@ -62,7 +62,8 @@ Phases, each raising on failure:
                 csrc/flash_attn_bwd.cu, csrc/fused_mlp_bwd.cu and
                 csrc/ssd_scan_bwd.cu) at the
                 train shapes (flash and fused_mlp at olmo_1b's, SSDScan at
-                mamba2_780m's, flash also in whisper_base's three regimes
+                mamba2_780m's, flash also at granite_moe_1b_a400m's, in
+                whisper_base's three regimes
                 at B=4: the encoder's non-causal 1500 x 1500, the decoder's
                 causal 448 and its cross-attention 448 x 1500, at
                 llava_next_34b's, at hd 80 and 96 and at the smoke hd 16;
@@ -70,8 +71,9 @@ Phases, each raising on failure:
                 F 128): its output against the plain version, its
                 gradients against autograd of the plain version (SSDScan:
                 of the chunked form ``ssd_chunked``), two backward calls
-                bit-identical, with the backward's time beside the
-                explicit-torch backward's (``attention_bwd``,
+                bit-identical, with the backward's time (flash: also
+                its three launches' device time alone, by torch.profiler)
+                beside the explicit-torch backward's (``attention_bwd``,
                 ``fused_mlp_bwd``, ``ssd_scan_bwd``), plain autograd's and
                 a library yardstick's; (b) one train
                 step's loss, gradient norm and every gradient leaf on the
@@ -1185,6 +1187,32 @@ def backward_ms(out, inputs, dy, flush, reps=5):
                    flush)
 
 
+def flash_bwd_launch_ms(y, inputs, dy, reps=5,
+                        pattern=r"flash_bwd_([a-z]+)"):
+    """Device time of each launch of the flash backward (csrc/
+    flash_attn_bwd.cu: delta, main, convert) per backward call through
+    ``y``'s graph, by torch.profiler over ``reps`` calls: the launches
+    alone, without the host's work before them that an event timing of
+    the call includes. Returns {launch: ms}; with ``pattern`` ".*" the
+    device time of every kernel of the call, under one key."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.autograd.grad(y, inputs, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.autograd.grad(y, inputs, dy, retain_graph=True)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m:
+            key = m.group(1) if m.groups() else "all"
+            out[key] = (out.get(key, 0.0)
+                        + e.self_device_time_total / 1e3 / reps)
+    return out
+
+
 def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal,
                      timed=True):
     """FlashAttention (kernel forward, kernel backward) against the plain
@@ -1222,6 +1250,7 @@ def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal,
         torch.cuda.empty_cache()
         return entry
     ms = backward_ms(y, (q, kk, v), do, flush)
+    launch_ms = flash_bwd_launch_ms(y, (q, kk, v), do)
     qd, kd, vd = (t.detach() for t in (q, kk, v))
     torch_ms = cuda_ms(lambda: attention_bwd(qd, kd, vd, do, causal), 3,
                        flush)
@@ -1231,6 +1260,8 @@ def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal,
     y_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
     lib = backward_ms(y_lib, (q, kk, v), do.transpose(1, 2), flush)
+    lib_launch_ms = sum(flash_bwd_launch_ms(
+        y_lib, (q, kk, v), do.transpose(1, 2), pattern=".*").values())
     # five products over the (query, key) pairs the mask keeps (S, dV, dP,
     # dQ, dK; the row sums rowsum(dO o O) = rowsum(P o dP) need no sixth);
     # q, dO and dq, k, v and dk, dv read or written once, bf16
@@ -1238,15 +1269,20 @@ def flash_train_case(gen, flush, b, sq, skv, h, kv, hd, causal,
              else sq * skv)
     bms, by = bound_ms(10.0 * b * h * hd * pairs,
                        2.0 * b * hd * (3 * sq * h + 4 * skv * kv))
-    print(f"  FlashAttention backward [{label}]: kernels {ms:.4f} ms, "
+    print(f"  FlashAttention backward [{label}]: kernels {ms:.4f} ms "
+          f"(launches alone {sum(launch_ms.values()):.4f}: " + ", ".join(
+              f"{n} {t:.4f}" for n, t in launch_ms.items()) + "), "
           f"explicit torch (attention_bwd: bf16 cuBLAS products, "
           f"materialised fp32 softmax) {torch_ms:.4f} ms, plain autograd "
-          f"{plain:.4f} ms, SDPA backward {lib:.4f} ms, bound {bms:.4f} ms "
-          f"({by})", flush=True)
+          f"{plain:.4f} ms, SDPA backward {lib:.4f} ms (launches alone "
+          f"{lib_launch_ms:.4f}), bound {bms:.4f} ms ({by})", flush=True)
     del y, y_lib, q, kk, v, do, qt, kt, vt, qd, kd, vd
     torch.cuda.empty_cache()
-    return {**entry, "backward_ms": ms, "torch_backward_ms": torch_ms,
+    return {**entry, "backward_ms": ms,
+            "backward_launches_ms": sum(launch_ms.values()),
+            "backward_launch_ms": launch_ms, "torch_backward_ms": torch_ms,
             "plain_backward_ms": plain, "library_backward_ms": lib,
+            "library_backward_launches_ms": lib_launch_ms,
             "backward_bound_ms": bms, "backward_bound_by": by}
 
 
@@ -1314,7 +1350,8 @@ def mlp_train_case(gen, flush, m, k, f, timed=True):
 def check_train_kernels(gen, flush):
     """Each kernel's autograd Function against its plain version at
     olmo_1b's train shapes (4 x 2048 tokens): flash B=4 S=2048 H=16 hd=128
-    causal, fused_mlp M=8192 K=2048 F=8192; FlashAttention also in
+    causal, fused_mlp M=8192 K=2048 F=8192; FlashAttention also at
+    granite_moe_1b_a400m's (B=4 S=2048 H=16 KV=8 hd=64 causal), in
     whisper_base's three training regimes at B=4 (1500 frames, 448
     decoder tokens, H=8 hd=64: the encoder's non-causal Sq = Skv = 1500,
     the decoder's causal 448 and its non-causal cross-attention 448 x
@@ -1333,6 +1370,9 @@ def check_train_kernels(gen, flush):
     k, f, m = cfg.d_model, cfg.d_ff, 4 * 2048
     out = {"flash_attention": flash_train_case(gen, flush, b, s, s, h, h,
                                                hd, True)}
+    gm = get_config("granite_moe_1b_a400m")
+    out["flash_attention"]["granite_moe"] = flash_train_case(
+        gen, flush, b, s, s, gm.n_heads, gm.n_kv_heads, gm.hd, True)
     wh = get_config("whisper_base")
     frames, toks = wh.enc_frames, WHISPER_TRAIN_TOKENS
     out["flash_attention"]["whisper"] = {
@@ -2279,6 +2319,8 @@ def backward_entries(train_entries, train_launches, steps):
     keys = ("backward_ms", "torch_backward_ms", "plain_backward_ms",
             "library_backward_ms", "backward_bound_ms", "grad_max_err",
             "shape")
+    fkeys = keys + ("backward_launches_ms", "backward_launch_ms",
+                    "library_backward_launches_ms")
 
     def per_step(op):
         return {arch: run[op] // steps for arch, run in train_launches.items()}
@@ -2305,9 +2347,13 @@ def backward_entries(train_entries, train_launches, steps):
         "library": "backward of F.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
         "shape": fl["shape"],
-        "whisper": {r: {k: c[k] for k in keys}
+        "launches_alone_ms": fl["backward_launches_ms"],
+        "launch_device_ms": fl["backward_launch_ms"],
+        "library_launches_alone_ms": fl["library_backward_launches_ms"],
+        "granite_moe": {k: fl["granite_moe"][k] for k in fkeys},
+        "whisper": {r: {k: c[k] for k in fkeys}
                     for r, c in fl["whisper"].items()},
-        "llava": {k: fl["llava"][k] for k in keys},
+        "llava": {k: fl["llava"][k] for k in fkeys},
         "head_dims": fl["head_dims"]}
     mlp = {
         "name": "fused_mlp_bwd", "route": "cuda",

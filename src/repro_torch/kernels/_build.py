@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -110,6 +111,13 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the persistent
+    kernels' grid size), read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

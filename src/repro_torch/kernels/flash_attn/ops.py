@@ -58,12 +58,19 @@ def _bind(lib):
 
 
 def _bind_bwd(lib):
-    fn = lib.flash_attn_bwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """(entry, workspace-size function) of the backward's library, typed
+    once."""
+    if not hasattr(lib, "_flash_bwd_fns"):
+        fn = lib.flash_attn_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
+                          ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ws = lib.flash_attn_bwd_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 7
+        ws.restype = ctypes.c_longlong
+        lib._flash_bwd_fns = (fn, ws)
+    return lib._flash_bwd_fns
 
 
 def _to_bshd(t):
@@ -166,8 +173,10 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     """Gradients (dq, dk, dv) of ``flash_attention`` for its output's
     gradient ``do``, in either layout of the op: on CUDA tensors the
     backward kernels (``csrc/flash_attn_bwd.cu``: D = rowsum(do o o),
-    then dk/dv and dq, P recomputed from ``lse``, the forward's log-sum-
-    exp from ``_attend(..., with_lse=True)``); on CPU tensors the plain
+    then one kernel for the five products, P recomputed from ``lse``, the
+    forward's log-sum-exp from ``_attend(..., with_lse=True)``, dq summed
+    over key tiles in a fixed order in an fp32 scratch, then dq from it;
+    three launches); on CPU tensors the plain
     ``attention_bwd``, which recomputes everything from q, k, v and reads
     neither ``o`` nor ``lse``. Head dims the kernels do not take natively
     are zero-padded as the forward pads them (o and do too), with the
@@ -206,16 +215,20 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     if causal and sq > skv:
         raise ValueError(f"the causal backward kernel needs Sq <= Skv, got "
                          f"Sq={sq} Skv={skv}")
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in ts for s in t.stride()[:3]))
     lib = _build.load("flash_attn_bwd")
+    fn, ws = _bind_bwd(lib)
+    sms = _build.sm_count(q.device.index)
+    # dq_acc (the fp32 dQ sums), the padded lse and D, the semaphores and,
+    # for GQA with few work items, per-head dK and dV
+    work = torch.empty(ws(b, h, kv, sq, skv, hdp, sms), dtype=torch.uint8,
+                       device=q.device)
     with _build.on_device(q):
-        rc = _bind_bwd(lib)(*(t.data_ptr() for t in (q4, k4, v4, o4, do4)),
-                            lse.data_ptr(), *(t.data_ptr() for t in ts[5:]),
-                            delta.data_ptr(), b, h, kv, sq, skv, hdp,
-                            int(causal), 1.0 / (hd ** 0.5), strides,
-                            _build.stream_ptr(q))
+        rc = fn(*(t.data_ptr() for t in (q4, k4, v4, o4, do4)),
+                lse.data_ptr(), *(t.data_ptr() for t in ts[5:]),
+                work.data_ptr(), b, h, kv, sq, skv, hdp, int(causal),
+                1.0 / (hd ** 0.5), strides, sms, _build.stream_ptr(q))
     _build.check(lib, "flash_attn_bwd", rc)
     flash_attention.bwd_launches += 1
     if pad:

@@ -98,11 +98,6 @@ def decode_split(outputs: int, reduction: int, sms: int) -> int:
     return best
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=256)
 def _plan(m: int, k: int, f: int, sms: int, keep: bool = False):
     """(row chunks, rows of h, decode flag, split_up, split_down) for one
@@ -186,7 +181,7 @@ def _forward(x, w1, w3, w2, keep: bool):
     x, w1, w3, w2 = _pad(x, w1, w3, w2, kp, fp)
     m, k = x.shape
     f = w1.shape[1]
-    sms = _sm_count(x.device.index)
+    sms = _build.sm_count(x.device.index)
     chunks, h_rows, decode, split_up, split_down = _plan(m, k, f, sms, keep)
     y = torch.empty_like(x)
     h = torch.empty((h_rows, f), dtype=x.dtype, device=x.device)
@@ -246,7 +241,7 @@ def fused_mlp_backward(x, w1, w3, w2, dy, g=None, u=None):
     with _build.on_device(x):
         rc = _bound_bwd()(*(t.data_ptr() for t in (
             x, w1, w3, w2, dy, g, u, h, dg, du, dx, dw1, dw3, dw2)),
-            m, kp, fp, _sm_count(x.device.index), _build.stream_ptr(x))
+            m, kp, fp, _build.sm_count(x.device.index), _build.stream_ptr(x))
     _build.check(_build.load("fused_mlp_bwd"), "fused_mlp_bwd", rc)
     fused_mlp.bwd_launches += 1
     if (kp, fp) == (k0, f0):

@@ -538,6 +538,12 @@ FLASH_BWD_SHAPES = [
     (2, 256, 256, 32, 32, 96, True),      # phi3_mini_3_8b's hd 96
     (8, 128, 128, 4, 2, 16, True),        # a smoke train step, hd 16
     (1, 100, 260, 4, 2, 64, True),        # end-aligned Sq < Skv, ragged
+    # the dQ order across key tiles: one query tile summed over 32 key
+    # tiles (non-causal), and causal Sq < Skv ragged across a 128-key tile
+    (1, 64, 4096, 4, 4, 64, False),
+    (1, 130, 390, 8, 2, 128, True),
+    # a head count that is not a multiple of 4 (the delta pass's groups)
+    (1, 100, 260, 6, 3, 64, True),
 ]
 
 
@@ -585,17 +591,47 @@ def test_flash_backward_kernel_pallas_layout(cuda, sq, skv, hd, causal):
     _scaled_close(got, want)
 
 
-def test_flash_backward_kernel_is_deterministic(cuda):
-    """Two backward calls give the same bits (no atomics): GQA, causal."""
-    gen = torch.Generator(device=cuda).manual_seed(13)
-    q = _randn(gen, 2, 700, 16, 64)
-    k, v = _randn(gen, 2, 700, 8, 64), _randn(gen, 2, 700, 8, 64)
-    do = _randn(gen, 2, 700, 16, 64)
+def _flash_bwd_call(gen, b, sq, skv, h, kv, hd, causal):
+    """(inputs, backward) at one shape: the forward kernel's output and
+    lse, and a function that runs the backward kernels on them."""
+    q = _randn(gen, b, sq, h, hd)
+    k, v = _randn(gen, b, skv, kv, hd), _randn(gen, b, skv, kv, hd)
+    do = _randn(gen, b, sq, h, hd)
     with torch.no_grad():
-        o, lse = flash_ops._attend(q, k, v, True, with_lse=True)
-        one = flash_attention_backward(q, k, v, o, lse, do, True)
-        two = flash_attention_backward(q, k, v, o, lse, do, True)
+        o, lse = flash_ops._attend(q, k, v, causal, with_lse=True)
+
+    def backward():
+        with torch.no_grad():
+            return flash_attention_backward(q, k, v, o, lse, do, causal)
+    return backward
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal", [
+    (2, 700, 700, 16, 8, 64, True),       # GQA, causal
+    (4, 448, 1500, 8, 8, 64, False),      # whisper_base cross-attention
+    (1, 640, 640, 56, 8, 128, True),      # llava_next_34b, GQA 56/8
+])
+def test_flash_backward_kernel_is_deterministic(cuda, b, sq, skv, h, kv, hd,
+                                                causal):
+    """Two backward calls give the same bits: dq is summed over key tiles
+    in an order the semaphores fix, whatever the timing."""
+    backward = _flash_bwd_call(torch.Generator(device=cuda).manual_seed(13),
+                               b, sq, skv, h, kv, hd, causal)
+    one, two = backward(), backward()
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_flash_backward_kernel_resets_its_scratch(cuda):
+    """A call made after a call at another shape on the same stream gives
+    the bits it gives alone: every call zeroes its semaphores and ticket
+    counter and overwrites its dq accumulator."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    first = _flash_bwd_call(gen, 1, 130, 390, 8, 2, 128, True)
+    other = _flash_bwd_call(gen, 2, 448, 1500, 8, 8, 64, False)
+    alone = first()
+    other()
+    after = first()
+    assert all(torch.equal(a, b) for a, b in zip(alone, after))
 
 
 SSD_BWD_SHAPES = [   # b, s, h, g, n, p, chunk, with dstate

@@ -392,6 +392,65 @@ def test_flash_function_matches_jax_vjp(layout, causal, sq, sk, h, kv):
         np.testing.assert_allclose(g.numpy(), w, **_tol("float32"))
 
 
+def _flash_bwd_kernel_emulation(q, k, v, do, causal, tn=128):
+    """What csrc/flash_attn_bwd.cu computes, in fp32 on the CPU from
+    bf16-valued operands in the Pallas layout (q, do [BH, Sq, hd], k, v
+    [BKV, Skv, hd]): P from the row log-sum-exp, rounded to bf16 before
+    P^T dO; D = rowsum(dO o O) with O the forward's bf16 output; dS =
+    P (dP - D) rounded to bf16 before dS K and dS^T Q; dq summed per
+    ``tn``-key tile in fp32, the tile sums added in ascending key-tile
+    order (the order the kernel's semaphores enforce), scaled and rounded
+    once; dk and dv summed over the group's heads in fp32 and rounded
+    once."""
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    bh, sq, hd = q.shape
+    bkv, skv, _ = k.shape
+    g, scale = bh // bkv, hd ** -0.5
+    kk, vv = k.repeat_interleave(g, 0), v.repeat_interleave(g, 0)
+    s = q @ kk.transpose(1, 2) * scale
+    if causal:
+        mask = torch.ones(sq, skv, dtype=torch.bool).tril(skv - sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = bf(bf(p) @ vv)
+    d = (do * o).sum(-1, keepdim=True)
+    ds = bf(p * (do @ vv.transpose(1, 2) - d))
+    dq = None
+    for k0 in range(0, skv, tn):
+        part = ds[:, :, k0:k0 + tn] @ kk[:, k0:k0 + tn]
+        dq = part if dq is None else dq + part
+    dk = (ds.transpose(1, 2) @ q).reshape(bkv, g, skv, hd).sum(1) * scale
+    dv = (bf(p).transpose(1, 2) @ do).reshape(bkv, g, skv, hd).sum(1)
+    return bf(dq * scale), bf(dk), bf(dv)
+
+
+@pytest.mark.parametrize("causal,sq,sk,bh,bkv", [
+    (True, 200, 200, 4, 2),     # causal, ragged across two key tiles
+    (False, 64, 520, 2, 2),     # one query tile summed over 5 key tiles
+    (True, 130, 390, 8, 2)])    # end-aligned Sq < Skv, GQA 4
+def test_flash_bwd_kernel_rounding_matches_jax_vjp(causal, sq, sk, bh, bkv):
+    """CPU evidence for the backward kernel's decomposition: the emulation
+    of its rounding and of its dq sum over 128-key tiles against jax.vjp
+    of the reference oracle (fp32) on the same bf16-valued inputs, each
+    gradient scaled by its largest magnitude, within the repo's bf16
+    tolerance."""
+    rng = np.random.RandomState(21)
+    hd = 32
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   .to(torch.bfloat16).float() for shape in
+                   ((bh, sq, hd), (bkv, sk, hd), (bkv, sk, hd),
+                    (bh, sq, hd)))
+    got = _flash_bwd_kernel_emulation(q, k, v, do, causal)
+    want = _vjp_jax(lambda q, k, v: jax_attention_ref(q, k, v, causal),
+                    tuple(t.numpy() for t in (q, k, v)), do.numpy())
+    for gt, w in zip(got, want):
+        top = float(np.abs(w).max())
+        np.testing.assert_allclose(gt.numpy() / top, w / top,
+                                   **_tol("bfloat16"))
+
+
 def test_backward_ops_take_plain_versions_on_cpu():
     """On CPU tensors the backward ops are their plain versions:
     ``flash_attention_backward`` gives ``attention_bwd``'s gradients (it
