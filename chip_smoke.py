@@ -188,10 +188,13 @@ from repro_torch.kernels.flash_attn import (FlashAttention,  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import REGIMES, attention_bwd  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_ref)
+from repro_torch.kernels.fused_mlp.ops import bwd_plan as fused_mlp_bwd_plan  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd, regime  # noqa: E402
+from repro_torch.kernels.fused_mlp.ops import padded_dims as padded_mlp_dims  # noqa: E402
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
                                           ssd_ref, ssd_scan, ssd_scan_bwd,
                                           to_pallas_layout)
+from repro_torch.kernels.ssd_scan.ops import bwd_work as ssd_bwd_work  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
@@ -1325,6 +1328,10 @@ def mlp_train_case(gen, flush, m, k, f, timed=True):
         torch.cuda.empty_cache()
         return entry
     ms = backward_ms(y, args, dy, flush)
+    launch_ms = flash_bwd_launch_ms(y, args, dy, pattern=r"(mlp_bwd_\w+)")
+    split = [p.name for p in fused_mlp_bwd_plan(
+        m, *padded_mlp_dims(k, f), torch.cuda.get_device_properties(
+            0).multi_processor_count) if p.stream_k]
     xd, w1d, w3d, w2d = (t.detach() for t in args)
     torch_ms = cuda_ms(lambda: fused_mlp_bwd(xd, w1d, w3d, w2d, dy), 3,
                        flush)
@@ -1336,13 +1343,19 @@ def mlp_train_case(gen, flush, m, k, f, timed=True):
     # the forward's, not recomputed); x, W1, W3, W2, dy read and dx, dW1,
     # dW3, dW2 written once
     bms, by = bound_ms(12.0 * m * k * f, 2.0 * (3 * m * k + 6 * k * f))
-    print(f"  FusedMLP backward [{label}]: kernels {ms:.4f} ms, explicit "
+    print(f"  FusedMLP backward [{label}]: kernels {ms:.4f} ms (launches "
+          f"alone {sum(launch_ms.values()):.4f}: " + ", ".join(
+              f"{n} {t:.4f}" for n, t in launch_ms.items())
+          + f"; stream-K: {', '.join(split) or 'none'}), explicit "
           f"torch (fused_mlp_bwd: bf16 cuBLAS products, g and u recomputed) "
           f"{torch_ms:.4f} ms, plain autograd {plain:.4f} ms, cuBLAS-chain "
           f"autograd {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
     del y, y_lib, args, x, w1, w3, w2, dy, xd, w1d, w3d, w2d
     torch.cuda.empty_cache()
-    return {**entry, "backward_ms": ms, "torch_backward_ms": torch_ms,
+    return {**entry, "backward_ms": ms,
+            "backward_launches_ms": sum(launch_ms.values()),
+            "backward_launch_ms": launch_ms, "stream_k": split,
+            "torch_backward_ms": torch_ms,
             "plain_backward_ms": plain, "library_backward_ms": lib,
             "backward_bound_ms": bms, "backward_bound_by": by}
 
@@ -1435,15 +1448,28 @@ def ssd_grad_errors(label, args, dy, chunk, y):
     return errs, y_chain
 
 
+def ssd_bwd_bound(b, s, h, g, n, p, chunk):
+    """(FLOPs, bytes, bound ms, bound by) of the SSD backward, from the
+    least work ``ssd_scan.ops.bwd_work`` counts (C B^T and the intra-chunk
+    dB, dC products once per group, dM and M^T dy per head, over the causal
+    triangle; four L x N x P state terms per head; inputs and gradients
+    once)."""
+    flops, nbytes = ssd_bwd_work(b, s, h, g, n, p, chunk)
+    return (flops, nbytes, *bound_ms(flops, nbytes))
+
+
 def check_ssd_train(gen, flush):
     """SSDScan at mamba2_780m's train shape (B=4 S=2048 H=48 P=64 N=128,
     chunk 256): its forward (the kernel) against the plain version, its
     gradients (the backward kernels; the final state unused, as in
     training) against autograd of the chunked form ``ssd_chunked`` in fp32
-    on the card (``ssd_grad_errors``); the backward kernels' time against
-    the explicit-torch backward's (``ssd_scan_bwd``, their plain
-    version), that autograd's and plain autograd's; and the gradients at
-    mamba2_780m_smoke's P 16, N 16 (8 x 128), which the op pads to 64."""
+    on the card (``ssd_grad_errors``); the backward kernels' time (CUDA
+    events, and each launch's device time alone, by torch.profiler)
+    against the explicit-torch backward's (``ssd_scan_bwd``, their plain
+    version), that autograd's and plain autograd's; the same gradients
+    and times at zamba2_1_2b's train shape (B=4 S=2048 H=64 N=64); and the
+    gradients at mamba2_780m_smoke's P 16, N 16 (8 x 128), which the op
+    pads to 64."""
     cfg = get_config("mamba2_780m")
     b, s, h, p = 4, 2048, cfg.ssm_heads, cfg.ssm_head_dim
     g, n, chunk = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk
@@ -1457,6 +1483,7 @@ def check_ssd_train(gen, flush):
                       SSD_RTOL)
     errs, y_chain = ssd_grad_errors(label, args, dy, chunk, y)
     ms = backward_ms(y, args, dy, flush)
+    launch_ms = flash_bwd_launch_ms(y, args, dy, pattern=r"\b(ssd_\w+)")
     detached = [t.detach() for t in args]
     torch_ms = cuda_ms(lambda: ssd_scan_bwd(*detached, dy, None, chunk), 2,
                        flush)
@@ -1464,24 +1491,42 @@ def check_ssd_train(gen, flush):
     del y_chain
     plain = backward_ms(y_ref, args, dy, flush, reps=2)
     del y_ref
-    # per (batch, head, chunk): C B^T recomputed, dM = dy x^T, M^T dy,
-    # dscores B, dscores^T C (L x L); the chunk state, C S_prev, dC's and
-    # dS_prev's off-diagonal terms, B dS, x dS^T (L x N x P); the inputs
-    # and dy read and the five gradients written once
-    nc = s // chunk
-    flops = 2.0 * b * h * nc * (chunk * chunk * (3 * n + 2 * p)
-                                + 6 * chunk * n * p)
-    nbytes = (3 * 2 * b * s * h * p + 2 * 4 * b * s * h + 2 * 4 * h
-              + 4 * 2 * b * s * g * n)
-    bms, by = bound_ms(flops, nbytes)
-    print(f"  SSDScan backward: kernels {ms:.4f} ms, explicit torch "
-          f"(ssd_scan_bwd: fp32 cuBLAS products) {torch_ms:.4f} ms, autograd "
-          f"of ssd_chunked {lib:.4f} ms, plain autograd (sequential "
-          f"ssd_ref) {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
+    flops, nbytes, bms, by = ssd_bwd_bound(b, s, h, g, n, p, chunk)
+    print(f"  SSDScan backward: kernels {ms:.4f} ms (launches alone "
+          f"{sum(launch_ms.values()):.4f}: " + ", ".join(
+              f"{k} {t:.4f}" for k, t in launch_ms.items()) + "), explicit "
+          f"torch (ssd_scan_bwd: fp32 cuBLAS products) {torch_ms:.4f} ms, "
+          f"autograd of ssd_chunked {lib:.4f} ms, plain autograd "
+          f"(sequential ssd_ref) {plain:.4f} ms, bound {bms:.4f} ms ({by}; "
           f"{flops / 1e9:.2f} GFLOP at the bf16 rate, "
           f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 rate; "
           f"{nbytes / 1e6:.2f} MB)", flush=True)
     del y, args, dy, detached
+    torch.cuda.empty_cache()
+    zc = get_config("zamba2_1_2b")
+    zh, zg, zn, zp, zk = (zc.ssm_heads, zc.ssm_groups, zc.ssm_state,
+                          zc.ssm_head_dim, zc.ssm_chunk)
+    zlabel = f"zamba2_1_2b B={b} S={s} H={zh} P={zp} N={zn} G={zg} chunk {zk}"
+    zargs = [t.requires_grad_() for t in ssd_inputs(gen, b, s, zh, zg, zn,
+                                                    zp)]
+    zdy = randn(gen, b, s, zh, zp)
+    zy, _ = SSDScan.apply(*zargs, zk)
+    zerrs, _ = ssd_grad_errors(zlabel, zargs, zdy, zk, zy)
+    zms = backward_ms(zy, zargs, zdy, flush)
+    zlaunch = flash_bwd_launch_ms(zy, zargs, zdy, pattern=r"\b(ssd_\w+)")
+    zdet = [t.detach() for t in zargs]
+    ztorch = cuda_ms(lambda: ssd_scan_bwd(*zdet, zdy, None, zk), 2, flush)
+    _, _, zbms, zby = ssd_bwd_bound(b, s, zh, zg, zn, zp, zk)
+    print(f"  SSDScan backward [{zlabel}]: kernels {zms:.4f} ms (launches "
+          f"alone {sum(zlaunch.values()):.4f}: " + ", ".join(
+              f"{k} {t:.4f}" for k, t in zlaunch.items()) + "), explicit "
+          f"torch {ztorch:.4f} ms, bound {zbms:.4f} ms ({zby})", flush=True)
+    zamba = {"grad_max_err": zerrs, "backward_ms": zms,
+             "backward_launches_ms": sum(zlaunch.values()),
+             "backward_launch_ms": zlaunch, "torch_backward_ms": ztorch,
+             "backward_bound_ms": zbms, "backward_bound_by": zby,
+             "shape": zlabel}
+    del zy, zargs, zdy, zdet
     sm = get_config("mamba2_780m", smoke=True)
     slabel = (f"smoke B=8 S=128 H={sm.ssm_heads} P={sm.ssm_head_dim} "
               f"N={sm.ssm_state} chunk {sm.ssm_chunk}, P padded to 64")
@@ -1495,6 +1540,8 @@ def check_ssd_train(gen, flush):
     del sargs, sdy
     torch.cuda.empty_cache()
     return {"max_abs_err": fwd_err, "grad_max_err": errs, "backward_ms": ms,
+            "backward_launches_ms": sum(launch_ms.values()),
+            "backward_launch_ms": launch_ms, "zamba2": zamba,
             "torch_backward_ms": torch_ms, "plain_backward_ms": plain,
             "library_backward_ms": lib,
             "library_backward": "autograd of the torch chain ssd_chunked",
@@ -2376,7 +2423,11 @@ def backward_entries(train_entries, train_launches, steps):
         "library_ms": ml["library_backward_ms"],
         "library": "autograd of the cuBLAS chain (silu(x W1) * (x W3)) W2",
         "shape": ml["shape"],
-        "llava": {k: ml["llava"][k] for k in keys},
+        "launches_alone_ms": ml["backward_launches_ms"],
+        "launch_device_ms": ml["backward_launch_ms"],
+        "stream_k": ml["stream_k"],
+        "llava": {k: ml["llava"][k] for k in keys + (
+            "backward_launches_ms", "backward_launch_ms", "stream_k")},
         "smoke": ml["smoke"]}
     ssd = {
         "name": "ssd_scan_bwd", "route": "cuda",
@@ -2402,6 +2453,9 @@ def backward_entries(train_entries, train_launches, steps):
         "library": "none: no single PyTorch call computes the SSD scan's "
                    "gradient (chunked_autograd_ms: autograd of the torch "
                    "chain ssd_chunked)",
+        "launches_alone_ms": ss["backward_launches_ms"],
+        "launch_device_ms": ss["backward_launch_ms"],
+        "zamba2": ss["zamba2"],
         "smoke": ss["smoke"], "shape": ss["shape"]}
     for e in (flash, mlp, ssd):
         print(f"  {e['name']}: {e['launches']} launches in {e['launches_path']}"

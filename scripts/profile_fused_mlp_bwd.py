@@ -7,11 +7,15 @@ F=20480, bf16, fan-in scaled random inputs from a seed.
     PYTHONPATH=src python scripts/profile_fused_mlp_bwd.py [--reps 5]
 
 Needs a CUDA GPU (builds the kernels at first use). Prints the card's
-name and power limit, then for each shape the mean device ms of each
-launch over ``--reps`` backward calls (torch.profiler), their sum, and
-the 6-product bound at 989 TFLOP/s. It times the launches alone: the
-host's work before the first launch, which a CUDA-event timing of the
-whole call includes, is not counted.
+name and power limit, then for each shape the work split the kernels'
+plan chose (``bwd_plan``: the launches that run stream-K, and each
+launch's tiles and last-wave fill on this card's SMs), the mean device
+ms of each launch over ``--reps`` backward calls (torch.profiler), their
+sum, and the 6-product bound at 989 TFLOP/s. It times the launches
+alone: the host's work before the first launch, which a CUDA-event
+timing of the whole call includes, is not counted. Run it from an
+unpacked parent tree in the same call to compare two versions (a tree
+without ``bwd_plan`` prints no split).
 """
 import argparse
 import re
@@ -22,6 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels.fused_mlp import FusedMLP
+from repro_torch.kernels.fused_mlp import ops as mlp_ops
 
 SHAPES = (("olmo_1b", 8192, 2048, 8192), ("llava_next_34b", 640, 7168, 20480))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM data sheet, dense bf16
@@ -49,7 +54,14 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, m, k, f in SHAPES:
+        if hasattr(mlp_ops, "bwd_plan"):
+            plan = mlp_ops.bwd_plan(m, k, f, sms)
+            print(f"{name} split on {sms} SMs: " + ", ".join(
+                f"{p.name} {'stream-K' if p.stream_k else 'whole tiles'} "
+                f"({p.tiles} tiles of {p.kblocks} k-blocks, fill "
+                f"{p.fill:.3f})" for p in plan), flush=True)
         args, dy = inputs(m, k, f)
         y = FusedMLP.apply(*args)
         torch.autograd.grad(y, args, dy, retain_graph=True)

@@ -61,8 +61,36 @@
 // k-blocks; that buffer leaves room for three ring stages (four for the
 // others). Its sigmoid takes the fast exp and reciprocal (about 2 ulp of
 // fp32, far below the bf16 rounding of what it feeds).
-// No atomics and no split reduction: every output element is summed by one
-// thread in a fixed order, so two calls give the same bits. M may be any
+// Work split (kernels/fused_mlp/ops.py::bwd_plan picks it per launch from M, K,
+// F and the SM count, and passes it as a bit mask): a launch either gives each
+// block whole tiles (tile i to block i mod grid), or, when that would leave the
+// last wave of tiles less than 85% full (dx and dh at llava_next_34b's M = 640:
+// 140 and 400 tiles on 132 SMs), runs its full waves of whole tiles and splits
+// the k-blocks of the tiles left over into one contiguous, equal range a block
+// ("stream-K" for the last wave, with boundaries fixed by the shape and the
+// grid). Splitting every tile's reduction instead set the blocks that share
+// operands at different k offsets: dx at M = 640 took 1.24 ms against 0.79 with
+// whole tiles on an H100, about what ~4 GB of operand reads from device memory
+// would take (whole tiles, reading in step, need ~0.6 GB). The ranges go to
+// blocks in the order the blocks start (a ticket from a counter), and a block
+// walks its range backwards, so the piece that starts a tile is its first. A
+// range starts inside a tile at most once, so a block holds at most one piece
+// that stops short of its tile's end: that piece's fp32 accumulators go to the
+// range's slot of a scratch and a flag says so. The piece that holds the tile's
+// last k-block, which its block reaches at the end of its range, waits for the
+// flags of the earlier pieces, adds their partials to its accumulators from
+// the range before its own down to the tile's first, and runs the epilogue
+// (dh's SwiGLU backward included), so the tile is rounded to bf16 once. A
+// block waits only for ranges whose blocks took their tickets before it, so
+// are running, and those finish their short pieces before they wait: the
+// launch needs no dispatch order and no co-residency (other streams' kernels
+// may hold SMs). Adding the partials to the registers the products left, in
+// place, keeps the kernel free of spills: reloading the accumulators from the
+// scratch, so that any block could finish a tile, spilled ~300 bytes a thread
+// and cost dh and dx 6-9% at llava_next_34b's M = 640 on an H100.
+// The flags and tickets are the only atomics, and they order waits, not sums:
+// every output element is summed in an order the shape fixes, so two calls
+// give the same bits. M may be any
 // size >= 1: TMA zero-fills rows past M (so they add nothing to the M
 // reductions) and rows past M are not stored; likewise an output tile's
 // second half past the last column (F or K an odd number of 128s) is
@@ -85,6 +113,8 @@ constexpr int STAGE = 3 * OPERAND;        // A and the two B tiles: 48 KB
 constexpr int EPI_SLOT = 2 * HALF_BOX;    // DH: [64 rows][64] of g and u
 constexpr int DH_OUT = 3 * HALF_BOX;      // DH: boxes of h, dg, du
 constexpr int GROUP = 16;                 // row tiles a group (tile_at)
+// fp32 partial of one piece: both warpgroups' two 64 x 128 accumulators
+constexpr int SLOT = 2 * 2 * (HN / 2) * 128;
 
 enum Op { DH, DX, DW13, DW2 };
 
@@ -190,17 +220,132 @@ __device__ __forceinline__ void tile_at(int t, int r_tiles, int c_tiles,
   c = rest / height;
 }
 
+// k-blocks [kb0, kb1) of output tile `tile`.
+struct Piece {
+  int tile, kb0, kb1;
+};
+
+// The pieces of this block, in order: whole tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... up to the last full wave of tiles (all
+// tiles without stream-K), then, with stream-K, range `me` (the block's
+// ticket) of the k-blocks of the tiles left over (tiles past the full
+// waves x kblocks, cut in equal ranges of at least SK_MIN k-blocks), cut
+// where tiles end and taken from its end back to its start. Blocks that
+// share operands then read them in step: the whole tiles of a wave start
+// together, and the leftover tiles are few.
+constexpr int SK_MIN = 8;
+
+template <bool SK>
+struct Pieces;
+
+template <>
+struct Pieces<false> {
+  int t, tiles, kblocks;
+  __device__ Pieces(int n, int kb, int) : t(blockIdx.x), tiles(n),
+                                          kblocks(kb) {}
+  __device__ bool next(Piece& p) {
+    if (t >= tiles) return false;
+    p.tile = t;
+    p.kb0 = 0;
+    p.kb1 = kblocks;
+    t += gridDim.x;
+    return true;
+  }
+};
+
+template <>
+struct Pieces<true> {
+  int t, whole, lo, hi, kblocks;
+  __device__ Pieces(int tiles, int kb, int me) : kblocks(kb) {
+    t = blockIdx.x;
+    whole = tiles / gridDim.x * gridDim.x;
+    lo = range_start(me, tiles, kb);
+    hi = range_start(me + 1, tiles, kb);
+  }
+  // Ranges that share the leftover k-blocks.
+  __device__ static int range_blocks(int tiles, int kb) {
+    const int left = (tiles - tiles / gridDim.x * gridDim.x) * kb;
+    const int b = left / SK_MIN;
+    return b < 1 ? 1 : (b < static_cast<int>(gridDim.x) ? b : gridDim.x);
+  }
+  // Start of range b, in leftover k-blocks.
+  __device__ static int range_start(int b, int tiles, int kb) {
+    const int left = (tiles - tiles / gridDim.x * gridDim.x) * kb;
+    const int n = range_blocks(tiles, kb);
+    return b >= n ? left
+                  : static_cast<int>(static_cast<long long>(left) * b / n);
+  }
+  // The range that holds the first k-block of leftover tile `rel`, found
+  // from range `me`, which holds a later one.
+  __device__ static int first_range(int me, int rel, int tiles, int kb) {
+    int b = me;
+    while (b > 0 && range_start(b, tiles, kb) > rel * kb) --b;
+    return b;
+  }
+  __device__ bool next(Piece& p) {
+    if (t < whole) {
+      p.tile = t;
+      p.kb0 = 0;
+      p.kb1 = kblocks;
+      t += gridDim.x;
+      return true;
+    }
+    if (hi <= lo) return false;
+    const int tile = (hi - 1) / kblocks, start = tile * kblocks;
+    p.tile = whole + tile;
+    p.kb0 = (lo > start ? lo : start) - start;
+    p.kb1 = hi - start;
+    hi = start + p.kb0;
+    return true;
+  }
+};
+
+__device__ __forceinline__ void flag_release(int* flag) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(flag), "r"(1)
+               : "memory");
+}
+
+// Wait until another block has released `flag`; traps after 10 s, as
+// mbar_wait does.
+__device__ __forceinline__ void flag_acquire(const int* flag) {
+  uint64_t t0 = 0;
+  for (uint32_t tries = 1;; ++tries) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(flag)
+                 : "memory");
+    if (v != 0) return;
+    if ((tries & 1023u) == 0) {
+      const uint64_t now = globaltimer_ns();
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// This thread's accumulator fragments in a partial slot, laid out so that
+// a warp's 32 threads touch 32 consecutive floats.
+__device__ __forceinline__ float* slot_at(float* slot, int wg, int a, int i) {
+  return slot + ((wg * 2 + a) * (HN / 2) + i) * 128 + threadIdx.x % 128;
+}
+
 // out[rows, cols] = sum over kblocks of A^T-or-A times B, one persistent
 // block per SM. `seg` is the k-block where DX's reduction moves from
-// (dg, W1) to (du, W3); the other ops pass kblocks.
-template <int OP>
+// (dg, W1) to (du, W3); the other ops pass kblocks. SK: stream-K for the
+// last wave (the header), with `part` (a slot of SLOT floats a range) and
+// `flags` (an int a range, then the ticket counter; zero at launch); a
+// template argument, so that whole-tile launches carry none of its state.
+template <int OP, bool SK>
 __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
-                                     int kblocks, int seg) {
+                                     int kblocks, int seg, float* part,
+                                     int* flags) {
   using C = Cfg<OP>;
   __shared__ __align__(8) uint64_t full[C::STAGES];
   __shared__ __align__(8) uint64_t empty[C::STAGES];
   __shared__ __align__(8) uint64_t epi_full[2];   // DH's g, u slots
   __shared__ __align__(8) uint64_t epi_empty[2];
+  __shared__ int ticket;       // SK: this block's range
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* epi = smem + C::STAGES * STAGE;   // the warpgroups' C::EPI
@@ -216,8 +361,10 @@ __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
       mbar_init(&epi_empty[s], 4);  // lane 0 of the owner's warps
     }
     mbar_fence_init();
+    if constexpr (SK) ticket = atomicAdd(flags + gridDim.x, 1);
   }
   __syncthreads();
+  const int me = SK ? ticket : 0;
 
   const int r_tiles = (rows + TM - 1) / TM;
   const int c_tiles = (cols + C::TN - 1) / C::TN;
@@ -228,12 +375,13 @@ __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
     regs_dealloc<40>();
     if (threadIdx.x == 256) {
       Ring<C::STAGES> ring;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      Pieces<SK> pieces(tiles, kblocks, me);
+      for (Piece pc; pieces.next(pc);) {
         int r0, c0;
-        tile_at(t, r_tiles, c_tiles, r0, c0);
+        tile_at(pc.tile, r_tiles, c_tiles, r0, c0);
         r0 *= TM;
         c0 *= C::TN;
-        for (int kb = 0; kb < kblocks; ++kb) {
+        for (int kb = pc.kb0; kb < pc.kb1; ++kb) {
           mbar_wait(&empty[ring.stage], ring.phase ^ 1u);
           uint8_t* st = smem + ring.stage * STAGE;
           uint64_t* bar = &full[ring.stage];
@@ -263,10 +411,11 @@ __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
           ring.advance();
         }
         if constexpr (OP == DH) {
-          // g and u of the tile: for each 64 columns q, warpgroup w's 64
-          // rows into its slot; a slot is used four times a tile, so use q
-          // waits for parity q % 2
-          for (int n = 0; n < 8; ++n) {
+          // g and u of the tile, for the piece that runs its epilogue (the
+          // one that holds its last k-block): for each 64 columns q,
+          // warpgroup w's 64 rows into its slot; a slot is used four times
+          // a tile, so use q waits for parity q % 2
+          for (int n = 0; n < 8 && pc.kb1 == kblocks; ++n) {
             const int w = n % 2, q = n / 2;
             mbar_wait(&epi_empty[w], (q & 1) ^ 1u);
             uint8_t* slot = epi + w * C::EPI;
@@ -284,15 +433,16 @@ __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     float acc0[HN / 2], acc1[HN / 2];
     Ring<C::STAGES> ring;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    Pieces<SK> pieces(tiles, kblocks, me);
+    for (Piece pc; pieces.next(pc);) {
       int r0, c0;
-      tile_at(t, r_tiles, c_tiles, r0, c0);
+      tile_at(pc.tile, r_tiles, c_tiles, r0, c0);
       r0 *= TM;
       c0 *= C::TN;
 #pragma unroll
       for (int i = 0; i < HN / 2; ++i) acc0[i] = acc1[i] = 0.f;
       int prev = -1;
-      for (int kb = 0; kb < kblocks; ++kb) {
+      for (int kb = pc.kb0; kb < pc.kb1; ++kb) {
         mbar_wait(&full[ring.stage], ring.phase);
         const uint8_t* st = smem + ring.stage * STAGE;
         fence_regs(acc0);
@@ -329,6 +479,39 @@ __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
       fence_regs(acc1);
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
 
+      const bool leader = threadIdx.x % 128 == 0;
+      if (SK && pc.kb1 < kblocks) {
+        // a piece short of its tile's end: the partial to this range's
+        // slot, and its flag says so
+        float* slot = part + static_cast<long long>(me) * SLOT;
+#pragma unroll
+        for (int i = 0; i < HN / 2; ++i) {
+          *slot_at(slot, wg, 0, i) = acc0[i];
+          *slot_at(slot, wg, 1, i) = acc1[i];
+        }
+        __threadfence();
+        named_sync(3, 256);
+        if (threadIdx.x == 0) flag_release(flags + me);
+        continue;
+      }
+      if (SK && pc.kb0 > 0) {
+        // the tile's last piece: the earlier pieces' partials, from the
+        // range before this one down to the tile's first (their blocks
+        // took their tickets before this one, so are running)
+        const int first = Pieces<true>::first_range(
+            me, pc.tile - tiles / gridDim.x * gridDim.x, tiles, kblocks);
+        for (int b = me - 1; b >= first; --b) {
+          if (leader) flag_acquire(flags + b);
+          named_sync(1 + wg, 128);
+          const float* slot = part + static_cast<long long>(b) * SLOT;
+#pragma unroll
+          for (int i = 0; i < HN / 2; ++i) {
+            acc0[i] += __ldcg(slot_at(const_cast<float*>(slot), wg, 0, i));
+            acc1[i] += __ldcg(slot_at(const_cast<float*>(slot), wg, 1, i));
+          }
+        }
+      }
+
       // epilogue: 64 columns at a time through the warpgroup's shared
       // boxes and TMA stores, which drain while the next tile's products
       // run (rows past M and columns past the last are not stored); one
@@ -337,7 +520,6 @@ __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
       // last store has read it before it is written again
       uint8_t* buf = epi + wg * C::EPI;
       const int rt = warp * 16 + lane / 4, rw = r0 + wg * 64;
-      const bool leader = threadIdx.x % 128 == 0;
       if constexpr (OP == DH) {
         // g and u from the warpgroup's slot, h, dg and du into its boxes
         uint8_t* out = buf + EPI_SLOT;
@@ -410,70 +592,98 @@ __device__ __forceinline__ void gemm(const Maps& maps, int rows, int cols,
 }
 
 // One named kernel per product, so that a profile tells them apart.
+template <bool SK>
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_bwd_dh(const __grid_constant__ Maps maps, int rows, int cols,
-           int kblocks) {
-  gemm<DH>(maps, rows, cols, kblocks, kblocks);
+           int kblocks, float* part, int* flags) {
+  gemm<DH, SK>(maps, rows, cols, kblocks, kblocks, part, flags);
 }
 
+template <bool SK>
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_bwd_dx(const __grid_constant__ Maps maps, int rows, int cols,
-           int kblocks) {
-  gemm<DX>(maps, rows, cols, kblocks, kblocks / 2);
+           int kblocks, float* part, int* flags) {
+  gemm<DX, SK>(maps, rows, cols, kblocks, kblocks / 2, part, flags);
 }
 
+template <bool SK>
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_bwd_dw13(const __grid_constant__ Maps maps, int rows, int cols,
-             int kblocks) {
-  gemm<DW13>(maps, rows, cols, kblocks, kblocks);
+             int kblocks, float* part, int* flags) {
+  gemm<DW13, SK>(maps, rows, cols, kblocks, kblocks, part, flags);
 }
 
+template <bool SK>
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_bwd_dw2(const __grid_constant__ Maps maps, int rows, int cols,
-            int kblocks) {
-  gemm<DW2>(maps, rows, cols, kblocks, kblocks);
+            int kblocks, float* part, int* flags) {
+  gemm<DW2, SK>(maps, rows, cols, kblocks, kblocks, part, flags);
 }
 
-using Kernel = void(Maps, int, int, int);
+using Kernel = void(Maps, int, int, int, float*, int*);
 
+// Whole tiles: a grid of min(tiles, sms). Stream-K: min(tiles x kblocks,
+// sms) blocks, with the ranges' flags and the ticket counter zeroed
+// first.
 template <int OP>
-cudaError_t launch(Kernel* kernel, unsigned long long& devices, Maps maps,
-                   int rows, int cols, int kblocks, int sms, cudaStream_t s) {
-  cudaError_t err = allow_smem(kernel, Cfg<OP>::SMEM, devices);
+cudaError_t launch(Kernel* whole, Kernel* split,
+                   unsigned long long (&devices)[2], Maps maps, int rows,
+                   int cols, int kblocks, int sk, float* part, int* flags,
+                   int sms, cudaStream_t s) {
+  Kernel* kernel = sk ? split : whole;
+  cudaError_t err = allow_smem(kernel, Cfg<OP>::SMEM, devices[sk ? 1 : 0]);
   if (err != cudaSuccess) return err;
-  const int tiles =
-      ((rows + TM - 1) / TM) * ((cols + Cfg<OP>::TN - 1) / Cfg<OP>::TN);
-  void* args[] = {&maps, &rows, &cols, &kblocks};
-  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
-                          dim3(tiles < sms ? tiles : sms), dim3(THREADS), args,
-                          Cfg<OP>::SMEM, s);
+  const long long tiles =
+      static_cast<long long>((rows + TM - 1) / TM) *
+      ((cols + Cfg<OP>::TN - 1) / Cfg<OP>::TN);
+  const long long work = sk ? tiles * kblocks : tiles;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  if (sk) {
+    err = cudaMemsetAsync(flags, 0, (grid + 1) * sizeof(int), s);
+    if (err != cudaSuccess) return err;
+  }
+  void* args[] = {&maps, &rows, &cols, &kblocks, &part, &flags};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                          dim3(THREADS), args, Cfg<OP>::SMEM, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Floats of fp32 partials fused_mlp_bwd_bf16 needs for `sms` blocks.
+long long fused_mlp_bwd_partial_floats(int sms) {
+  return static_cast<long long>(sms) * SLOT;
+}
+
 // Gradients of the fused MLP. x [M, K], w1/w3 [K, F], w2 [F, K], dy
 // [M, K], g/u [M, F] (the forward's saved x W1 and x W3); scratch h, dg,
 // du [M, F]; outputs dx [M, K], dw1/dw3 [K, F], dw2 [F, K]. All bf16,
 // contiguous, 16-byte aligned; K % 128 == 0, F % 128 == 0, M >= 1.
-// Issues four launches on `stream` (dh, dw2, dx, dw13), each a persistent
+// split: bit i set runs launch i (dh, dw2, dx, dw13) stream-K; then part
+// holds fused_mlp_bwd_partial_floats(sms) fp32 and flags `sms + 1` ints
+// (null when split is 0). Issues four launches on `stream`, each a persistent
 // grid of at most `sms` blocks, and returns the first non-zero CUDA error
 // (0 on success), or cudaErrorInvalidValue for shapes it does not take.
 int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* w3,
                        const void* w2, const void* dy, const void* g,
                        const void* u, void* h, void* dg, void* du, void* dx,
-                       void* dw1, void* dw3, void* dw2, int M, int K, int F,
-                       int sms, void* stream) {
-  if (M < 1 || K % 128 != 0 || F % 128 != 0 || K < 128 || F < 128 || sms < 1)
+                       void* dw1, void* dw3, void* dw2, void* part,
+                       void* flags, int M, int K, int F, int split, int sms,
+                       void* stream) {
+  if (M < 1 || K % 128 != 0 || F % 128 != 0 || K < 128 || F < 128 ||
+      sms < 1 || (split != 0 && (part == nullptr || flags == nullptr)))
     return cudaErrorInvalidValue;
+  float* pp = static_cast<float*>(part);
+  int* fp = static_cast<int*>(flags);
   // cuTensorMapEncodeTiled needs a current context, which the thread
   // autograd runs a backward on may not have yet
   cudaError_t err = bind_device_of(x);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m_kblocks = (M + TK - 1) / TK;
-  static unsigned long long dev_dh = 0, dev_dx = 0, dev_dw13 = 0, dev_dw2 = 0;
+  static unsigned long long dev_dh[2] = {}, dev_dx[2] = {},
+                            dev_dw13[2] = {}, dev_dw2[2] = {};
 
   // dh = dy W2^T, epilogue h, dg, du: [M, F] over K
   Maps m = {};
@@ -485,7 +695,8 @@ int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* w3,
       !make_tmap_2d(&m.o1, dg, M, F, F, BOX) ||
       !make_tmap_2d(&m.o2, du, M, F, F, BOX))
     return cudaErrorInvalidValue;
-  err = launch<DH>(mlp_bwd_dh, dev_dh, m, M, F, K / TK, sms, s);
+  err = launch<DH>(mlp_bwd_dh<false>, mlp_bwd_dh<true>, dev_dh, m, M, F,
+                   K / TK, split & 1, pp, fp, sms, s);
   if (err != cudaSuccess) return err;
 
   // dW2 = h^T dy: [F, K] over M
@@ -494,7 +705,8 @@ int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* w3,
       !make_tmap_2d(&m.b0, dy, M, K, K, BOX) ||
       !make_tmap_2d(&m.o0, dw2, F, K, K, BOX))
     return cudaErrorInvalidValue;
-  err = launch<DW2>(mlp_bwd_dw2, dev_dw2, m, F, K, m_kblocks, sms, s);
+  err = launch<DW2>(mlp_bwd_dw2<false>, mlp_bwd_dw2<true>, dev_dw2, m, F, K,
+                    m_kblocks, (split >> 1) & 1, pp, fp, sms, s);
   if (err != cudaSuccess) return err;
 
   // dx = dg W1^T + du W3^T: [M, K] over 2F
@@ -505,7 +717,8 @@ int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* w3,
       !make_tmap_2d(&m.b1, w3, K, F, F, HN) ||
       !make_tmap_2d(&m.o0, dx, M, K, K, BOX))
     return cudaErrorInvalidValue;
-  err = launch<DX>(mlp_bwd_dx, dev_dx, m, M, K, 2 * (F / TK), sms, s);
+  err = launch<DX>(mlp_bwd_dx<false>, mlp_bwd_dx<true>, dev_dx, m, M, K,
+                   2 * (F / TK), (split >> 2) & 1, pp, fp, sms, s);
   if (err != cudaSuccess) return err;
 
   // dW1 = x^T dg, dW3 = x^T du: [K, F] over M
@@ -516,7 +729,8 @@ int fused_mlp_bwd_bf16(const void* x, const void* w1, const void* w3,
       !make_tmap_2d(&m.o0, dw1, K, F, F, BOX) ||
       !make_tmap_2d(&m.o1, dw3, K, F, F, BOX))
     return cudaErrorInvalidValue;
-  return launch<DW13>(mlp_bwd_dw13, dev_dw13, m, K, F, m_kblocks, sms, s);
+  return launch<DW13>(mlp_bwd_dw13<false>, mlp_bwd_dw13<true>, dev_dw13, m,
+                      K, F, m_kblocks, (split >> 3) & 1, pp, fp, sms, s);
 }
 
 const char* fused_mlp_bwd_error_string(int code) {

@@ -49,8 +49,11 @@
 //       2^(cum_i) (C S_prev) on wgmma, and y stored once.
 // Scratch (the (cum, dt) pairs, the chunk states S_c in fp32, the previous
 // states as bf16 hi/lo) is one workspace the caller allocates; the kernels
-// allocate nothing. No atomics: two calls give bit-identical results, and
-// the Pallas layout gives the model layout's bits.
+// allocate nothing. Under autograd the caller also passes `keep`, where
+// the pairs and the previous states go instead, kept for the backward
+// (ssd_scan_bwd.cu), which then never runs (a) and (b) again. No atomics:
+// two calls give bit-identical results, and the Pallas layout gives the
+// model layout's bits.
 //
 // Operand precision. C B^T takes exact bf16 inputs, so bf16 wgmma is exact
 // up to fp32 accumulation. The three fp32-weighted operands (M, S_prev and
@@ -401,12 +404,17 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap tc,
 template <int NB>
 cudaError_t launch(const void* x, const float* dt, const float* A,
                    const void* Bm, const void* Cm, bf16* y, float* state,
-                   uint8_t* work, int batch, int S, int H, int G, int N,
-                   int chunk, const long long* st, cudaStream_t stream) {
+                   uint8_t* work, uint8_t* keep, int batch, int S, int H,
+                   int G, int N, int chunk, const long long* st,
+                   cudaStream_t stream) {
   const Workspace ws = workspace(batch, S, H, N, chunk);
-  float2* cd = reinterpret_cast<float2*>(work);
   float* sc = reinterpret_cast<float*>(work + ws.sc);
-  bf16* sp = reinterpret_cast<bf16*>(work + ws.sp);
+  // the (cum, dt) pairs and S_prev in the workspace, or where the caller
+  // keeps them for the backward
+  float2* cd = reinterpret_cast<float2*>(keep != nullptr ? keep : work);
+  bf16* sp = reinterpret_cast<bf16*>(
+      keep != nullptr ? keep + kept(batch, S, H, N, chunk).sp
+                      : work + ws.sp);
   const int nc = S / chunk;
   const long long bhc = static_cast<long long>(batch) * H * nc;
 
@@ -464,18 +472,28 @@ long long ssd_scan_workspace_bytes(int batch, int S, int H, int N,
   return static_cast<long long>(workspace(batch, S, H, N, chunk).bytes);
 }
 
+// Bytes the forward keeps for the backward when given `keep`: the chunks'
+// (cum, dt) pairs and their previous states as bf16 hi/lo (0 for shapes
+// it does not take).
+long long ssd_scan_keep_bytes(int batch, int S, int H, int N, int chunk) {
+  if (batch < 1 || S < 1 || H < 1 || !admit(S, H, 1, N, P, chunk)) return 0;
+  return static_cast<long long>(kept(batch, S, H, N, chunk).bytes);
+}
+
 // strides: 16 element strides: (batch, seq, head) of x, of dt, the head
 // stride of A, (batch, seq, group) of B, of C, and (batch, seq, head) of
 // y; those of x, B, C and y multiples of 8 with 16-byte aligned data.
 // state is a contiguous fp32 [batch, H, N, P]; work is a 16-byte aligned
-// buffer of ssd_scan_workspace_bytes(batch, S, H, N, chunk) bytes. Issues
-// three launches on `stream` and returns the first non-zero
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for shapes
-// the kernels do not take.
+// buffer of ssd_scan_workspace_bytes(batch, S, H, N, chunk) bytes; keep
+// is null (serving) or a 16-byte aligned buffer of
+// ssd_scan_keep_bytes(batch, S, H, N, chunk) bytes that receives what
+// ssd_scan_bwd_bf16 reads. Issues three launches on `stream` and returns
+// the first non-zero cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for shapes the kernels do not take.
 int ssd_scan_fwd_bf16(const void* x, const void* dt, const void* A,
                       const void* B, const void* C, void* y, void* state,
-                      void* work, int batch, int S, int H, int G, int N,
-                      int p, int chunk, const long long* strides,
+                      void* work, void* keep, int batch, int S, int H, int G,
+                      int N, int p, int chunk, const long long* strides,
                       void* stream) {
   if (batch < 1 || H < 1 || !admit(S, H, G, N, p, chunk))
     return cudaErrorInvalidValue;
@@ -484,12 +502,13 @@ int ssd_scan_fwd_bf16(const void* x, const void* dt, const void* A,
   bf16* yp = static_cast<bf16*>(y);
   float* stp = static_cast<float*>(state);
   uint8_t* wp = static_cast<uint8_t*>(work);
+  uint8_t* kp = static_cast<uint8_t*>(keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N > BOX)
-    return launch<2>(x, dtp, ap, B, C, yp, stp, wp, batch, S, H, G, N, chunk,
-                     strides, s);
-  return launch<1>(x, dtp, ap, B, C, yp, stp, wp, batch, S, H, G, N, chunk,
-                   strides, s);
+    return launch<2>(x, dtp, ap, B, C, yp, stp, wp, kp, batch, S, H, G, N,
+                     chunk, strides, s);
+  return launch<1>(x, dtp, ap, B, C, yp, stp, wp, kp, batch, S, H, G, N,
+                   chunk, strides, s);
 }
 
 const char* ssd_scan_error_string(int code) {

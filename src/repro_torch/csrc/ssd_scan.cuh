@@ -1,8 +1,8 @@
 // Shared by the SSD scan kernels, forward (ssd_scan.cu) and backward
-// (ssd_scan_bwd.cu): sizes, the workspace of the forward's three launches,
-// and its launches (a) chunk states and (b) state passing, which the
-// backward re-runs to get each chunk's previous state. See ssd_scan.cu
-// for the design and the operand precision.
+// (ssd_scan_bwd.cu): sizes, the workspace of the forward's three launches
+// and what it keeps for the backward, and its launches (a) chunk states
+// and (b) state passing; the backward runs (a) again with dy for x. See
+// ssd_scan.cu for the design and the operand precision.
 #pragma once
 
 #include <math.h>
@@ -59,6 +59,21 @@ inline Workspace workspace(int batch, int S, int H, int N, int chunk) {
   w.sp = w.sc + round_up(bhc * N * P * sizeof(float), 1024);  // S_c
   w.bytes = w.sp + round_up(bhc * 2 * N * P * sizeof(bf16), 1024);
   return w;                                   // S_prev as [bhc][hi, lo]
+}
+
+// What the forward keeps for the backward when asked (ssd_scan_fwd_bf16's
+// `keep`): the (cum, dt) pairs at 0 and the previous states S_prev as
+// bf16 hi/lo at `sp`, laid out as in the workspace.
+struct Kept {
+  size_t sp, bytes;
+};
+
+inline Kept kept(int batch, int S, int H, int N, int chunk) {
+  const size_t bhc = static_cast<size_t>(batch) * H * (S / chunk);
+  Kept k;
+  k.sp = round_up(bhc * chunk_pitch(chunk) * sizeof(float2), 1024);
+  k.bytes = k.sp + round_up(bhc * 2 * N * P * sizeof(bf16), 1024);
+  return k;
 }
 
 // ---------------------------------------------------------------------------

@@ -7,6 +7,12 @@ MLP; each is a gate/up and a down launch per row chunk);
 ``fused_mlp.bwd_launches`` counts calls of the backward kernels
 (``csrc/fused_mlp_bwd.cu``, four launches a call).
 
+The backward's four launches split their work as ``bwd_plan`` chooses
+from M, K, F and the SM count: whole output tiles a block, or, where the
+last wave of tiles would run nearly empty (llava_next_34b's M = 640),
+whole tiles for the full waves and stream-K ranges over the rest, whose
+partial tiles are summed in a fixed order.
+
 ``FusedMLP`` puts the op under autograd: its forward is the op (the
 kernels on the card, in every forward, the recompute under remat
 included; under grad they also keep g = x W1 and u = x W3 in bf16), its
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -111,6 +118,71 @@ def _plan(m: int, k: int, f: int, sms: int, keep: bool = False):
             decode_split(k, f, sms) if decode else 1)
 
 
+WAVE_FILL = 0.85   # whole tiles unless their last wave is emptier
+SK_MIN = 8         # least k-blocks of a stream-K range (csrc: SK_MIN)
+
+
+class BwdLaunch(NamedTuple):
+    """One launch of the backward kernels: its output ``tiles`` (128 rows
+    by ``width`` columns), the 64-deep ``kblocks`` of its reduction,
+    whether it runs ``stream_k`` (module docstring) and the ``fill`` that
+    split gives its last wave (work units over waves x SMs)."""
+    name: str
+    tiles: int
+    kblocks: int
+    stream_k: bool
+    fill: float
+
+
+def _fill(tiles: int, kblocks: int, sms: int, stream_k: bool) -> float:
+    """Work over (SMs x the busiest block's work): whole tiles, or the
+    full waves of whole tiles and the leftover k-blocks in equal ranges
+    of at least ``SK_MIN`` (the grid is at most ``tiles x kblocks``)."""
+    if not stream_k:
+        return tiles / (_cdiv(tiles, sms) * sms)
+    grid = min(sms, tiles * kblocks)
+    whole = tiles // grid * grid
+    left = (tiles - whole) * kblocks
+    ranges = max(1, min(grid, left // SK_MIN))
+    busiest = whole // grid * kblocks + _cdiv(left, ranges)
+    return tiles * kblocks / (busiest * sms)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(m: int, k: int, f: int, sms: int):
+    """The work split of the backward kernels' four launches (dh, dW2, dx,
+    dW1/dW3, in the C entry's order) at M and the kernels' K and F on
+    ``sms`` SMs. A launch gives each block whole tiles unless their last
+    wave would be less than ``WAVE_FILL`` full; then it runs stream-K for
+    that wave: the full waves of whole tiles, then the k-blocks of the
+    tiles left over cut into equal ranges a block, whose partial tiles
+    are summed in a fixed order (``csrc/fused_mlp_bwd.cu``), if that fills
+    the waves better. At
+    llava_next_34b's train step (M = 640, K = 7168, F = 20480) dx's 140
+    and dh's 400 tiles would leave 6% and 3% of their last wave's SMs
+    busy, so both split; at olmo_1b's M = 8192 every launch keeps whole
+    tiles."""
+    shapes = (("dh", m, f, 2 * TILE, k // 64),
+              ("dw2", f, k, 2 * TILE, _cdiv(m, 64)),
+              ("dx", m, k, 2 * TILE, 2 * f // 64),
+              ("dw13", k, f, TILE, _cdiv(m, 64)))
+    plan = []
+    for name, rows, cols, width, kblocks in shapes:
+        tiles = _cdiv(rows, TILE) * _cdiv(cols, width)
+        whole = _fill(tiles, kblocks, sms, False)
+        split = _fill(tiles, kblocks, sms, True)
+        stream_k = whole < WAVE_FILL and split > whole
+        plan.append(BwdLaunch(name, tiles, kblocks, stream_k,
+                              split if stream_k else whole))
+    return tuple(plan)
+
+
+def split_mask(plan) -> int:
+    """``bwd_plan``'s choice as the C entry's bit mask (bit i: launch i
+    runs stream-K)."""
+    return sum(1 << i for i, launch in enumerate(plan) if launch.stream_k)
+
+
 @functools.lru_cache(maxsize=None)
 def _bound():
     fn = _build.load("fused_mlp").fused_mlp_fwd_bf16
@@ -122,11 +194,16 @@ def _bound():
 
 @functools.lru_cache(maxsize=None)
 def _bound_bwd():
-    fn = _build.load("fused_mlp_bwd").fused_mlp_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+    """(entry, partial-size function) of the backward's library."""
+    lib = _build.load("fused_mlp_bwd")
+    fn = lib.fused_mlp_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    floats = lib.fused_mlp_bwd_partial_floats
+    floats.argtypes = [ctypes.c_int]
+    floats.restype = ctypes.c_longlong
+    return fn, floats
 
 
 def _check(x, w1, w3, w2):
@@ -238,10 +315,21 @@ def fused_mlp_backward(x, w1, w3, w2, dy, g=None, u=None):
     dx = torch.empty_like(x)
     dw1, dw3 = (torch.empty_like(w1) for _ in range(2))
     dw2 = torch.empty_like(w2)
+    sms = _build.sm_count(x.device.index)
+    split = split_mask(bwd_plan(m, kp, fp, sms))
+    fn, floats = _bound_bwd()
+    # a stream-K launch's partial tiles (128 KB a range), the ranges'
+    # ready flags and the ticket counter that hands the ranges out
+    part, flags = ((torch.empty(floats(sms), dtype=torch.float32,
+                                device=x.device),
+                    torch.empty(sms + 1, dtype=torch.int32, device=x.device))
+                   if split else (None, None))
     with _build.on_device(x):
-        rc = _bound_bwd()(*(t.data_ptr() for t in (
+        rc = fn(*(t.data_ptr() for t in (
             x, w1, w3, w2, dy, g, u, h, dg, du, dx, dw1, dw3, dw2)),
-            m, kp, fp, _build.sm_count(x.device.index), _build.stream_ptr(x))
+            *((t.data_ptr() for t in (part, flags)) if split
+              else (None, None)),
+            m, kp, fp, split, sms, _build.stream_ptr(x))
     _build.check(_build.load("fused_mlp_bwd"), "fused_mlp_bwd", rc)
     fused_mlp.bwd_launches += 1
     if (kp, fp) == (k0, f0):

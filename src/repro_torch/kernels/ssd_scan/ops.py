@@ -8,8 +8,9 @@ Replaces ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan``; like
 the op is one call of the C entry, which issues three kernel launches
 (chunk states, state passing, chunk scan) into a workspace this wrapper
 allocates; ``ssd_scan.launches`` counts calls of the forward op. One call
-of ``ssd_scan_backward`` on the card is one call of its C entry (nine
-launches); ``ssd_scan.bwd_launches`` counts those calls.
+of ``ssd_scan_backward`` on the card is one call of its C entry (six
+launches, reading the chunk states the forward kept under autograd);
+``ssd_scan.bwd_launches`` counts those calls.
 
 Head dims below the kernel's 64 (any multiple of 8, e.g. the smoke
 configs' 16) are zero-padded on P inside the op (``padded_head_dim``):
@@ -49,16 +50,20 @@ def padded_head_dim(p: int) -> int:
 
 
 def _bind(lib):
-    """(entry, workspace-size function) of the loaded library, typed once."""
+    """(entry, workspace-size function, kept-size function) of the loaded
+    library, typed once."""
     if not hasattr(lib, "_ssd_fns"):
         fn = lib.ssd_scan_fwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         ws = lib.ssd_scan_workspace_bytes
         ws.argtypes = [ctypes.c_int] * 5
         ws.restype = ctypes.c_longlong
-        lib._ssd_fns = (fn, ws)
+        keep = lib.ssd_scan_keep_bytes
+        keep.argtypes = [ctypes.c_int] * 5
+        keep.restype = ctypes.c_longlong
+        lib._ssd_fns = (fn, ws, keep)
     return lib._ssd_fns
 
 
@@ -66,11 +71,11 @@ def _bind_bwd(lib):
     """(entry, workspace-size function) of the backward's library."""
     if not hasattr(lib, "_ssd_bwd_fns"):
         fn = lib.ssd_scan_bwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         ws = lib.ssd_scan_bwd_workspace_bytes
-        ws.argtypes = [ctypes.c_int] * 5
+        ws.argtypes = [ctypes.c_int] * 7
         ws.restype = ctypes.c_longlong
         lib._ssd_bwd_fns = (fn, ws)
     return lib._ssd_bwd_fns
@@ -125,16 +130,39 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
     if x.dim() not in (3, 4):
         raise ValueError(f"x must be [BH,S,P] or [B,S,H,P], got "
                          f"{tuple(x.shape)}")
-    pallas_layout = x.dim() == 3
-    s = x.shape[1]
-    chunk = _clip_chunk(s, chunk)
     if x.device.type == "cpu":
-        if pallas_layout:
+        chunk = _clip_chunk(x.shape[1], chunk)
+        if x.dim() == 3:
             return ssd_ref(x, dt, a, bm, cm)
         y, state = ssd_ref(*to_pallas_layout(x, dt, a, bm, cm))
         return from_pallas_layout(y, state, x.shape[0])
     _build.refuse_grad("ssd_scan", (x, dt, a, bm, cm),
                        "call SSDScan.apply, which has a backward")
+    return _scan(x, dt, a, bm, cm, chunk, keep=False)[:2]
+
+
+def _forward(x, dt, a, bm, cm, chunk: int, keep: bool):
+    """SSDScan's forward -> (y, final state, kept): on CUDA tensors the
+    kernels, keeping the chunk states for the backward kernels when
+    ``keep`` (``_scan``); on CPU tensors the plain version, whose backward
+    recomputes everything (kept None)."""
+    if x.device.type == "cpu":
+        return (*ssd_scan(x, dt, a, bm, cm, chunk=chunk), None)
+    return _scan(x, dt, a, bm, cm, chunk, keep)
+
+
+def _scan(x, dt, a, bm, cm, chunk: int, keep: bool):
+    """The forward kernels on CUDA tensors -> (y, final state, kept): with
+    ``keep`` (model layout only) ``kept`` is the uint8 buffer that holds
+    the chunks' (cum, dt) pairs and previous states for the backward
+    kernels (``ssd_scan_keep_bytes``: ~54 MB at mamba2_780m's train
+    shape), else None."""
+    pallas_layout = x.dim() == 3
+    if keep and pallas_layout:
+        raise ValueError("the forward keeps its chunk states in the model "
+                         "layout only")
+    s = x.shape[1]
+    chunk = _clip_chunk(s, chunk)
     p0 = x.shape[-1]
     pad = padded_head_dim(p0) - p0
     if pad:
@@ -161,21 +189,23 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int = 128):
         *x4.stride()[:3], *dt4.stride(), a1.stride(0), *b4.stride()[:3],
         *c4.stride()[:3], *y4.stride()[:3])
     lib = _build.load("ssd_scan")
-    fn, ws_bytes = _bind(lib)
+    fn, ws_bytes, keep_bytes = _bind(lib)
     # (cum, dt) pairs, chunk states and previous states: ~104 MB at
     # mamba2_780m's prefill, from PyTorch's caching allocator
     work = torch.empty(ws_bytes(b, s, h, n, chunk), dtype=torch.uint8,
                        device=x.device)
+    kept = (torch.empty(keep_bytes(b, s, h, n, chunk), dtype=torch.uint8,
+                        device=x.device) if keep else None)
     with _build.on_device(x):
         rc = fn(x4.data_ptr(), dt4.data_ptr(), a1.data_ptr(), b4.data_ptr(),
                 c4.data_ptr(), y4.data_ptr(), state.data_ptr(),
-                work.data_ptr(), b, s, h, g, n, p, chunk, strides,
-                _build.stream_ptr(x))
+                work.data_ptr(), None if kept is None else kept.data_ptr(),
+                b, s, h, g, n, p, chunk, strides, _build.stream_ptr(x))
     _build.check(lib, "ssd_scan", rc)
     ssd_scan.launches += 1
     if pad:
-        return y[..., :p0].contiguous(), state[..., :p0].contiguous()
-    return y, state
+        return y[..., :p0].contiguous(), state[..., :p0].contiguous(), kept
+    return y, state, kept
 
 
 ssd_scan.launches = 0
@@ -317,12 +347,37 @@ def ssd_scan_bwd(x, dt, a, bm, cm, dy, dstate, chunk: int):
     return dx, ddt, da, db, dc
 
 
-def ssd_scan_backward(x, dt, a, bm, cm, dy, dstate, chunk: int):
+def bwd_work(b: int, s: int, h: int, g: int, n: int, p: int, chunk: int):
+    """(FLOPs, bytes) that the SSD scan's backward needs at least, which
+    its bound divides by the card's rates. Per (batch, chunk) of L rows,
+    over the lower triangle of the L x L scores (the causal mask zeroes the
+    rest): C B^T and the intra-chunk dB and dC products once per group (dS
+    is summed over a group's heads before them), dM = dy x^T and M^T dy once
+    per head; per head the four L x N x P products of the state terms (y's
+    gradient of the previous state C^T (e dy), dx's B g, dB's x g^T, dC's
+    dy S_prev^T). The chunk states are not counted: the forward keeps them.
+    Bytes: x, dy and dx in bf16, dt and ddt in fp32, A and dA, and B, C, dB
+    and dC in bf16, each once."""
+    flops = 0.0
+    for start in range(0, s, chunk):
+        rows = min(chunk, s - start)
+        tri = rows * (rows + 1) / 2
+        flops += 2.0 * b * (tri * (3 * g * n + 2 * h * p)
+                            + 4 * h * rows * n * p)
+    nbytes = (3 * 2 * b * s * h * p + 2 * 4 * b * s * h + 2 * 4 * h
+              + 4 * 2 * b * s * g * n)
+    return flops, nbytes
+
+
+def ssd_scan_backward(x, dt, a, bm, cm, dy, dstate, chunk: int,
+                      kept=None):
     """Gradients (dx, ddt, dA, dB, dC) of the SSD scan in the model layout
     for y's gradient ``dy`` and the final state's ``dstate`` (None when
     the state is unused, as in training): on CUDA tensors the backward
-    kernels (``csrc/ssd_scan_bwd.cu``), on CPU tensors the plain
-    ``ssd_scan_bwd``. dx comes back in x's dtype, ddt and dA in fp32, dB
+    kernels (``csrc/ssd_scan_bwd.cu``), which read the chunk states the
+    forward kept (``kept``, from ``_scan(..., keep=True)``, as
+    ``SSDScan.forward`` keeps them under grad; required there), on CPU
+    tensors the plain ``ssd_scan_bwd``, which recomputes them. dx comes back in x's dtype, ddt and dA in fp32, dB
     and dC in B's dtype summed over each group's heads. Head dims below
     the kernel's 64 are zero-padded as the forward pads them (x, dy and
     dstate; dx sliced)."""
@@ -330,6 +385,9 @@ def ssd_scan_backward(x, dt, a, bm, cm, dy, dstate, chunk: int):
         return ssd_scan_bwd(x, dt, a, bm, cm, dy, dstate, chunk)
     b, s, h, p0 = x.shape
     chunk = _clip_chunk(s, chunk)
+    if kept is None:
+        raise ValueError("the backward kernels read the chunk states the "
+                         "forward kept: pass _scan(..., keep=True)[2]")
     pad = padded_head_dim(p0) - p0
     if pad:
         x, dy = F.pad(x, (0, pad)), F.pad(dy, (0, pad))
@@ -346,6 +404,12 @@ def ssd_scan_backward(x, dt, a, bm, cm, dy, dstate, chunk: int):
         if dstate.shape != (b, h, n, HEAD_DIM) or dstate.device != x.device:
             raise ValueError(f"dstate {tuple(dstate.shape)} must be "
                              f"{(b, h, n, p0)}")
+    keep_bytes = _bind(_build.load("ssd_scan"))[2](b, s, h, n, chunk)
+    if (kept.dtype != torch.uint8 or kept.numel() != keep_bytes
+            or kept.device != x.device or not kept.is_contiguous()):
+        raise ValueError(f"kept must be the forward's {keep_bytes} bytes "
+                         f"for these inputs, got {kept.numel()} "
+                         f"{kept.dtype} on {kept.device}")
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
     da = torch.empty((h,), dtype=torch.float32, device=x.device)
@@ -357,17 +421,21 @@ def ssd_scan_backward(x, dt, a, bm, cm, dy, dstate, chunk: int):
         *ddt.stride())
     lib = _build.load("ssd_scan_bwd")
     fn, ws_bytes = _bind_bwd(lib)
-    # the forward's workspace, the gradient of each chunk's state and the
-    # per-head fp32 dB and dC: ~0.9 GB at mamba2_780m's train shape
-    work = torch.empty(ws_bytes(b, s, h, n, chunk), dtype=torch.uint8,
-                       device=x.device)
+    sms = _build.sm_count(x.device.index)
+    # y's gradient of each chunk's state and the gradient of the state
+    # after it, the tile pairs' dS summed over head slices, the rows' sums
+    # and dx's carry between query tiles: ~0.13 GB at mamba2_780m's train
+    # shape
+    work = torch.empty(ws_bytes(b, s, h, g, n, chunk, sms),
+                       dtype=torch.uint8, device=x.device)
     with _build.on_device(x):
         rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
                 cm.data_ptr(), dy.data_ptr(),
                 None if dstate is None else dstate.data_ptr(),
-                dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
-                dc.data_ptr(), work.data_ptr(), b, s, h, g, n, HEAD_DIM,
-                chunk, strides, _build.stream_ptr(x))
+                kept.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                work.data_ptr(), b, s, h, g, n, HEAD_DIM, chunk, sms,
+                strides, _build.stream_ptr(x))
     _build.check(lib, "ssd_scan_bwd", rc)
     ssd_scan.bwd_launches += 1
     return (dx[..., :p0].contiguous() if pad else dx), ddt, da, db, dc
@@ -380,29 +448,34 @@ class SSDScan(torch.autograd.Function):
 
     Forward is the op as it is: the hand-written kernels on CUDA tensors
     (so the kernel runs in every forward, including the recompute under
-    remat), the plain version on CPU tensors. Backward is
-    ``ssd_scan_backward``, recomputed from the saved inputs: the
-    hand-written backward kernels on CUDA tensors, the plain
-    ``ssd_scan_bwd`` on CPU tensors. The TPU kernel is forward-only and
-    the reference's gradients come from XLA's autodiff of its chunked
-    einsums outside any Pallas kernel; the backward kernels compute that
-    gradient. An unused output's gradient arrives as None (the final
-    state, in training)."""
+    remat), the plain version on CPU tensors; on the card, when an input
+    needs a gradient, it also keeps the chunks' (cum, dt) pairs and
+    previous states (``_scan(..., keep=True)``, ~54 MB at mamba2_780m's
+    train shape), as FlashAttention keeps the LSE and FusedMLP g and u.
+    Backward is ``ssd_scan_backward``: the hand-written backward kernels
+    on CUDA tensors, from the saved inputs and those states; the plain
+    ``ssd_scan_bwd`` on CPU tensors, recomputed from the saved inputs.
+    The TPU kernel is forward-only and the reference's gradients come
+    from XLA's autodiff of its chunked einsums outside any Pallas kernel;
+    the backward kernels compute that gradient. An unused output's
+    gradient arrives as None (the final state, in training)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, bm, cm, chunk=128):
         if x.dim() != 4:
             raise ValueError(f"SSDScan takes the model layout x [B,S,H,P], "
                              f"got {tuple(x.shape)}")
-        ctx.save_for_backward(x, dt, a, bm, cm)
+        y, state, kept = _forward(x, dt, a, bm, cm, chunk,
+                                  keep=any(ctx.needs_input_grad[:5]))
+        ctx.save_for_backward(x, dt, a, bm, cm, kept)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
-        return ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        x, dt, a, bm, cm = ctx.saved_tensors
+        x, dt, a, bm, cm, kept = ctx.saved_tensors   # unpacked once (remat)
         if dy is None:
             dy = torch.zeros_like(x)
         return (*ssd_scan_backward(x, dt, a, bm, cm, dy, dstate,
-                                   ctx.chunk), None)
+                                   ctx.chunk, kept), None)

@@ -32,6 +32,7 @@ from repro_torch.kernels.fused_mlp import ops as mlp_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: E402
                                           ssd_ref, ssd_scan,
                                           ssd_scan_backward, to_pallas_layout)
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
@@ -452,6 +453,52 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, m, k, f):
     _scaled_close(got, want)
 
 
+@pytest.mark.parametrize("m,k,f,split", [
+    (640, 7168, 20480, ("dh", "dx")),   # llava_next_34b's train step
+    (768, 7168, 20480, ("dx",)),
+    (1, 2048, 8192, ("dh", "dx")),      # one row: pieces within a tile
+    (8192, 1024, 4096, ()),             # olmo_1b's M, K and F cut
+])
+def test_fused_mlp_backward_kernel_each_split(cuda, m, k, f, split):
+    """Each work split ``bwd_plan`` can choose on the card (stream-K for
+    dh and dx, for dx alone, none): the gradients against autograd of
+    ``fused_mlp_ref`` within the repo's bf16 tolerance, and two backward
+    calls bitwise equal (the partial tiles are added in block order)."""
+    plan = mlp_ops.bwd_plan(m, k, f, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert tuple(p.name for p in plan if p.stream_k) == split
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    args, dy = _mlp_args(gen, m, k, f)
+    y = FusedMLP.apply(*args)
+    got = torch.autograd.grad(y, args, dy, retain_graph=True)
+    again = torch.autograd.grad(y, args, dy, retain_graph=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = torch.autograd.grad(fused_mlp_ref(*args), args, dy)
+    _scaled_close(got, want)
+
+
+def test_fused_mlp_backward_stream_k_on_more_blocks_than_fit(cuda,
+                                                             monkeypatch):
+    """Stream-K with three times the card's SMs as the grid, so most blocks
+    wait for an SM while others run: a block waits only for ranges whose
+    blocks took their tickets before it, so the launch completes; the
+    gradients against autograd of ``fused_mlp_ref`` within the repo's bf16
+    tolerance, two calls bitwise equal."""
+    sms = 3 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    m, k, f = 256, 1024, 4096
+    assert all(p.stream_k for p in mlp_ops.bwd_plan(m, k, f, sms)
+               if p.name in ("dh", "dx"))
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    args, dy = _mlp_args(gen, m, k, f)
+    y = FusedMLP.apply(*args)
+    monkeypatch.setattr(mlp_ops._build, "sm_count", lambda index=None: sms)
+    got = torch.autograd.grad(y, args, dy, retain_graph=True)
+    again = torch.autograd.grad(y, args, dy, retain_graph=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = torch.autograd.grad(fused_mlp_ref(*args), args, dy)
+    _scaled_close(got, want)
+
+
 def test_fused_mlp_backward_kernel_is_deterministic(cuda):
     """Two backward calls, and two ``retain_graph`` passes through one
     graph, give the same bits (no atomics; no saved tensor is
@@ -680,9 +727,41 @@ def test_ssd_backward_kernel_is_deterministic(cuda):
     gen = torch.Generator(device=cuda).manual_seed(15)
     x, dt, a, bm, cm = _ssd_inputs(gen, 2, 1024, 8, 1, 128)
     dy = _randn(gen, 2, 1024, 8, 64)
-    one = ssd_scan_backward(x, dt, a, bm, cm, dy, None, 256)
-    two = ssd_scan_backward(x, dt, a, bm, cm, dy, None, 256)
+    with torch.no_grad():
+        kept = ssd_ops._scan(x, dt, a, bm, cm, 256, keep=True)[2]
+    one = ssd_scan_backward(x, dt, a, bm, cm, dy, None, 256, kept)
+    two = ssd_scan_backward(x, dt, a, bm, cm, dy, None, 256, kept)
     assert all(torch.equal(u, v) for u, v in zip(one, two))
+
+
+def test_ssd_forward_keeps_chunk_states_for_the_backward(cuda):
+    """Under grad the forward keeps the chunks' (cum, dt) pairs and
+    previous states (``ssd_scan_keep_bytes``), the same bits as a keeping
+    forward run alone, and the backward kernels read them: the gradients
+    through autograd equal a direct backward call given that buffer;
+    serving keeps nothing; a missing buffer, or one of another size, is
+    refused (the backward never runs the forward again)."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    b, s, h, g, n, chunk = 2, 512, 8, 1, 128, 256
+    args = [t.requires_grad_() for t in _ssd_inputs(gen, b, s, h, g, n)]
+    dy = _randn(gen, b, s, h, 64)
+    y, _ = SSDScan.apply(*args, chunk)
+    kept = y.grad_fn.saved_tensors[-1]
+    _, _, keep_bytes = ssd_ops._bind(_build.load("ssd_scan"))
+    assert kept.dtype == torch.uint8
+    assert kept.numel() == keep_bytes(b, s, h, n, chunk) > 0
+    got = torch.autograd.grad(y, args, dy)
+    x, dt, a, bm, cm = (t.detach() for t in args)
+    with torch.no_grad():
+        alone = ssd_ops._scan(x, dt, a, bm, cm, chunk, keep=True)[2]
+        assert ssd_ops._scan(x, dt, a, bm, cm, chunk, keep=False)[2] is None
+    assert torch.equal(kept, alone)
+    again = ssd_scan_backward(x, dt, a, bm, cm, dy, None, chunk, alone)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    with pytest.raises(ValueError, match="kept must be"):
+        ssd_scan_backward(x, dt, a, bm, cm, dy, None, chunk, kept[:-16])
+    with pytest.raises(ValueError, match="chunk states the forward kept"):
+        ssd_scan_backward(x, dt, a, bm, cm, dy, None, chunk)
 
 
 def test_backward_kernels_never_call_plain_versions(cuda, monkeypatch):

@@ -1,5 +1,6 @@
 """PyTorch port's serving Engine vs the JAX Engine on the CPU, and the
 port's package boundary (no JAX, nothing of ``repro``)."""
+import glob
 import os
 import subprocess
 import sys
@@ -209,17 +210,21 @@ def test_port_imports_no_jax_and_nothing_of_repro(tmp_path):
     """Every module of the port (the training half's ``train/``,
     ``data/`` and ``launch/train.py`` and the mapper's ``core/``,
     ``dse/``, ``obs/``, ``workloads/`` and ``serve/service.py`` included),
-    and chip_smoke.py, in a fresh process, which then lowers a zoo
+    chip_smoke.py and the kernels' profile scripts
+    (``scripts/profile_*.py``), in a fresh process, which then lowers a zoo
     scenario and answers a mapping request (the mapper's lazy imports):
     neither jax nor any ``repro`` module gets imported."""
+    scripts = sorted(glob.glob(os.path.join(ROOT, "scripts", "profile_*.py")))
+    assert len(scripts) >= 3, scripts
     code = (
         "import importlib, importlib.util, os, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
-        f"{os.path.join(ROOT, 'chip_smoke.py')!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for i, path in enumerate([{os.path.join(ROOT, 'chip_smoke.py')!r}]"
+        f" + {scripts!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "from repro_torch.core.interface import describe\n"
         "assert len(describe('granite_8b_smoke:prefill@64').layers) > 0\n"
         "from repro_torch.serve import MappingRequest, MappingService\n"

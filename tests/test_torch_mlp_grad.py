@@ -2,8 +2,9 @@
 ``fused_mlp_bwd`` under its contract (g and u as the forward kept them,
 or recomputed) against jax.vjp of the reference's kernel oracle and of
 its model MLP, a CPU emulation of the backward kernels' rounding
-(``csrc/fused_mlp_bwd.cu``) at olmo_1b's K:F ratio, and the launch
-counters on CPU tensors. The kernels themselves run in
+(``csrc/fused_mlp_bwd.cu``) at olmo_1b's K:F ratio and of dx's stream-K
+sum at llava_next_34b's, the kernels' work split (``bwd_plan``), and the
+launch counters on CPU tensors. The kernels themselves run in
 tests/test_torch_cuda.py.
 """
 import os
@@ -23,7 +24,8 @@ from repro.kernels.fused_mlp import fused_mlp_ref as jax_fused_mlp_ref  # noqa: 
 from repro.models.mlp import mlp as jax_mlp  # noqa: E402
 from repro_torch.kernels.fused_mlp import (FusedMLP, fused_mlp,  # noqa: E402
                                            fused_mlp_backward, fused_mlp_ref)
-from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd  # noqa: E402
+from repro_torch.kernels.fused_mlp.ops import (bwd_plan,  # noqa: E402
+                                               fused_mlp_bwd, split_mask)
 
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # the repo's bf16 kernel tolerance
@@ -91,12 +93,16 @@ def test_given_g_and_u_equal_recompute_bitwise():
         assert all(torch.equal(a, b) for a, b in zip(given, again))
 
 
-def _kernel_emulation(x, w1, w3, w2, dy):
+def _kernel_emulation(x, w1, w3, w2, dy, pieces=1):
     """What csrc/fused_mlp_bwd.cu computes, in fp32 on the CPU from
     bf16-valued operands: g and u as the forward keeps them (bf16), dh in
     fp32 (never stored), h, dg and du rounded to bf16 once, dx one fp32
     accumulator over both of its products, every gradient rounded to bf16
-    once."""
+    once. With ``pieces`` > 1, dx's reduction over (dg, du) is cut into
+    that many ranges of whole 64-deep k-blocks, as a stream-K launch cuts
+    it (``bwd_plan``): each range an fp32 partial, added as the kernel
+    adds them (to the last range's, from the one before it down to the
+    first) and rounded once."""
     def bf(t):
         return t.to(torch.bfloat16).float()
 
@@ -107,12 +113,23 @@ def _kernel_emulation(x, w1, w3, w2, dy):
     h = bf(sg * u)
     dg = bf(dh * u * sig * (1 + g * (1 - sig)))
     du = bf(dh * sg)
-    return (bf(torch.cat([dg, du], 1) @ torch.cat([w1, w3], 1).T),
-            bf(x.T @ dg), bf(x.T @ du), bf(h.T @ dy))
+    lhs, rhs = torch.cat([dg, du], 1), torch.cat([w1, w3], 1)
+    kblocks = lhs.shape[1] // 64
+    cuts = [kblocks * i // pieces * 64 for i in range(pieces + 1)]
+    parts = [lhs[:, a:b] @ rhs[:, a:b].T for a, b in zip(cuts, cuts[1:])]
+    dx = parts[-1]
+    for part in reversed(parts[:-1]):
+        dx = dx + part
+    return bf(dx), bf(x.T @ dg), bf(x.T @ du), bf(h.T @ dy)
 
 
-@pytest.mark.parametrize("m", [1, 100])
-def test_bwd_kernel_rounding_at_olmo_ratio(m):
+@pytest.mark.parametrize("m,k,f,pieces", [
+    pytest.param(1, 512, 2048, 1, id="1"),
+    pytest.param(100, 512, 2048, 1, id="100"),
+    # llava_next_34b's K:F = 7168:20480 = 7:20, dx cut in three
+    pytest.param(128, 448, 1280, 3, id="llava_ratio_dx_split"),
+])
+def test_bwd_kernel_rounding_at_olmo_ratio(m, k, f, pieces):
     """CPU evidence for the backward kernels' precision at olmo_1b's
     K:F = 1:4 (K 512, F 2048) with chip_smoke.py's input distribution:
     the emulation of their rounding against autograd of the fp32
@@ -120,17 +137,41 @@ def test_bwd_kernel_rounding_at_olmo_ratio(m):
     scaled by its largest magnitude, within the repo's bf16 tolerance
     (the bound ``test_functions_match_autograd_of_plain_bf16`` holds the
     plain backward to; the kernels round g, u, h, dg and du once each,
-    about one bf16 step)."""
+    about one bf16 step); and at llava_next_34b's K:F with dx's reduction
+    summed as a stream-K launch sums it, in fixed-order fp32 partials
+    rounded once."""
     rng = np.random.RandomState(3)
-    k, f = 512, 2048
     args = [torch.from_numpy(a).to(torch.bfloat16).float()
             for a in _arrays(rng, m, k, f)]
-    got = _kernel_emulation(*args)
+    got = _kernel_emulation(*args, pieces=pieces)
     leaves = [t.clone().requires_grad_() for t in args[:4]]
     want = torch.autograd.grad(fused_mlp_ref(*leaves), leaves, args[4])
     for gt, w in zip(got, want):
         top = w.abs().max()
         torch.testing.assert_close(gt / top, w / top, **BF16_TOL)
+
+
+@pytest.mark.parametrize("m,k,f,split", [
+    (640, 7168, 20480, ("dh", "dx")),   # llava_next_34b's train step
+    (768, 7168, 20480, ("dx",)),        # six row tiles: dh's 480 fill
+    (8192, 2048, 8192, ()),             # olmo_1b: whole tiles everywhere
+])
+def test_bwd_plan_fills_every_wave(m, k, f, split):
+    """The backward kernels' work split (``bwd_plan``) on an H100's 132
+    SMs: every launch's last wave at least 85% full, stream-K exactly
+    where whole 128-row tiles would leave it emptier (llava_next_34b's dx:
+    140 tiles, 53%; dh: 400 tiles, 76%), and olmo_1b's launches on the
+    whole-tile split of the first design (dx 512 tiles, 3.9 waves)."""
+    plan = bwd_plan(m, k, f, 132)
+    assert [launch.name for launch in plan] == ["dh", "dw2", "dx", "dw13"]
+    assert tuple(launch.name for launch in plan if launch.stream_k) == split
+    assert all(launch.fill >= 0.85 for launch in plan), plan
+    assert split_mask(plan) == sum(1 << i for i, launch in enumerate(plan)
+                                   if launch.name in split)
+    if not split:
+        assert [launch.tiles for launch in plan] == [
+            -(-m // 128) * (f // 256), (f // 128) * (k // 256),
+            -(-m // 128) * (k // 256), (k // 128) * (f // 128)]
 
 
 def test_cpu_tensors_launch_no_kernel():

@@ -75,6 +75,34 @@ def test_ssd_scan_function_gradcheck(groups, chunk, outputs):
     assert torch.autograd.gradcheck(fn, args)
 
 
+@pytest.mark.parametrize("needs_grad,keep", [
+    ((), False), (("x",), True), (("dt",), True), (("a", "cm"), True)])
+def test_ssd_scan_keeps_chunk_states_only_under_grad(monkeypatch,
+                                                     needs_grad, keep):
+    """SSDScan asks its forward to keep the chunk states (the (cum, dt)
+    pairs and previous states the backward kernels read, ``_scan``'s
+    ``keep``) exactly when one of its inputs needs a gradient; serving,
+    with no input that needs one, keeps nothing. On CPU tensors the
+    forward is the plain version and keeps nothing either way."""
+    seen = []
+    forward = ssd_ops._forward
+
+    def record(*args, keep):
+        seen.append(keep)
+        return forward(*args, keep=keep)
+
+    monkeypatch.setattr(ssd_ops, "_forward", record)
+    names = ("x", "dt", "a", "bm", "cm")
+    arrs = _ssd_arrays(np.random.RandomState(5), 1, 8, 2, 1, 4, 4)
+    args = [t.requires_grad_(name in needs_grad)
+            for t, name in zip(_t(arrs, torch.float32), names)]
+    y, _ = SSDScan.apply(*args, 4)
+    assert seen == [keep]
+    assert (y.grad_fn is not None) == keep
+    if keep:
+        assert y.grad_fn.saved_tensors[-1] is None   # CPU: nothing kept
+
+
 # ---------------------------------------------------------------------------
 # against jax.vjp of the reference's chunked form (fp32)
 # ---------------------------------------------------------------------------
@@ -186,7 +214,7 @@ def _bf16(t):
 
 
 def _ssd_bwd_kernel_passes(x, dt, a, bm, cm, dy, chunk, weighted=_bf16,
-                           state=_split):
+                           state=_split, heads_summed=False, g_in_db=None):
     """The SSD backward as csrc/ssd_scan_bwd.cu computes it, in fp32 on
     the CPU (model layout, one group): the forward's chunk states and
     state passing (w o x and S_prev through ``state``), dS_prev =
@@ -197,7 +225,13 @@ def _ssd_bwd_kernel_passes(x, dt, a, bm, cm, dy, chunk, weighted=_bf16,
     (dC += dS B + e (dy S_prev^T), d cum_i's terms), then ddt from the
     reverse cumsum of d cum and dA summed directly over
     dseg_ij (cdt_i - cdt_j) and the other terms weighted by cdt =
-    cumsum(dt). Returns (dx, ddt, dA, dB, dC) in the kernel's dtypes."""
+    cumsum(dt). With ``heads_summed`` (the kernels since the redesign),
+    dS^T is summed over the group's heads in fp32 before ``weighted`` and
+    the dB, dC products take that one sum; else (the first design) each
+    head's dS^T goes through ``weighted`` and into its own products, and
+    dB, dC are summed over heads after. ``g_in_db`` (default ``state``)
+    is what g goes through in dB's state-side term x g^T alone. Returns
+    (dx, ddt, dA, dB, dC) in the kernel's dtypes."""
     b, s, h, p = x.shape
     n, nc, ln = bm.shape[-1], s // chunk, chunk
 
@@ -228,7 +262,8 @@ def _ssd_bwd_kernel_passes(x, dt, a, bm, cm, dy, chunk, weighted=_bf16,
         gs[c] = g
         dd[c] = (g * sum(part[:, :, c] for part in sp)).sum((-1, -2))
         g = g * torch.exp(cl[:, :, c])[..., None] + dsp[:, :, c]
-    gp = state(torch.stack(gs, 2))
+    g_all = torch.stack(gs, 2)
+    gp = state(g_all)
     dd = torch.stack(dd, 2)
 
     causal = torch.ones(ln, ln, dtype=torch.bool).tril()
@@ -243,18 +278,24 @@ def _ssd_bwd_kernel_passes(x, dt, a, bm, cm, dy, chunk, weighted=_bf16,
     daseg = (tt * dtf[..., None, :] * seg.masked_fill(~causal, 0.0)).sum(
         (-1, -2)) / af[..., 0]
     m_t = weighted((sco * f).transpose(-1, -2))             # [.., j, i]
-    ds_t = weighted((dm * f).transpose(-1, -2))
+    ds_f = (dm * f).transpose(-1, -2)
+    if heads_summed:          # one group: every head shares B and C
+        ds_t = weighted(ds_f.sum(1, keepdim=True))
+        cg, bg_ = cf[:, :1], bf[:, :1]
+    else:
+        ds_t, cg, bg_ = weighted(ds_f), cf, bf
     dx = mm("bhcji,bhcip->bhcjp", m_t, dyf)
-    db = mm("bhcji,bhcin->bhcjn", ds_t, cf)
-    dc = mm("bhcij,bhcjn->bhcin", [t.transpose(-1, -2) for t in ds_t], bf)
+    db_in = mm("bhcji,bhcin->bhcjn", ds_t, cg)
+    dc_in = mm("bhcij,bhcjn->bhcin", [t.transpose(-1, -2) for t in ds_t],
+               bg_)
     bg = mm("bhcnp,bhcjn->bhcjp", gp, bf)
-    xg = mm("bhcnp,bhcjp->bhcjn", gp, xf)
+    xg = mm("bhcnp,bhcjp->bhcjn", (g_in_db or state)(g_all), xf)
     dx = dx + w[..., None] * bg
-    db = db + w[..., None] * xg
+    db = w[..., None] * xg
     kb = (bg * xf).sum(-1)
     cs = mm("bhcnp,bhcin->bhcip", sp, cf)
     dys = mm("bhcnp,bhcip->bhcin", sp, dyf)
-    dc = dc + e[..., None] * dys
+    dc = e[..., None] * dys
     qb = e * (dyf * cs).sum(-1)
 
     dww = kb * w
@@ -267,25 +308,37 @@ def _ssd_bwd_kernel_passes(x, dt, a, bm, cm, dy, chunk, weighted=_bf16,
           + cdt[..., -1] * tail).sum((0, 2))
 
     def back(t):  # [b, h, nc, L, k] -> [b, s, h, k]
-        return t.permute(0, 2, 3, 1, 4).reshape(b, s, h, -1)
+        return t.permute(0, 2, 3, 1, 4).reshape(b, s, t.shape[1], -1)
 
     return (back(dx).to(x.dtype), back(ddt[..., None])[..., 0], da,
-            back(db).sum(2, keepdim=True).to(bm.dtype),
-            back(dc).sum(2, keepdim=True).to(cm.dtype))
+            (back(db_in).sum(2, keepdim=True)
+             + back(db).sum(2, keepdim=True)).to(bm.dtype),
+            (back(dc_in).sum(2, keepdim=True)
+             + back(dc).sum(2, keepdim=True)).to(cm.dtype))
 
 
-@pytest.mark.parametrize("variant,ok", [("kernel", True), ("split", True),
-                                        ("bf16", False)])
-def test_ssd_bwd_kernel_rounding_at_mamba2_geometry(variant, ok):
+@pytest.mark.parametrize("variant,h,ok", [
+    pytest.param("kernel", 2, True, id="kernel-True"),
+    pytest.param("split", 2, True, id="split-True"),
+    pytest.param("bf16", 2, False, id="bf16-False"),
+    pytest.param("heads_summed", 2, True, id="heads_summed-True"),
+    pytest.param("heads_summed", 8, True, id="heads_summed_8_heads-True"),
+])
+def test_ssd_bwd_kernel_rounding_at_mamba2_geometry(variant, h, ok):
     """CPU evidence for the backward kernel's operand precision at one
     mamba2_780m head geometry (S=512, 2 heads, N=128, P=64, chunk 256)
     with chip_smoke.py's input distribution, each gradient scaled by its
-    largest magnitude. "kernel" (what csrc/ssd_scan_bwd.cu runs: M^T and
-    dS^T plain bf16, the state-side operands g, S_prev, w o x and e o dy
-    as bf16 hi/lo) and "split" (every fp32-weighted operand hi/lo) keep
-    dx, dB, dC within SSD_GRAD_BF16 of jax.vjp of the reference's chunked
-    form and ddt, dA within SSD_GRAD_FP32 of the exact gradient; "bf16"
-    (every operand plain bf16) puts ddt outside. At this geometry the
+    largest magnitude. "kernel" (the first design of
+    csrc/ssd_scan_bwd.cu: M^T and each head's dS^T plain bf16, the
+    state-side operands g, S_prev, w o x and e o dy as bf16 hi/lo),
+    "heads_summed" (the kernels since the redesign: as "kernel", but dS^T
+    summed over the group's heads in fp32 and rounded to bf16 once before
+    the dB and dC products, and g plain bf16 in dB's state-side term;
+    also at 8 heads, where the sum is longer) and
+    "split" (every fp32-weighted operand hi/lo) keep dx, dB, dC within
+    SSD_GRAD_BF16 of jax.vjp of the reference's chunked form and ddt, dA
+    within SSD_GRAD_FP32 of the exact gradient; "bf16" (every operand
+    plain bf16) puts ddt outside. At this geometry the
     reference's own dt and A gradients are NaN (F3: its
     where(causal, exp(seg), 0) meets inf at chunk 256, asserted here), so
     ddt and dA are held to the port's float64 ``ssd_scan_bwd``, which
@@ -293,7 +346,7 @@ def test_ssd_bwd_kernel_rounding_at_mamba2_geometry(variant, ok):
     finite differences at chunk 256 and test_ssd_scan_bwd_matches_jax_vjp
     to jax.vjp where the reference is finite."""
     rng = np.random.RandomState(11)
-    b, s, h, n, p, chunk = 1, 512, 2, 128, 64, 256
+    b, s, n, p, chunk = 1, 512, 128, 64, 256
 
     def bf16(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
@@ -314,9 +367,12 @@ def test_ssd_bwd_kernel_rounding_at_mamba2_geometry(variant, ok):
                          dy.double(), None, chunk)
     want = [ref[0], exact[1].numpy(), exact[2].numpy(), ref[3], ref[4]]
     weighted, state = {"kernel": (_bf16, _split), "split": (_split, _split),
-                       "bf16": (_bf16, _bf16)}[variant]
+                       "bf16": (_bf16, _bf16),
+                       "heads_summed": (_bf16, _split)}[variant]
+    summed = variant == "heads_summed"
     got = _ssd_bwd_kernel_passes(x, dt, a, bm, cm, dy, chunk, weighted,
-                                 state)
+                                 state, heads_summed=summed,
+                                 g_in_db=_bf16 if summed else None)
     errs = {}
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
         assert bool(torch.isfinite(g).all()), name
@@ -335,6 +391,33 @@ def _where_decay(seg, causal):
     """The reference's decay (repro/models/ssm.py:80), the port's
     formula before the repair."""
     return torch.where(causal, torch.exp(seg), 0.0)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
+def test_ssd_bwd_bound_counts_group_products_once(arch):
+    """The SSD backward's least work (``bwd_work``, which chip_smoke.py and
+    scripts/profile_ssd_scan_bwd.py divide by the card's rates for its
+    bound) at the train shape B=4 S=2048: C B^T and the intra-chunk dB and
+    dC products over the causal triangle once per group, dM and M^T dy once
+    per head, four L x N x P state products per head, no chunk state
+    recomputed; inputs and gradients once. Giving every head its own B and
+    C adds the group terms alone, and a ragged last chunk counts its own
+    rows."""
+    cfg = get_config(arch)
+    b, s, h, g = 4, 2048, cfg.ssm_heads, cfg.ssm_groups
+    n, p, chunk = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
+    flops, nbytes = ssd_ops.bwd_work(b, s, h, g, n, p, chunk)
+    tri = chunk * (chunk + 1) // 2
+    per_chunk = 2 * (tri * 3 * g * n + tri * 2 * h * p
+                     + 4 * h * chunk * n * p)
+    assert flops == b * (s // chunk) * per_chunk
+    assert nbytes == (3 * 2 * b * s * h * p + 2 * 4 * b * s * h + 2 * 4 * h
+                      + 4 * 2 * b * s * g * n)
+    per_head, _ = ssd_ops.bwd_work(b, s, h, h, n, p, chunk)
+    assert per_head - flops == b * (s // chunk) * 2 * tri * 3 * (h - g) * n
+    ragged, _ = ssd_ops.bwd_work(b, s + 44, h, g, n, p, chunk)
+    tail, _ = ssd_ops.bwd_work(b, 44, h, g, n, p, chunk)
+    assert ragged == flops + tail
 
 
 @pytest.mark.parametrize("s,chunk,init_dt", [(64, 16, False),
