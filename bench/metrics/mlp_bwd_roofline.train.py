@@ -1,0 +1,7 @@
+"""mlp_bwd_roofline.train: the share of its roofline that the mlp_bwd kernels
+reached in the traced training steps (bench.roofline), in %."""
+from bench import roofline
+
+
+def read(ctx):
+    return roofline.share(ctx, "mlp_bwd") if ctx.kind == "train" else None

@@ -1,0 +1,7 @@
+"""mlp_fwd_roofline.serve: the share of its roofline that the mlp_fwd kernels
+reached in the traced generate calls (bench.roofline), in %."""
+from bench import roofline
+
+
+def read(ctx):
+    return roofline.share(ctx, "mlp_fwd") if ctx.kind == "serve" else None
