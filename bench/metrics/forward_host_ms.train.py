@@ -1,0 +1,7 @@
+"""forward_host_ms.train: host ms a training step in the program's
+trainer.forward span (the loss's forward, launches included)."""
+from bench import program_spans
+
+
+def read(ctx):
+    return program_spans.ms_per(ctx, "trainer.step", name="trainer.forward")

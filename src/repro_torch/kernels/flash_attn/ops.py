@@ -23,7 +23,9 @@ are native, so their path never pads.
 included; under grad it also keeps each row's log-sum-exp), its
 backward is ``flash_attention_backward`` (the backward kernels on the card).
 The raw op refuses to launch when autograd would record it
-(``_build.refuse_grad``).
+(``_build.refuse_grad``). ``FlashAttention``'s forward and backward run
+in the spans ``kernel.flash_attn.fwd`` and ``kernel.flash_attn.bwd``
+(``launch.spans``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...launch.spans import span
 from .. import _build
 from .ref import attention_ref
 
@@ -321,8 +324,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True):
-        out, lse = _attend(q, k, v, causal,
-                           with_lse=any(ctx.needs_input_grad[:3]))
+        with span("kernel.flash_attn.fwd"):
+            out, lse = _attend(q, k, v, causal,
+                               with_lse=any(ctx.needs_input_grad[:3]))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -330,5 +334,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, o, lse, do, ctx.causal),
-                None)
+        with span("kernel.flash_attn.bwd"):
+            return (*flash_attention_backward(q, k, v, o, lse, do,
+                                              ctx.causal), None)

@@ -19,6 +19,8 @@ included; under grad they also keep g = x W1 and u = x W3 in bf16), its
 backward is ``fused_mlp_backward``: the backward kernels on CUDA
 tensors, the explicit torch ``fused_mlp_bwd`` on CPU tensors. The raw op
 refuses to launch when autograd would record it (``_build.refuse_grad``).
+``FusedMLP``'s forward and backward run in the spans
+``kernel.fused_mlp.fwd`` and ``kernel.fused_mlp.bwd`` (``launch.spans``).
 
 K and F that are multiples of 64 but not of the kernels' 128-wide tiles
 (the smoke configs' K = 64) are zero-padded inside the op
@@ -43,6 +45,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ...launch.spans import span
 from .. import _build
 from .ref import fused_mlp_ref
 
@@ -382,15 +385,17 @@ class FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, w3, w2):
-        if x.device.type == "cpu":
-            y, g, u = fused_mlp(x, w1, w3, w2), None, None
-        else:
-            y, g, u = _forward(x, w1, w3, w2,
-                               keep=any(ctx.needs_input_grad))
+        with span("kernel.fused_mlp.fwd"):
+            if x.device.type == "cpu":
+                y, g, u = fused_mlp(x, w1, w3, w2), None, None
+            else:
+                y, g, u = _forward(x, w1, w3, w2,
+                                   keep=any(ctx.needs_input_grad))
         ctx.save_for_backward(x, w1, w3, w2, g, u)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, w1, w3, w2, g, u = ctx.saved_tensors   # unpacked once (remat)
-        return fused_mlp_backward(x, w1, w3, w2, dy, g, u)
+        with span("kernel.fused_mlp.bwd"):
+            return fused_mlp_backward(x, w1, w3, w2, dy, g, u)

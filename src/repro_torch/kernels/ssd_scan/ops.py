@@ -23,7 +23,9 @@ kernel on the card, in every forward, the recompute under remat
 included), its backward is ``ssd_scan_backward`` (the backward kernels
 on the card; on the CPU ``ssd_scan_bwd``, the chain rule of the chunked
 form ``models.ssm.ssd_chunked``). The raw op refuses to launch when
-autograd would record it (``_build.refuse_grad``).
+autograd would record it (``_build.refuse_grad``). ``SSDScan``'s forward
+and backward run in the spans ``kernel.ssd_scan.fwd`` and
+``kernel.ssd_scan.bwd`` (``launch.spans``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...launch.spans import span
 from .. import _build
 from .ref import from_pallas_layout, ssd_ref, to_pallas_layout
 
@@ -465,8 +468,9 @@ class SSDScan(torch.autograd.Function):
         if x.dim() != 4:
             raise ValueError(f"SSDScan takes the model layout x [B,S,H,P], "
                              f"got {tuple(x.shape)}")
-        y, state, kept = _forward(x, dt, a, bm, cm, chunk,
-                                  keep=any(ctx.needs_input_grad[:5]))
+        with span("kernel.ssd_scan.fwd"):
+            y, state, kept = _forward(x, dt, a, bm, cm, chunk,
+                                      keep=any(ctx.needs_input_grad[:5]))
         ctx.save_for_backward(x, dt, a, bm, cm, kept)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
@@ -475,7 +479,8 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         x, dt, a, bm, cm, kept = ctx.saved_tensors   # unpacked once (remat)
-        if dy is None:
-            dy = torch.zeros_like(x)
-        return (*ssd_scan_backward(x, dt, a, bm, cm, dy, dstate,
-                                   ctx.chunk, kept), None)
+        with span("kernel.ssd_scan.bwd"):
+            if dy is None:
+                dy = torch.zeros_like(x)
+            return (*ssd_scan_backward(x, dt, a, bm, cm, dy, dstate,
+                                       ctx.chunk, kept), None)

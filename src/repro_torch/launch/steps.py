@@ -7,7 +7,12 @@ the params and the optimizer state are updated in place
 (``train.optimizer.adamw_update``), as the reference's trainer donates
 them. The steps run on plain tensors on one device, or on DTensors on a
 mesh (params, moments and batch placed by ``launch.sharding``); the
-metrics come back as plain scalars, the same on every rank.
+metrics come back as plain scalars, the same on every rank. The
+forward, the backward and the optimizer update run in the spans
+``trainer.forward``, ``trainer.backward`` and ``trainer.optimizer``
+(``launch.spans``); ``value_and_grad`` and ``adamw_update`` are called
+through this module's globals, so wrapping them by attribute reaches
+every step.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from ..models.common import ModelConfig, tree_get, tree_map
 from ..train.optimizer import (OptimizerConfig, adamw_update, fp32_zeros,
                                init_opt_state)
 from .sharding import placements
+from .spans import span
 
 PyTree = Any
 
@@ -35,10 +41,12 @@ def value_and_grad(cfg: ModelConfig, params: PyTree, batch: Dict
     paths = []
     tree_map(lambda path, _: paths.append(path), leaves)
     with torch.enable_grad():
-        loss, metrics = model_zoo.loss_fn(cfg, leaves, batch)
-        grads = torch.autograd.grad(
-            loss, [tree_get(leaves, p) for p in paths], allow_unused=True,
-            materialize_grads=True)
+        with span("trainer.forward"):
+            loss, metrics = model_zoo.loss_fn(cfg, leaves, batch)
+        with span("trainer.backward"):
+            grads = torch.autograd.grad(
+                loss, [tree_get(leaves, p) for p in paths],
+                allow_unused=True, materialize_grads=True)
     by_path = dict(zip(paths, grads))
     return (_scalar(loss), {k: _scalar(v) for k, v in metrics.items()},
             tree_map(lambda path, _: by_path[path], leaves))
@@ -56,8 +64,9 @@ def make_train_step(cfg: ModelConfig,
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(cfg, params, batch)
-        params, opt_state, om = adamw_update(opt_cfg, params, grads,
-                                             opt_state)
+        with span("trainer.optimizer"):
+            params, opt_state, om = adamw_update(opt_cfg, params, grads,
+                                                 opt_state)
         return params, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step
@@ -88,8 +97,9 @@ def make_grad_accum_train_step(cfg: ModelConfig, n_micro: int,
             lsum = accumulate_micro_batch(
                 cfg, params, gsum, lsum, {k: v[i] for k, v in batch.items()})
         grads = tree_map(lambda _, g: g / n_micro, gsum)
-        params, opt_state, om = adamw_update(opt_cfg, params, grads,
-                                             opt_state)
+        with span("trainer.optimizer"):
+            params, opt_state, om = adamw_update(opt_cfg, params, grads,
+                                                 opt_state)
         return params, opt_state, {"loss": lsum / n_micro, **om}
 
     return train_step

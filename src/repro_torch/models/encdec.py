@@ -106,9 +106,9 @@ def encode(cfg: ModelConfig, params: PyTree, frames) -> torch.Tensor:
 
     def sublayers(lp):
         return [("mix", residual(cfg, lp["attn_norm"], lambda h: attention(
-                    cfg, lp["attn"], h, causal=False))),
+                    cfg, lp["attn"], h, causal=False), "model.attention")),
                 ("mlp", residual(cfg, lp["ffn_norm"], lambda h: mlp(
-                    cfg, lp["mlp"], h)))]
+                    cfg, lp["mlp"], h), "model.mlp"))]
 
     x = _layers(cfg, params["encoder"], cfg.enc_layers, sublayers, x,
                 param_requires_grad(params))
@@ -126,11 +126,12 @@ def _decoder(cfg: ModelConfig, params: PyTree, tokens, enc):
 
     def sublayers(lp):
         return [("mix", residual(cfg, lp["self_norm"], lambda h: attention(
-                    cfg, lp["self_attn"], h, causal=True))),
+                    cfg, lp["self_attn"], h, causal=True), "model.attention")),
                 ("mix", residual(cfg, lp["cross_norm"], lambda h: attention(
-                    cfg, lp["cross_attn"], h, causal=False, kv_x=enc))),
+                    cfg, lp["cross_attn"], h, causal=False, kv_x=enc),
+                    "model.attention")),
                 ("mlp", residual(cfg, lp["ffn_norm"], lambda h: mlp(
-                    cfg, lp["mlp"], h)))]
+                    cfg, lp["mlp"], h), "model.mlp"))]
 
     x = _layers(cfg, params["decoder"], cfg.n_layers, sublayers, x,
                 param_requires_grad(params))

@@ -34,6 +34,12 @@ gradients:
     of theirs.
 The MoE sublayer's aux loss is an output of the recomputed function, so
 its gradient reaches the router under every policy.
+
+Spans (``launch.spans``): each layer's sublayers run in
+``model.attention``, ``model.mlp`` (the MLP or the MoE) or ``model.ssm``
+in ``forward``, ``prefill`` and ``decode_step``, the final norm and
+unembedding in ``model.unembed``, and a checkpointed function run again
+inside a backward (the recompute) in ``trainer.recompute``.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..launch.spans import span
 from . import parallel
 from .attention import (attention, decode_attention, init_attn,
                         init_kv_cache, prefill_into_cache)
@@ -168,19 +175,22 @@ def _embed(cfg: ModelConfig, params: PyTree, tokens):
 
 
 def _unembed(cfg: ModelConfig, params: PyTree, x):
-    x = apply_norm(cfg, x, params["final_norm"])
-    logits = x @ params["unembed"].to(x.dtype)
-    return _vocab_mask(cfg, logits)
+    with span("model.unembed"):
+        x = apply_norm(cfg, x, params["final_norm"])
+        logits = x @ params["unembed"].to(x.dtype)
+        return _vocab_mask(cfg, logits)
 
 
 def _shared_attn_apply(cfg: ModelConfig, shared: Dict, x, attend):
     """The hybrid's shared block: x + attend(norm(x)), then its MLP.
     ``attend`` is the pass's attention on the shared weights (full,
     prefill into a KV slot, or one decode step)."""
-    h = apply_norm(cfg, x, shared["norm"])
-    x = x + parallel.like(attend(h), x)
-    h = apply_norm(cfg, x, shared["mlp_norm"])
-    return x + parallel.like(mlp(cfg, shared["mlp"], h), x)
+    with span("model.attention"):
+        h = apply_norm(cfg, x, shared["norm"])
+        x = x + parallel.like(attend(h), x)
+    with span("model.mlp"):
+        h = apply_norm(cfg, x, shared["mlp_norm"])
+        return x + parallel.like(mlp(cfg, shared["mlp"], h), x)
 
 
 # A residual sublayer: (kind, fn). ``kind`` is "mlp" (a dense MLP), "moe"
@@ -193,24 +203,28 @@ def _moe_sublayer(cfg: ModelConfig, norm, p: Dict) -> Sublayer:
     routed = {k: v for k, v in p.items() if k != "shared"}
 
     def fn(x, split=False):
-        h = apply_norm(cfg, x, norm)
-        if not split:
-            y, aux = moe(cfg, p, h)
+        with span("model.mlp"):
+            h = apply_norm(cfg, x, norm)
+            if not split:
+                y, aux = moe(cfg, p, h)
+                return x + y, aux
+            # "mlp" remat: the router and routed experts are recomputed,
+            # the shared expert (an MLP) is not
+            y, aux = checkpoint(_recomputed, functools.partial(
+                moe, cfg, routed), h, use_reentrant=False)
+            if "shared" in p:
+                y = y + parallel.like(mlp(cfg, p["shared"], h), y)
             return x + y, aux
-        # "mlp" remat: the router and routed experts are recomputed, the
-        # shared expert (an MLP) is not
-        y, aux = checkpoint(functools.partial(moe, cfg, routed), h,
-                            use_reentrant=False)
-        if "shared" in p:
-            y = y + parallel.like(mlp(cfg, p["shared"], h), y)
-        return x + y, aux
     return "moe", fn
 
 
-def residual(cfg: ModelConfig, norm, fn) -> Callable:
-    """The residual sublayer x -> x + fn(norm(x)); on a mesh, fn's output
-    is reduced to x's placements before the add."""
-    return lambda x: x + parallel.like(fn(apply_norm(cfg, x, norm)), x)
+def residual(cfg: ModelConfig, norm, fn, name: str) -> Callable:
+    """The residual sublayer x -> x + fn(norm(x)), in the span ``name``; on
+    a mesh, fn's output is reduced to x's placements before the add."""
+    def run(x):
+        with span(name):
+            return x + parallel.like(fn(apply_norm(cfg, x, norm)), x)
+    return run
 
 
 def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
@@ -218,19 +232,19 @@ def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
     """Layer ``idx`` of ``forward`` as its residual sublayers, in order."""
     if cfg.is_ssm_family:
         subs = [("mix", residual(cfg, lp["ssm_norm"], lambda h: mamba2_block(
-            cfg, lp["ssm"], h)))]
+            cfg, lp["ssm"], h), "model.ssm"))]
         if _shared_fires(cfg, shared, idx):
             subs += [("mix", residual(cfg, shared["norm"], lambda h: attention(
-                cfg, shared["attn"], h, causal=True))),
+                cfg, shared["attn"], h, causal=True), "model.attention")),
                 ("mlp", residual(cfg, shared["mlp_norm"], lambda h: mlp(
-                    cfg, shared["mlp"], h)))]
+                    cfg, shared["mlp"], h), "model.mlp"))]
         return subs
     attn = ("mix", residual(cfg, lp["attn_norm"], lambda h: attention(
-        cfg, lp["attn"], h, causal=True)))
+        cfg, lp["attn"], h, causal=True), "model.attention"))
     if cfg.family == "moe":
         return [attn, _moe_sublayer(cfg, lp["ffn_norm"], lp["moe"])]
     return [attn, ("mlp", residual(cfg, lp["ffn_norm"], lambda h: mlp(
-        cfg, lp["mlp"], h)))]
+        cfg, lp["mlp"], h), "model.mlp"))]
 
 
 def _run(subs: List[Sublayer], x, mlp_policy: bool = False):
@@ -243,10 +257,19 @@ def _run(subs: List[Sublayer], x, mlp_policy: bool = False):
             x, a = fn(x, mlp_policy)
             aux.append(a)
         elif kind == "mix" and mlp_policy:
-            x = checkpoint(fn, x, use_reentrant=False)
+            x = checkpoint(_recomputed, fn, x, use_reentrant=False)
         else:
             x = fn(x)
     return x, aux
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)``, checkpointed: run again inside a backward (the
+    recompute), it runs in the span ``trainer.recompute``."""
+    if torch._C._current_graph_task_id() == -1:
+        return fn(*args)
+    with span("trainer.recompute"):
+        return fn(*args)
 
 
 # outputs the "dots" policy keeps: 2-D matrix products (no batch dims)
@@ -257,9 +280,9 @@ def _remat(policy: str, subs: List[Sublayer], x):
     """Run one layer's sublayers under ``policy`` (module docstring) ->
     (x, [aux])."""
     if policy == "full":
-        return checkpoint(_run, subs, x, use_reentrant=False)
+        return checkpoint(_recomputed, _run, subs, x, use_reentrant=False)
     if policy == "dots":
-        return checkpoint(_run, subs, x, use_reentrant=False,
+        return checkpoint(_recomputed, _run, subs, x, use_reentrant=False,
                           context_fn=functools.partial(
                               create_selective_checkpoint_contexts, _DOTS))
     if policy == "mlp":
@@ -396,20 +419,23 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens,
         lp = layer_params(params["layers"], i)
         lc = layer_params(cache["layers"], i)
         if cfg.is_ssm_family:
-            h = apply_norm(cfg, x, lp["ssm_norm"])
-            # one scan gives the output and the decode cache
-            y, _ = mamba2_prefill(cfg, lp["ssm"], h, lc)
-            x = x + parallel.like(y, x)
+            with span("model.ssm"):
+                h = apply_norm(cfg, x, lp["ssm_norm"])
+                # one scan gives the output and the decode cache
+                y, _ = mamba2_prefill(cfg, lp["ssm"], h, lc)
+                x = x + parallel.like(y, x)
             if _shared_fires(cfg, shared, i):
                 ac = layer_params(cache["attn"], i // cfg.attn_every)
                 x = _shared_attn_apply(cfg, shared, x, lambda h: (
                     prefill_into_cache(cfg, shared["attn"], h, ac)[0]))
             continue
-        h = apply_norm(cfg, x, lp["attn_norm"])
-        y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
-        x = x + parallel.like(y, x)
-        h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + parallel.like(_ffn(cfg, lp, h), x)
+        with span("model.attention"):
+            h = apply_norm(cfg, x, lp["attn_norm"])
+            y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
+            x = x + parallel.like(y, x)
+        with span("model.mlp"):
+            h = apply_norm(cfg, x, lp["ffn_norm"])
+            x = x + parallel.like(_ffn(cfg, lp, h), x)
     cache["pos"] = s
     return _unembed(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
@@ -425,18 +451,21 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
         lp = layer_params(params["layers"], i)
         lc = layer_params(cache["layers"], i)
         if cfg.is_ssm_family:
-            h = apply_norm(cfg, x, lp["ssm_norm"])
-            y, _ = mamba2_decode(cfg, lp["ssm"], h, lc)
-            x = x + parallel.like(y, x)
+            with span("model.ssm"):
+                h = apply_norm(cfg, x, lp["ssm_norm"])
+                y, _ = mamba2_decode(cfg, lp["ssm"], h, lc)
+                x = x + parallel.like(y, x)
             if _shared_fires(cfg, shared, i):
                 ac = layer_params(cache["attn"], i // cfg.attn_every)
                 x = _shared_attn_apply(cfg, shared, x, lambda h: (
                     decode_attention(cfg, shared["attn"], h, ac, pos)[0]))
             continue
-        h = apply_norm(cfg, x, lp["attn_norm"])
-        y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
-        x = x + parallel.like(y, x)
-        h = apply_norm(cfg, x, lp["ffn_norm"])
-        x = x + parallel.like(_ffn(cfg, lp, h), x)
+        with span("model.attention"):
+            h = apply_norm(cfg, x, lp["attn_norm"])
+            y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
+            x = x + parallel.like(y, x)
+        with span("model.mlp"):
+            h = apply_norm(cfg, x, lp["ffn_norm"])
+            x = x + parallel.like(_ffn(cfg, lp, h), x)
     logits = _unembed(cfg, params, x)[:, 0, :]
     return logits, {**cache, "pos": pos + 1}

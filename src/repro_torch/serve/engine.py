@@ -14,6 +14,7 @@ per-use ``.astype`` gives without streaming fp32 weights at every step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..launch import steps as steps_lib
+from ..launch.spans import span
 from ..models.common import ModelConfig, keeps_fp32, torch_dtype, tree_map
 
 PyTree = Any
@@ -78,28 +80,44 @@ class Engine:
     def generate(self, prompts: np.ndarray,
                  frames: Optional[np.ndarray] = None) -> np.ndarray:
         """prompts [B, S_prompt] int32 (and, for the audio family, frames
-        [B, T, D]) -> [B, max_new_tokens]."""
+        [B, T, D]) -> [B, max_new_tokens].
+
+        Spans (``launch.spans``): the call in ``engine.generate``; from its
+        start until the first sampled token is on the host in
+        ``engine.first_token``; each ``_prefill`` and ``_decode`` call in
+        ``engine.prefill`` and ``engine.decode``, each sampling in
+        ``engine.sample``, each wait for a token in ``engine.readback``."""
         scfg = self.scfg
         b, s = prompts.shape
         if s + scfg.max_new_tokens > scfg.max_seq:
             raise ValueError(
                 f"prompt {s} + {scfg.max_new_tokens} new tokens exceeds "
                 f"max_seq {scfg.max_seq}")
-        logits, cache = self._prefill(self.params, self.batch(prompts, frames))
+        with span("engine.generate"), contextlib.ExitStack() as first:
+            first.enter_context(span("engine.first_token"))
+            with span("engine.prefill"):
+                logits, cache = self._prefill(self.params,
+                                              self.batch(prompts, frames))
 
-        gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
-        out = np.zeros((b, scfg.max_new_tokens), np.int32)
-        done = np.zeros((b,), bool)
-        tok = self._sample(logits, gen)
-        for i in range(scfg.max_new_tokens):
-            host = tok.cpu().numpy()
-            out[:, i] = np.where(done, scfg.eos_id or 0, host)
-            if scfg.eos_id is not None:
-                done |= host == scfg.eos_id
-                if done.all():
-                    break
-            logits, cache = self._decode(self.params, cache, tok)
-            tok = self._sample(logits, gen)
+            gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
+            out = np.zeros((b, scfg.max_new_tokens), np.int32)
+            done = np.zeros((b,), bool)
+            with span("engine.sample"):
+                tok = self._sample(logits, gen)
+            for i in range(scfg.max_new_tokens):
+                with span("engine.readback"):
+                    host = tok.cpu().numpy()
+                if i == 0:
+                    first.close()
+                out[:, i] = np.where(done, scfg.eos_id or 0, host)
+                if scfg.eos_id is not None:
+                    done |= host == scfg.eos_id
+                    if done.all():
+                        break
+                with span("engine.decode"):
+                    logits, cache = self._decode(self.params, cache, tok)
+                with span("engine.sample"):
+                    tok = self._sample(logits, gen)
         return out
 
     def _sample(self, logits, gen: torch.Generator):

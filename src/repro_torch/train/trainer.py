@@ -28,6 +28,7 @@ import torch
 from ..data.synthetic import DataConfig, SyntheticStream
 from ..launch import sharding
 from ..launch import steps as steps_lib
+from ..launch.spans import span
 from ..models import model_zoo
 from ..models.common import ModelConfig
 from ..serve.engine import resolve_device
@@ -166,11 +167,13 @@ class Trainer:
             if fail_at is not None and self.step == fail_at:
                 raise RuntimeError(f"injected failure at step {self.step}")
             t0 = time.perf_counter()
-            batch = self._device_batch(self.stream.batch_at(self.step))
-            params, opt_state, metrics = self.train_step(
-                params, opt_state, batch)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            with span("trainer.step"):
+                batch = self._device_batch(self.stream.batch_at(self.step))
+                params, opt_state, metrics = self.train_step(
+                    params, opt_state, batch)
+                if self.device.type == "cuda":
+                    with span("trainer.sync"):
+                        torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             self.step_seconds.append(dt)
             if self.tcfg.step_deadline_s is not None and \
