@@ -28,7 +28,11 @@ Phases, each raising on failure:
                 (torch.profiler); and each kernel at the registry's smoke
                 shapes (flash hd 16, fused_mlp K 64 / F 128, ssd_scan P 16 /
                 N 16), which its op zero-pads to the kernel's native sizes,
-                with each call's launch counted.
+                with each call's launch counted; then the decode attention
+                kernel (``check_decode_attn``) at olmo_1b's, granite_8b's,
+                llava_next_34b's and other decode shapes: output, the
+                cache row it writes (bitwise), two calls bitwise equal,
+                and its time (events, and alone by the profiler).
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
                 CPU in fp32, on the same weights: granite_8b, stablelm_3b
@@ -178,6 +182,10 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attn import (decode_attention,  # noqa: E402
+                                             decode_attention_ref,
+                                             rope_table)
+from repro_torch.kernels.decode_attn.ops import split_plan  # noqa: E402
 from calibrate_train_numerics import (leaf_rel_rms,  # noqa: E402
                                       record_routes, route_flips)
 from mapping_frontier_hashes import REQUESTS as MAPPING_REQUESTS  # noqa: E402
@@ -720,6 +728,134 @@ def ssd_launch_profile(args, chunk):
             for m, e in zip(names, evts)}
 
 
+def kernel_device_ms(fn, pattern: str, reps: int, flush: torch.Tensor):
+    """Mean device time in ms of the kernels whose names match
+    ``pattern`` in one call of ``fn``, by torch.profiler over ``reps``
+    calls, ``flush`` rewritten before each (L2 cold): the kernel alone,
+    without the host time that CUDA events around a call also hold."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and re.search(pattern, e.name)) / 1e3 / reps
+
+
+def decode_inputs(gen, b, s, h, kv, hd, rope=True):
+    """The decode kernel's inputs as a decode step makes them: the new
+    token's bf16 q [B,1,H,hd] and k/v [B,1,KV,hd], a filled bf16 cache
+    [B,S,KV,hd], and the RoPE table of the cache's length."""
+    cfg = get_config("granite_8b").with_(n_heads=h, n_kv_heads=kv,
+                                         head_dim=hd)
+    return (randn(gen, b, 1, h, hd), randn(gen, b, 1, kv, hd),
+            randn(gen, b, 1, kv, hd), randn(gen, b, s, kv, hd),
+            randn(gen, b, s, kv, hd),
+            rope_table(cfg, s, "cuda") if rope else None)
+
+
+def decode_times(args, pos, flush):
+    """ms of the decode kernel (CUDA events, and its launches alone by the
+    profiler), the plain version and SDPA over the same keys (no RoPE, no
+    cache write), and the bound: the keys [0, pos] of K and V read once,
+    q, the new k and v and the RoPE row read, the output and the cache
+    row written."""
+    q, k, v, ck, cv, tab = args
+    b, _, h, hd = q.shape
+    kv, keys = ck.shape[2], pos + 1
+    ms = cuda_ms(lambda: decode_attention(*args[:5], pos, tab), 50, flush)
+    alone = kernel_device_ms(lambda: decode_attention(*args[:5], pos, tab),
+                             r"decode_attn", 20, flush)
+    plain = cuda_ms(lambda: decode_attention_ref(*args[:5], pos, tab), 10,
+                    flush)
+    qt = q.transpose(1, 2)
+    kt, vt = (c[:, :keys].transpose(1, 2) for c in (ck, cv))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True), 50, flush)
+    flops = 4.0 * b * h * hd * keys
+    nbytes = (2.0 * (2 * b * keys * kv * hd + 2 * b * h * hd
+                     + 2 * b * kv * hd + 2 * b * kv * hd)
+              + (4.0 * hd if tab is not None else 0.0))
+    bms, by = bound_ms(flops, nbytes)
+    splits = split_plan(b, kv, keys, _build.sm_count(0))[0]
+    shape = (f"B={b} S_max={ck.shape[1]} pos={pos} H={h} KV={kv} hd={hd}"
+             f"{' RoPE' if tab is not None else ''} bf16, {splits} "
+             f"split{'s' if splits > 1 else ''}")
+    print(f"  decode_attention {shape}: kernel {ms:.4f} ms (alone "
+          f"{alone:.4f}), plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB; alone at "
+          f"{100 * bms / max(alone, 1e-9):.1f}% of it)", flush=True)
+    return {"ms": ms, "alone_ms": alone, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "library": "F.scaled_dot_product_attention(enable_gqa=True) "
+                       "over keys [0, pos], no RoPE, no cache write",
+            "shape": shape}
+
+
+def check_decode_attn(gen, flush):
+    """The decode kernel vs its plain version at the serving paths'
+    shapes: olmo_1b's decode (B 32, KV 16, hd 128) at positions 639 and
+    511, granite_8b's (B 4, KV 8, G 4, split), llava_next_34b's (B 1, G
+    7), granite_moe_1b_a400m's and whisper_base's hd 64 (whisper without
+    RoPE), stablelm_3b's hd 80, phi3's hd 96 and the smoke configs' hd
+    16; each output within the kernel tolerance, the cache row written at
+    pos bitwise the plain version's and every other slot untouched, two
+    calls bitwise equal; the first three timed. Returns the kernel's
+    JSON entry."""
+    cases = [  # (timed as, label, b, s_max, h, kv, hd, pos, rope)
+        ("main", "olmo_1b decode pos 639", 32, 640, 16, 16, 128, 639, True),
+        ("olmo_pos_511", "olmo_1b decode pos 511", 32, 640, 16, 16, 128,
+         511, True),
+        ("granite", "granite_8b decode pos 575", 4, 640, 32, 8, 128, 575,
+         True),
+        (None, "llava_next_34b decode", 1, 640, 56, 8, 128, 600, True),
+        (None, "granite_moe_1b_a400m decode", 4, 640, 16, 8, 64, 320, True),
+        (None, "whisper_base decoder, no RoPE", 4, 448, 8, 8, 64, 200,
+         False),
+        (None, "stablelm_3b decode", 2, 640, 32, 32, 80, 639, True),
+        (None, "phi3_mini decode", 2, 640, 32, 32, 96, 0, True),
+        (None, "smoke hd 16", 4, 40, 4, 4, 16, 33, True),
+    ]
+    timed, worst = {}, 0.0
+    for key, label, b, s, h, kv, hd, pos, rope in cases:
+        args = decode_inputs(gen, b, s, h, kv, hd, rope)
+        q, k, v, ck, cv, tab = args
+        want_ck, want_cv = ck.clone(), cv.clone()
+        want = decode_attention_ref(q, k, v, want_ck, want_cv, pos, tab)
+        ck2, cv2 = ck.clone(), cv.clone()
+        got = decode_attention(q, k, v, ck, cv, pos, tab)
+        again = decode_attention(q, k, v, ck2, cv2, pos, tab)
+        torch.cuda.synchronize()
+        worst = max(worst, compare(f"decode_attention [{label}]", got,
+                                   want))
+        if not (torch.equal(ck, want_ck) and torch.equal(cv, want_cv)):
+            raise RuntimeError(f"decode_attention [{label}]: the cache "
+                               "differs from the plain version's")
+        if not (torch.equal(got, again) and torch.equal(ck, ck2)):
+            raise RuntimeError(f"decode_attention [{label}]: two calls "
+                               "differ")
+        if key:
+            timed[key] = {"max_abs_err": float((got.float() - want.float())
+                                               .abs().max()),
+                          **decode_times(args, pos, flush)}
+        del args, q, k, v, ck, cv, want_ck, want_cv, ck2, cv2
+    print("  decode_attention: every cache row bitwise the plain "
+          "version's, two calls bitwise equal", flush=True)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attn.cu",
+            "replaces": None, "launches": None, "max_abs_err_all": worst,
+            **timed["main"], "olmo_pos_511": timed["olmo_pos_511"],
+            "granite": timed["granite"]}
+
+
 def check_smoke_shapes(gen):
     """Each kernel at the registry's smoke shapes, which its op zero-pads
     to the kernel's native sizes (flash hd 16 -> 64, fused_mlp K 64 ->
@@ -807,7 +943,7 @@ def rel_rms(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-FWD_OPS = ("flash_attention", "fused_mlp", "ssd_scan")
+FWD_OPS = ("flash_attention", "fused_mlp", "ssd_scan")   # with a smoke check
 BWD_OPS = ("flash_attention_bwd", "fused_mlp_bwd",   # the backward kernels
            "ssd_scan_bwd")
 
@@ -815,6 +951,7 @@ BWD_OPS = ("flash_attention_bwd", "fused_mlp_bwd",   # the backward kernels
 def launch_counts():
     return {"flash_attention": flash_attention.launches,
             "fused_mlp": fused_mlp.launches, "ssd_scan": ssd_scan.launches,
+            "decode_attention": decode_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "fused_mlp_bwd": fused_mlp.bwd_launches,
             "ssd_scan_bwd": ssd_scan.bwd_launches}
@@ -824,6 +961,9 @@ def reset_launch_counts():
     for fn in (flash_attention, fused_mlp, ssd_scan):
         fn.launches = fn.bwd_launches = 0
     flash_attention.launches_by_regime = dict.fromkeys(REGIMES, 0)
+    decode_attention.launches = 0
+    decode_attention.launches_by_regime = dict.fromkeys(
+        decode_attention.launches_by_regime, 0)
 
 
 def fused_mlps(cfg):
@@ -843,19 +983,23 @@ def fused_mlps(cfg):
 def expected_launches(cfg, prefills: int, decode_steps: int):
     """Kernel launches for ``prefills`` prefills and ``decode_steps`` decode
     steps: flash once per attention block in prefill, fused_mlp once per
-    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill, no
-    backward kernel. The encoder-decoder's prefill runs its encoder once
-    (enc_layers non-causal blocks) and each decoder layer's causal
-    self-attention and non-causal cross-attention; its decode step runs
-    no kernel."""
+    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill, the
+    decode kernel once per self-attention block (firing of the hybrid's
+    shared block) per decode step, no backward kernel. The
+    encoder-decoder's prefill runs its encoder once (enc_layers
+    non-causal blocks) and each decoder layer's causal self-attention and
+    non-causal cross-attention; its decode step runs the decode kernel
+    for each decoder layer's self-attention (its cross-attention reads
+    the cache in torch)."""
     L = cfg.n_layers
     if cfg.family == "audio":
-        blocks = cfg.enc_layers + 2 * L
+        blocks, self_attn = cfg.enc_layers + 2 * L, L
     else:
-        blocks = L if not cfg.is_ssm_family else fused_mlps(cfg)
+        blocks = self_attn = L if not cfg.is_ssm_family else fused_mlps(cfg)
     return {"flash_attention": blocks * prefills,
             "fused_mlp": fused_mlps(cfg) * (prefills + decode_steps),
             "ssd_scan": L * prefills if cfg.is_ssm_family else 0,
+            "decode_attention": self_attn * decode_steps,
             **dict.fromkeys(BWD_OPS, 0)}
 
 
@@ -1100,7 +1244,8 @@ def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
 # kernel name prefix in csrc/ -> the op whose wrapper launches it (a
 # "_bwd_" kernel: that op's backward; the SSD backward's re-run of the
 # forward's chunk-state and state-passing kernels counts as ssd_scan)
-PORT_OPS = {"ssd": "ssd_scan", "mlp": "fused_mlp", "flash": "flash_attention"}
+PORT_OPS = {"ssd": "ssd_scan", "mlp": "fused_mlp", "flash": "flash_attention",
+            "decode": "decode_attention"}
 
 
 def report(prof, label, wall, top=8):
@@ -1120,7 +1265,7 @@ def report(prof, label, wall, top=8):
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     ops = {}                    # the port's kernels, by op
     for e in evts:
-        m = re.search(r"::(ssd|mlp|flash)_(bwd_)?", e.key)
+        m = re.search(r"::(ssd|mlp|flash|decode)_(bwd_)?", e.key)
         if m:
             op = PORT_OPS[m.group(1)] + ("_bwd" if m.group(2) else "")
             ms, n = ops.get(op, (0.0, 0))
@@ -1951,9 +2096,13 @@ def mesh_decode(mesh, spec=MESH_DECODE):
     """``spec`` (``MESH_DECODE`` or one of ``MESH_MOE_DECODE``): one
     decode step on the (1, 1) mesh (params, cache and tokens placed by
     param_specs, cache_specs and batch_specs) after a meshless prefill,
-    against the meshless step: logits and cache bitwise (at world size 1
-    the two run the same bf16 arithmetic: no collective, no other split),
-    and the same launches."""
+    against the meshless step: the same launches but the decode kernel,
+    which only the meshless step runs (a DTensor cache attends in torch,
+    ``gqa_decode_attend``); logits and cache bitwise, or within
+    ``NUMERICS_REL_RMS``: the decode kernel keeps P in fp32 where the
+    torch path rounds it to bf16 and sums in another order, so each
+    layer's attention output differs in its last bits, and with it the
+    keys and values the next layer writes."""
     arch, depth, batch, prompt = spec
     cfg = get_config(arch).with_(n_layers=depth)
     params = model_zoo.init_params(
@@ -1984,13 +2133,16 @@ def mesh_decode(mesh, spec=MESH_DECODE):
     print(f"  {arch} {depth} layers, batch {batch}, decode at position "
           f"{prompt}: cache spec {spec}; launches meshless {plain} mesh "
           f"{meshed}", flush=True)
-    if plain != meshed or (fused_mlps(cfg) and not meshed["fused_mlp"]):
+    if ({**plain, "decode_attention": 0} != meshed
+            or plain["decode_attention"] != depth
+            or (fused_mlps(cfg) and not meshed["fused_mlp"])):
         raise RuntimeError(f"{arch}: the mesh decode step did not run the "
                            "kernels")
     out = _hold("mesh decode logits and cache vs meshless",
                 {"logits": got.full_tensor(),
                  "cache": sharding.gather(dcache["layers"])},
-                {"logits": want, "cache": cache["layers"]})
+                {"logits": want, "cache": cache["layers"]},
+                NUMERICS_REL_RMS)
     out["launches"] = meshed
     return out
 
@@ -2475,7 +2627,7 @@ def _bitwise(got, want):
     ok = []
     tree_map(lambda path, t: ok.append(
         t.dtype == tree_get(want, path).dtype and torch.equal(
-            t.cpu(), tree_get(want, path).cpu())), want)
+            t.cpu(), tree_get(want, path).cpu())), got)
     return all(ok) and len(ok) > 0
 
 
@@ -2513,10 +2665,11 @@ def main():
     entries = [clocked("flash", check_flash, gen, flush),
                clocked("fused_mlp", check_fused_mlp, gen, flush),
                clocked("ssd_scan", check_ssd, gen, flush)]
-    del flush
     smoke = check_smoke_shapes(gen)
     for e in entries:
         e["smoke"] = smoke[e["name"]]
+    entries.append(clocked("decode_attn", check_decode_attn, gen, flush))
+    del flush
     torch.cuda.empty_cache()
 
     phase("numerics")
@@ -2527,7 +2680,7 @@ def main():
     phase("serve")
     # each kernel's launches come from the path that runs it
     path_of = {"flash_attention": "granite_8b", "fused_mlp": "granite_8b",
-               "ssd_scan": "mamba2_780m"}
+               "ssd_scan": "mamba2_780m", "decode_attention": "granite_8b"}
     moe_path = {"flash_attention": "granite_moe_1b_a400m",
                 "fused_mlp": "deepseek_moe_16b"}
     launches, regimes = {}, {}
@@ -2574,6 +2727,8 @@ def main():
     train_path = {"flash_attention": "olmo_1b", "fused_mlp": "olmo_1b",
                   "ssd_scan": "mamba2_780m"}
     for e in entries:
+        if e["name"] not in train_path:     # decode attention: serving only
+            continue
         arch = train_path[e["name"]]
         e["train"] = {"launches_per_step":
                       train_launches[arch][e["name"]] // steps,

@@ -6,8 +6,12 @@ tensor is never repeated to H heads. On CUDA tensors prefill attention
 runs the hand-written flash kernel through its autograd Function
 (``kernels.flash_attn.FlashAttention``: the kernel forward, the
 backward kernels); on CPU tensors it runs ``flash_attention`` below, the
-reference's chunked online softmax, under plain autograd. The decode
-path has no kernel and stays in torch.
+reference's chunked online softmax, under plain autograd. Decode
+attention on one card runs the hand-written decode kernel
+(``kernels.decode_attn``: RoPE, the cache write and the attention in one
+launch) on CUDA tensors and its plain version (RoPE, the cache writes,
+``gqa_decode_attend``) on CPU tensors; a DTensor cache keeps the torch
+path (``_decode_sharded``).
 
 The kernel aligns causal queries to the END of the keys (query i sits at
 key position Skv - Sq + i); ``flash_attention`` below aligns them to the
@@ -24,10 +28,11 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard
 
+from ..kernels import decode_attn as decode_kernel
 from ..kernels import flash_attn as flash_kernel
+from ..kernels.decode_attn.ref import gqa_decode_attend
 from . import parallel
 from .common import ModelConfig, apply_rope, dense_init, rope_freqs
 
@@ -162,6 +167,25 @@ def _qkv(cfg: ModelConfig, params, x, kv_x=None, n_heads=None, n_kv=None):
             v.reshape(b, sk, kv, hd))
 
 
+def _qkv_token(cfg: ModelConfig, params, x, n_heads=None, n_kv=None):
+    """``_qkv`` of one decode token on one card with fewer dispatched ops,
+    each host time in a decode step: x [B, 1, D] as a [B, D] matrix and
+    one ``torch.mm`` a weight, the product ``x @ w`` folds to (the same
+    bits); a weight already in x's dtype is used as it is."""
+    h = n_heads or cfg.n_heads
+    kv = n_kv or cfg.n_kv_heads
+    hd = cfg.hd
+    b = x.shape[0]
+    x2 = x.reshape(b, -1)
+
+    def proj(w, n):
+        w = w if w.dtype == x.dtype else w.to(x.dtype)
+        return torch.mm(x2, w).view(b, 1, n, hd)
+
+    return (proj(params["wq"], h), proj(params["wk"], kv),
+            proj(params["wv"], kv))
+
+
 def _rope_qk(cfg: ModelConfig, q, k, positions=None, kv_positions=None):
     """RoPE on q at ``positions`` and on k at ``kv_positions`` (both
     default to [0, S))."""
@@ -217,57 +241,34 @@ def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
 
 
-def gqa_decode_attend(q, ck, cv, pos: int, groups=()):
-    """q [B,1,H,hd] against cache [B,S,KV,hd] without repeating KV.
-
-    Operands are rounded to the query dtype, products accumulate in
-    fp32; keys past ``pos`` are masked. With process ``groups`` (split-KV
-    decode) the cache is one shard of the sequence, ``pos`` is local (it
-    may lie before or past the shard), and the softmax's max, its sum and
-    the weighted values are reduced over the groups, so every shard
-    returns the attention over all of it; with none the reductions are
-    local."""
-    b, _, h, hd = q.shape
-    s_max, kv = ck.shape[1], ck.shape[2]
-    g = h // kv
-    scale = torch.tensor(1.0 / (hd ** 0.5), dtype=q.dtype)
-    qg = (q * scale).reshape(b, kv, g, hd).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, ck.to(q.dtype).float())
-    mask = torch.arange(s_max, device=q.device) <= pos
-    s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    for grp in groups:
-        dist.all_reduce(m, dist.ReduceOp.MAX, group=grp)
-    p = torch.exp(s - m)        # the global max is finite: key 0 is seen
-    den = p.sum(dim=-1, keepdim=True)
-    for grp in groups:
-        dist.all_reduce(den, group=grp)
-    out = torch.einsum("bkgs,bskd->bkgd", (p / den).to(q.dtype).float(),
-                       cv.to(q.dtype).float())
-    for grp in groups:
-        dist.all_reduce(out, group=grp)
-    return out.reshape(b, 1, h * hd)
-
-
 def decode_attention(cfg: ModelConfig, params, x, cache, pos: int, *,
                      n_heads=None, n_kv=None,
                      rope: Optional[bool] = None):
     """One-token decode: x [B, 1, D]; cache k/v [B, S_max, kv, hd]. RoPE
-    at ``pos`` when ``rope`` (default: the config's ``use_rope``)."""
-    if not 0 <= pos < cache["k"].shape[1]:
+    at ``pos`` when ``rope`` (default: the config's ``use_rope``). On one
+    card's cache ``kernels.decode_attn.decode_attention`` rotates, writes
+    and attends, with the RoPE table built once per cache length
+    (``rope_table``) and ``pos`` passed as a plain int: no host-to-device
+    copy. A DTensor cache rotates here and goes to ``_decode_sharded``."""
+    ck, cv = cache["k"], cache["v"]
+    if not 0 <= pos < ck.shape[1]:
         raise ValueError(f"decode position {pos} outside the cache's "
-                         f"{cache['k'].shape[1]} slots")
-    q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
-    if cfg.use_rope if rope is None else rope:
-        q, k = _rope_qk(cfg, q, k, torch.tensor([pos], device=x.device))
-    if parallel.is_dtensor(cache["k"]):
-        out = _decode_sharded(q, cache["k"], cache["v"], pos, k, v)
-    else:
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
-        out = gqa_decode_attend(q, cache["k"], cache["v"], pos)
-    y = out.to(x.dtype) @ params["wo"].to(x.dtype)
-    return y, cache
+                         f"{ck.shape[1]} slots")
+    use_rope = cfg.use_rope if rope is None else rope
+    if parallel.is_dtensor(ck) or parallel.is_dtensor(x):
+        q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
+        if use_rope:
+            q, k = _rope_qk(cfg, q, k, torch.tensor([pos], device=x.device))
+        out = _decode_sharded(q, ck, cv, pos, k, v)
+        return out.to(x.dtype) @ params["wo"].to(x.dtype), cache
+    q, k, v = _qkv_token(cfg, params, x, n_heads, n_kv)
+    table = (decode_kernel.rope_table(cfg, ck.shape[1], ck.device)
+             if use_rope else None)
+    out = decode_kernel.decode_attention(q, k, v, ck, cv, pos, table)
+    wo = params["wo"]
+    wo = wo if wo.dtype == x.dtype else wo.to(x.dtype)
+    y = torch.mm(out.view(out.shape[0], -1), wo)    # out is in x's dtype
+    return y.view(x.shape[0], 1, -1), cache
 
 
 def attend_cache(q, ck, cv, pos: int):

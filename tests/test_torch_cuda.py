@@ -33,11 +33,15 @@ from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: 
                                           ssd_ref, ssd_scan,
                                           ssd_scan_backward, to_pallas_layout)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attn import (decode_attention,  # noqa: E402
+                                             decode_attention_ref,
+                                             rope_table, split_plan)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
-from repro_torch.models import mlp, model_zoo  # noqa: E402
+from repro_torch.models import attention, mlp, model_zoo  # noqa: E402
+from repro_torch.models.common import rope_freqs  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.common import tree_get, tree_map  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
@@ -319,10 +323,158 @@ def test_ssd_kernel_pads_small_head_dims(cuda, b, s, h, g, n, p, chunk):
     torch.testing.assert_close(state, want_state, **SSD_TOL)
 
 
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+# (b, s_max, h, kv, hd, pos): olmo_1b, granite_8b (G 4), llava_next_34b
+# (G 7), granite_moe_1b_a400m (hd 64, G 2), stablelm_3b (hd 80),
+# phi3_mini (hd 96), the smoke configs' hd 16; pos 0, a middle one and
+# the last slot; split grids (few rows and heads) and unsplit ones
+DECODE_SHAPES = [
+    (32, 640, 16, 16, 128, 639),
+    (32, 640, 16, 16, 128, 511),
+    (32, 640, 16, 16, 128, 0),
+    (4, 640, 32, 8, 128, 575),
+    (4, 640, 32, 8, 128, 639),
+    (1, 640, 56, 8, 128, 300),
+    (1, 640, 56, 8, 128, 0),
+    (4, 256, 16, 8, 64, 200),
+    (32, 256, 16, 8, 64, 255),
+    (1, 300, 32, 32, 80, 131),
+    (4, 128, 32, 32, 96, 127),
+    (4, 40, 4, 4, 16, 20),
+    (1, 40, 4, 2, 16, 39),
+    (32, 40, 4, 1, 16, 7),
+]
+
+
+def _decode_inputs(cuda, b, s, h, kv, hd, rope, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = _randn(gen, b, 1, h, hd)
+    k, v = _randn(gen, b, 1, kv, hd), _randn(gen, b, 1, kv, hd)
+    ck, cv = _randn(gen, b, s, kv, hd), _randn(gen, b, s, kv, hd)
+    cfg = get_config("granite_8b").with_(n_heads=h, n_kv_heads=kv,
+                                         head_dim=hd)
+    return q, k, v, ck, cv, (rope_table(cfg, s, cuda) if rope else None)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,pos", DECODE_SHAPES)
+@pytest.mark.parametrize("rope", [True, False])
+def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd, pos, rope):
+    """The decode kernel against its plain version on the card: output
+    within the forward kernels' 2e-2; the cache row at ``pos`` bitwise the
+    plain version's (the same fp32 products and difference of
+    ``apply_rope``, rounded once to bf16, from the same table), every
+    other slot untouched; one launch counted in its regime."""
+    q, k, v, ck, cv, tab = _decode_inputs(cuda, b, s, h, kv, hd, rope)
+    want_ck, want_cv = ck.clone(), cv.clone()
+    want = decode_attention_ref(q, k, v, want_ck, want_cv, pos, tab)
+    splits, _ = split_plan(b, kv, pos + 1, _build.sm_count(cuda.index or 0))
+    key = "split" if splits > 1 else "no split"
+    before = decode_attention.launches
+    by = decode_attention.launches_by_regime[key]
+    got = decode_attention(q, k, v, ck, cv, pos, tab)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert decode_attention.launches_by_regime[key] == by + 1
+    assert got.shape == (b, 1, h * hd) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(ck, want_ck) and torch.equal(cv, want_cv)
+
+
+def test_decode_kernel_splits_at_granite_shape(cuda):
+    """granite_8b's decode grid (4 rows x 8 KV heads) splits the keys;
+    olmo_1b's (32 x 16) does not."""
+    sms = _build.sm_count(cuda.index or 0)
+    assert split_plan(4, 8, 576, sms)[0] > 1
+    assert split_plan(32, 16, 640, sms)[0] == 1
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,pos", [DECODE_SHAPES[0],
+                                             DECODE_SHAPES[3],
+                                             DECODE_SHAPES[11]])
+def test_decode_kernel_is_deterministic(cuda, b, s, h, kv, hd, pos):
+    """Two calls on equal inputs give bitwise equal outputs and caches,
+    split or not."""
+    q, k, v, ck, cv, tab = _decode_inputs(cuda, b, s, h, kv, hd, True)
+    ck2, cv2 = ck.clone(), cv.clone()
+    y = decode_attention(q, k, v, ck, cv, pos, tab)
+    y2 = decode_attention(q, k, v, ck2, cv2, pos, tab)
+    assert torch.equal(y, y2)
+    assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+
+
+def test_rope_table_on_card_is_rope_freqs(cuda):
+    """The card's table rows are ``rope_freqs`` at each position on the
+    card, bitwise, so the kernel rotates with the plain path's values."""
+    cfg = get_config("olmo_1b")
+    cos, sin = rope_table(cfg, 640, cuda)
+    for p in (0, 1, 255, 511, 639):
+        c, s = rope_freqs(cfg, torch.tensor([p], device=cuda))
+        assert torch.equal(cos[p], c[0]) and torch.equal(sin[p], s[0])
+
+
+def test_decode_kernel_raises_for_unsupported_input(cuda):
+    """Non-bf16 inputs, groups above 8 query heads, head dims above 128 or
+    off the multiples of 8, a RoPE table off the card and a query that
+    needs a gradient are refused before a launch."""
+    q, k, v, ck, cv, tab = _decode_inputs(cuda, 2, 16, 4, 2, 64, True)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_attention(q.float(), k, v, ck, cv, 3, tab)
+    q9 = torch.zeros(2, 1, 18, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="whole groups"):
+        decode_attention(q9, k, v, ck, cv, 3, tab)
+    for hd in (136, 20):
+        t = torch.zeros(2, 1, 2, hd, dtype=torch.bfloat16, device=cuda)
+        c = torch.zeros(2, 16, 2, hd, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            decode_attention(t, t, t, c, c, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(q, k, v, ck, cv, 3, tuple(t.cpu() for t in tab))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        decode_attention(q.requires_grad_(), k, v, ck, cv, 3, tab)
+    assert decode_attention.launches == before
+
+
+def test_decode_attention_sublayer_makes_no_sync(cuda):
+    """A decode step's attention sublayer on one card (projections, the
+    kernel, the output projection) makes no host-to-device copy and no
+    stream synchronisation: it runs under ``set_sync_debug_mode("error")``,
+    which raises on the per-step ``torch.tensor([pos])`` copy the torch
+    path made. The first call builds the RoPE table and is left out."""
+    cfg = get_config("olmo_1b", smoke=True)
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda _, t: t.to(cuda), attention.init_attn(
+        cfg, gen, dtype=torch.bfloat16))
+    cache = attention.init_kv_cache(4, 24, cfg.n_kv_heads, cfg.hd,
+                                    device=cuda)
+    x = torch.randn((4, 1, cfg.d_model), generator=gen).to(
+        device=cuda, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        attention.decode_attention(cfg, params, x, cache, 3)
+        torch.cuda.synchronize()
+        before = decode_attention.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for pos in (4, 5, 6):
+                y, _ = attention.decode_attention(cfg, params, x, cache, pos)
+            with pytest.raises(RuntimeError):
+                torch.tensor([7], device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 3
+    assert y.shape == (4, 1, cfg.d_model) and bool(torch.isfinite(y).all())
+
+
 def test_dense_lm_card_path_matches_cpu_path(cuda):
     """bf16 kernel path on the card vs fp32 plain path on the CPU, same
-    weights: prefill and one decode step within 3% relative RMS (bf16
-    rounding compounded over two layers; a wrong kernel is O(1))."""
+    weights: prefill and three decode steps (each fed the CPU's greedy
+    token) within 3% relative RMS (bf16 rounding compounded over two
+    layers; a wrong kernel is O(1)); every decode step runs the decode
+    kernel once per layer."""
     cfg = get_config("granite_8b").with_(
         n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
         vocab=1000)
@@ -333,16 +485,23 @@ def test_dense_lm_card_path_matches_cpu_path(cuda):
     eng = Engine(cfg, params, ServeConfig(max_seq=40, max_new_tokens=4),
                  device=cuda)
     flash0, mlp0 = flash_attention.launches, fused_mlp.launches
+    pairs = []
     with torch.inference_mode():
         want, cpu_cache = model_zoo.prefill(cpu_cfg, params, toks, 40)
         got, cache = model_zoo.prefill(cfg, eng.params, toks.to(cuda), 40)
-        nxt = torch.argmax(want, -1).to(torch.int32)
-        want_d, _ = model_zoo.decode_step(cpu_cfg, params, cpu_cache, nxt)
-        got_d, _ = model_zoo.decode_step(cfg, eng.params, cache,
-                                         nxt.to(cuda))
+        pairs.append((got, want))
+        for _ in range(3):
+            nxt = torch.argmax(want, -1).to(torch.int32)
+            dec0 = decode_attention.launches
+            want, cpu_cache = model_zoo.decode_step(cpu_cfg, params,
+                                                    cpu_cache, nxt)
+            got, cache = model_zoo.decode_step(cfg, eng.params, cache,
+                                               nxt.to(cuda))
+            assert decode_attention.launches - dec0 == cfg.n_layers
+            pairs.append((got, want))
     assert flash_attention.launches - flash0 == cfg.n_layers
-    assert fused_mlp.launches - mlp0 == 2 * cfg.n_layers
-    for g, w in ((got, want), (got_d, want_d)):
+    assert fused_mlp.launches - mlp0 == 4 * cfg.n_layers
+    for g, w in pairs:
         # real vocab only: padded logits are -1e9 and would swamp the norm
         g, w = g.float().cpu()[:, :cfg.vocab], w[:, :cfg.vocab]
         assert torch.isfinite(g).all()
@@ -848,17 +1007,17 @@ def _train_launches(cfg, policy="full"):
         blocks, ssd = cfg.n_layers, 0
         mlps = blocks if cfg.family != "moe" or cfg.n_shared_experts else 0
     return {"flash": 2 * blocks, "mlp": (1 if policy == "mlp" else 2) * mlps,
-            "ssd": ssd, "flash_bwd": blocks, "mlp_bwd": mlps,
+            "ssd": ssd, "decode": 0, "flash_bwd": blocks, "mlp_bwd": mlps,
             "ssd_bwd": ssd // 2}
 
 
-FORWARD = ("flash", "mlp", "ssd")          # forward kernel counters
+FORWARD = ("flash", "mlp", "ssd", "decode")  # forward kernel counters
 NO_BWD = {"flash_bwd": 0, "mlp_bwd": 0, "ssd_bwd": 0}  # what serving launches
 
 
 def _counts():
     return {"flash": flash_attention.launches, "mlp": fused_mlp.launches,
-            "ssd": ssd_scan.launches,
+            "ssd": ssd_scan.launches, "decode": decode_attention.launches,
             "flash_bwd": flash_attention.bwd_launches,
             "mlp_bwd": fused_mlp.bwd_launches,
             "ssd_bwd": ssd_scan.bwd_launches}
@@ -1007,6 +1166,8 @@ def test_launchers_defaults_run_on_card(cuda, arch, capsys):
     assert all(launched[k] > 0 for k, v in _train_launches(cfg).items()
                if v and k in FORWARD), launched
     assert {k: launched[k] for k in NO_BWD} == NO_BWD   # serving
+    # every decode step of an attention model runs the decode kernel
+    assert (launched["decode"] > 0) == (cfg.n_heads > 0), launched
 
 
 # ---------------------------------------------------------------------------
@@ -1040,7 +1201,7 @@ def test_moe_layer_card_matches_cpu(cuda, arch):
         want_route = mlp._route(cfg, cpu, x.float().reshape(
             1, -1, cfg.d_model))
     assert launched == {"flash": 0, "mlp": int(bool(cfg.n_shared_experts)),
-                        "ssd": 0, **NO_BWD}
+                        "ssd": 0, "decode": 0, **NO_BWD}
     for i in (2, 3, 4):             # gate_idx, pos, keep
         assert torch.equal(route[i].cpu(), want_route[i])
     assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
@@ -1066,7 +1227,7 @@ def test_moe_smoke_serves_on_card(cuda, arch):
     # one prefill and 4 decode steps (the Engine runs one per new token)
     assert _delta(before) == {"flash": cfg.n_layers,
                               "mlp": shared * cfg.n_layers * 5, "ssd": 0,
-                              **NO_BWD}
+                              "decode": cfg.n_layers * 4, **NO_BWD}
     assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab)).all()
 
 
@@ -1187,13 +1348,16 @@ def _serve_launches(cfg, decode_steps):
     """Kernel launches of one prefill and ``decode_steps`` decode steps.
     whisper: the encoder once (enc_layers non-causal blocks) and each
     decoder layer's causal self- and non-causal cross-attention in
-    prefill, GELU MLPs (no kernel), no kernel in decode; llava: one flash
-    per layer in prefill, one fused MLP per layer and step."""
+    prefill, GELU MLPs (no kernel), in decode the decode kernel for each
+    decoder layer's self-attention (its cross-attention reads the cache
+    in torch); llava: one flash per layer in prefill, one fused MLP per
+    layer and step, one decode kernel per layer and decode step."""
+    decode = cfg.n_layers * decode_steps
     if cfg.family == "audio":
         return {"flash": cfg.enc_layers + 2 * cfg.n_layers, "mlp": 0,
-                "ssd": 0, **NO_BWD}
+                "ssd": 0, "decode": decode, **NO_BWD}
     return {"flash": cfg.n_layers, "mlp": cfg.n_layers * (1 + decode_steps),
-            "ssd": 0, **NO_BWD}
+            "ssd": 0, "decode": decode, **NO_BWD}
 
 
 @pytest.mark.parametrize("arch", ["whisper_base", "llava_next_34b"])
