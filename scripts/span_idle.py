@@ -9,7 +9,7 @@ Needs a CUDA GPU. Runs the cell once as ``bench/run.py --trace 1`` does
 Each gap of the window in which no device operation ran is put down to
 the innermost program range open on any host thread when the gap began:
 of the ranges open then (``trainer.*``, ``engine.*``, ``model.*``,
-``kernel.*``), the one that began last. Prints, and writes to ``--out`` as
+``moe.*``, ``kernel.*``), the one that began last. Prints, and writes to ``--out`` as
 JSON, the run's result line and, by range name, the gaps' count, seconds
 and longest gap ("outside" where no program range was open), and the
 program's span table of the window.
@@ -26,7 +26,7 @@ from pathlib import Path
 
 T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parents[1]
-PROGRAM = ("trainer.", "engine.", "model.", "kernel.")
+PROGRAM = ("trainer.", "engine.", "model.", "moe.", "kernel.")
 
 
 def idle_by_range(events) -> dict:
@@ -85,8 +85,11 @@ def run(cell, seed: int, seconds: float, device="cuda", t0=None) -> dict:
         result, _ = harness.run(cell, seed, seconds, True, device, t0)
     finally:
         trace.Trace.reduce, program_spans.table = reduce, table
+    if "table" not in kept:         # no reader of the cell took it
+        from repro_torch.launch import spans
+        kept["table"] = spans.table()
     return {"result": result, "idle_by_range": idle_by_range(kept["events"]),
-            "table": kept.get("table")}
+            "table": kept["table"]}
 
 
 def main(argv=None) -> int:

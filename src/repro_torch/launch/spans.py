@@ -27,12 +27,19 @@ call site costs a function call and two flag reads. A live span:
 ``table()`` returns a copy of the table, ``reset()`` empties it. Spans
 observe and never steer: what the program computes is the same with them
 live or not.
+
+Counters count what the program already knows on the host (rows, host
+reads), under names of the same form (``moe.routed_rows``):
+``count(name, n)`` adds ``n`` (a number, or a list added elementwise,
+such as rows by expert) while spans are live, and is a no-op otherwise.
+``counters()`` returns a copy and ``reset_counters()`` empties them; a
+reader takes them once a run, as the span table.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch.autograd.profiler as _profiler
 from torch._C._profiler import _RecordFunctionFast
@@ -41,6 +48,7 @@ from .. import obs
 
 _lock = threading.Lock()
 _table: Dict[str, list] = {}      # folded stack -> [count, host seconds]
+_counters: Dict[str, list] = {}   # counter name -> [total of each entry]
 _local = threading.local()
 
 
@@ -119,3 +127,30 @@ def reset() -> None:
     """Empty the table."""
     with _lock:
         _table.clear()
+
+
+def count(name: str, n: Union[int, Sequence[int]]) -> None:
+    """Add ``n`` to the counter ``name`` (module docstring) while spans
+    are live."""
+    if not (_profiler._is_profiler_enabled or obs.enabled()):
+        return
+    vals = [int(n)] if isinstance(n, int) else [int(v) for v in n]
+    with _lock:
+        rec = _counters.setdefault(name, [0] * len(vals))
+        if len(rec) < len(vals):
+            rec.extend([0] * (len(vals) - len(rec)))
+        for i, v in enumerate(vals):
+            rec[i] += v
+
+
+def counters() -> Dict[str, List[int]]:
+    """{counter: [total of each entry]} since the last
+    ``reset_counters``."""
+    with _lock:
+        return {k: list(v) for k, v in _counters.items()}
+
+
+def reset_counters() -> None:
+    """Empty the counters."""
+    with _lock:
+        _counters.clear()

@@ -47,6 +47,18 @@ class ModelConfig:
     moe_impl: str = "gather"
     moe_data_axes: tuple = ()
     moe_expert_axis: str = ""
+    # DeepSeekMoE's layout (the port's own; the reference has none of
+    # these): ``first_dense_layers`` leading dense layers of width
+    # ``dense_d_ff``; the ``experts_held`` experts that this device
+    # computes, the router's first columns (0: all ``n_experts``; the
+    # router still scores all of them); whether the top-k gates are
+    # renormalised; and the balance loss, GShard's over all tokens or
+    # DeepSeekMoE's sequence-level one ("seq")
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    experts_held: int = 0
+    moe_norm_topk: bool = True
+    router_aux: str = "gshard"
     # SSM (Mamba-2 / SSD)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -83,6 +95,11 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def held_experts(self) -> int:
+        """The routed experts whose weights this device holds."""
+        return self.experts_held or self.n_experts
 
     @property
     def is_ssm_family(self) -> bool:

@@ -12,6 +12,13 @@ with one KV-cache slot per invocation. Per-layer parameters are
 stacked on a leading layer axis, as in the reference, and applied by a
 Python loop over the layers. The audio family is ``encdec``'s.
 
+An moe config with ``first_dense_layers`` (DeepSeekMoE) runs that many
+leading layers with a dense MLP of width ``dense_d_ff`` and the MoE
+after them. Its layers differ, so their feed-forward weights are stacked
+apart: ``layers`` holds every layer's attention and norms, ``dense_layers``
+the leading layers' ``mlp`` and ``moe_layers`` the others' ``moe``
+(``_per_layer`` puts each layer's tree together).
+
 Training: ``loss_fn`` is the reference's next-token cross entropy.
 When autograd records, ``forward`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, non-reentrant), the counterpart of the
@@ -36,7 +43,7 @@ The MoE sublayer's aux loss is an output of the recomputed function, so
 its gradient reaches the router under every policy.
 
 Spans (``launch.spans``): each layer's sublayers run in
-``model.attention``, ``model.mlp`` (the MLP or the MoE) or ``model.ssm``
+``model.attention``, ``model.mlp``, ``model.moe`` or ``model.ssm``
 in ``forward``, ``prefill`` and ``decode_step``, the final norm and
 unembedding in ``model.unembed``, and a checkpointed function run again
 inside a backward (the recompute) in ``trainer.recompute``.
@@ -86,11 +93,25 @@ def _shared_fires(cfg: ModelConfig, shared, idx: int) -> bool:
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Dict:
+def _check_layout(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.arch_id}: family {cfg.family!r} is not a "
                          f"decoder-only LM ({FAMILIES})")
+    nd = cfg.first_dense_layers
+    if nd and (cfg.family != "moe" or not 0 < nd < cfg.n_layers
+               or cfg.dense_d_ff <= 0):
+        raise ValueError(f"{cfg.arch_id}: first_dense_layers {nd} needs the "
+                         f"moe family, fewer layers than n_layers "
+                         f"{cfg.n_layers} and dense_d_ff > 0")
+    if not 0 <= cfg.experts_held <= cfg.n_experts:
+        raise ValueError(f"{cfg.arch_id}: {cfg.experts_held} experts held "
+                         f"of {cfg.n_experts}")
 
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype,
+                ffn: bool = True) -> Dict:
+    """One layer's weights; without ``ffn``, its attention and norms only
+    (the leading-dense layout draws the feed-forwards apart)."""
     def ones():
         return torch.ones((cfg.d_model,), dtype=torch.float32,
                           device=gen.device)
@@ -99,6 +120,8 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Dict:
         return {"ssm_norm": ones(), "ssm": init_mamba2(cfg, gen, dtype=dtype)}
     p = {"attn_norm": ones(), "attn": init_attn(cfg, gen, dtype=dtype),
          "ffn_norm": ones()}
+    if not ffn:
+        return p
     if cfg.family == "moe":
         p["moe"] = init_moe(cfg, gen, dtype=dtype)
     else:
@@ -106,12 +129,34 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Dict:
     return p
 
 
+def _per_layer(cfg: ModelConfig, params: PyTree,
+               views: Callable[[PyTree, int], List[PyTree]]) -> List[PyTree]:
+    """Each layer's tree, ``views(stack, n)`` giving the ``n`` layers of a
+    layer-stacked tree; in the leading-dense layout (module docstring)
+    each layer's attention and norms joined with its ``mlp`` or ``moe``."""
+    layers = views(params["layers"], cfg.n_layers)
+    nd = cfg.first_dense_layers
+    if not nd:
+        return layers
+    ffns = (views(params["dense_layers"], nd)
+            + views(params["moe_layers"], cfg.n_layers - nd))
+    return [{**a, **f} for a, f in zip(layers, ffns)]
+
+
+def _layer_views(stack: PyTree, n: int) -> List[PyTree]:
+    return [layer_params(stack, i) for i in range(n)]
+
+
 def _ffn(cfg: ModelConfig, lp: Dict, h):
     """The layer's feed-forward on normed ``h``: the MLP, or the MoE
     without its aux loss (prefill and decode drop it)."""
-    if cfg.family == "moe":
+    if "moe" in lp:
         return moe(cfg, lp["moe"], h)[0]
     return mlp(cfg, lp["mlp"], h)
+
+
+def _ffn_span(lp: Dict) -> str:
+    return "model.moe" if "moe" in lp else "model.mlp"
 
 
 def draw_layers(n: int, draw: Callable[[], Dict]) -> PyTree:
@@ -130,7 +175,9 @@ def draw_layers(n: int, draw: Callable[[], Dict]) -> PyTree:
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
     """Random parameters on the generator's device, layers drawn one at a
     time (``draw_layers``)."""
+    _check_layout(cfg)
     dtype = torch_dtype(cfg.param_dtype)
+    nd = cfg.first_dense_layers
     params = {
         "embed": dense_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
                             scale=1.0),
@@ -138,8 +185,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                  device=gen.device),
         "layers": draw_layers(cfg.n_layers,
-                              lambda: _init_layer(cfg, gen, dtype)),
+                              lambda: _init_layer(cfg, gen, dtype, not nd)),
     }
+    if nd:
+        params["dense_layers"] = draw_layers(nd, lambda: {"mlp": init_mlp(
+            cfg, gen, d_ff=cfg.dense_d_ff, dtype=dtype)})
+        params["moe_layers"] = draw_layers(
+            cfg.n_layers - nd, lambda: {"moe": init_moe(cfg, gen, dtype)})
     if cfg.family == "hybrid" and cfg.attn_every:
         ones = torch.ones((cfg.d_model,), dtype=torch.float32,
                           device=gen.device)
@@ -203,7 +255,7 @@ def _moe_sublayer(cfg: ModelConfig, norm, p: Dict) -> Sublayer:
     routed = {k: v for k, v in p.items() if k != "shared"}
 
     def fn(x, split=False):
-        with span("model.mlp"):
+        with span("model.moe"):
             h = apply_norm(cfg, x, norm)
             if not split:
                 y, aux = moe(cfg, p, h)
@@ -241,7 +293,7 @@ def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
         return subs
     attn = ("mix", residual(cfg, lp["attn_norm"], lambda h: attention(
         cfg, lp["attn"], h, causal=True), "model.attention"))
-    if cfg.family == "moe":
+    if "moe" in lp:
         return [attn, _moe_sublayer(cfg, lp["ffn_norm"], lp["moe"])]
     return [attn, ("mlp", residual(cfg, lp["ffn_norm"], lambda h: mlp(
         cfg, lp["mlp"], h), "model.mlp"))]
@@ -324,7 +376,7 @@ def forward(cfg: ModelConfig, params: PyTree, tokens,
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared_attn")
-    for i, lp in enumerate(_unstacked(params["layers"], cfg.n_layers)):
+    for i, lp in enumerate(_per_layer(cfg, params, _unstacked)):
         subs = _sublayers(cfg, lp, shared, i)
         x, layer_aux = (_remat(cfg.remat_policy, subs, x) if remat
                         else _run(subs, x))
@@ -415,8 +467,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens,
                         b, params["embed"])
     x = _embed(cfg, params, tokens)
     shared = params.get("shared_attn")
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(_per_layer(cfg, params, _layer_views)):
         lc = layer_params(cache["layers"], i)
         if cfg.is_ssm_family:
             with span("model.ssm"):
@@ -433,7 +484,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens,
             h = apply_norm(cfg, x, lp["attn_norm"])
             y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
             x = x + parallel.like(y, x)
-        with span("model.mlp"):
+        with span(_ffn_span(lp)):
             h = apply_norm(cfg, x, lp["ffn_norm"])
             x = x + parallel.like(_ffn(cfg, lp, h), x)
     cache["pos"] = s
@@ -447,8 +498,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)[:, None, :]
     shared = params.get("shared_attn")
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(_per_layer(cfg, params, _layer_views)):
         lc = layer_params(cache["layers"], i)
         if cfg.is_ssm_family:
             with span("model.ssm"):
@@ -464,7 +514,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
             h = apply_norm(cfg, x, lp["attn_norm"])
             y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
             x = x + parallel.like(y, x)
-        with span("model.mlp"):
+        with span(_ffn_span(lp)):
             h = apply_norm(cfg, x, lp["ffn_norm"])
             x = x + parallel.like(_ffn(cfg, lp, h), x)
     logits = _unembed(cfg, params, x)[:, 0, :]

@@ -16,7 +16,11 @@ product and softmax, ``torch.topk``, and batched expert products. The
 shared expert (deepseek) goes through ``mlp``, so on the card it runs
 the fused MLP kernel. Routing keeps the reference's static shapes (a
 capacity-padded slot table, no ``nonzero``), so it never waits on the
-device.
+device. The port's own "dropless" dispatch (``_moe_dropless``, one
+device) drops no choice instead: it computes the choices that fall on
+the ``experts_held`` experts the device holds, each expert's rows one
+segment through the fused MLP kernel, after one read of the segments'
+sizes.
 
 On a mesh (x a DTensor) each MoE layer is three ``parallel.local_call``s
 (``_moe_sharded``): routing and the dispatch gather on each data shard's
@@ -43,6 +47,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
 
 from ..kernels import fused_mlp as fused_kernel
+from ..launch import spans
+from ..launch.spans import span
 from . import parallel
 from .common import ModelConfig, dense_init
 
@@ -104,17 +110,18 @@ def mlp(cfg: ModelConfig, params: Dict, x):
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator,
              dtype=torch.float32) -> Dict:
-    """router [D, E] (fp32 whatever ``dtype`` is), w1/w3 [E, D, F], w2
-    [E, F, D], and with ``n_shared_experts`` a SwiGLU ``shared`` expert of
+    """router [D, E] (fp32 whatever ``dtype`` is), w1/w3 [Eh, D, F], w2
+    [Eh, F, D] for the ``Eh = cfg.held_experts`` experts this device
+    holds, and with ``n_shared_experts`` a SwiGLU ``shared`` expert of
     width ``n_shared_experts * d_ff``; drawn in fp32 on the generator's
     device, then cast."""
-    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    e, d, f = cfg.held_experts, cfg.d_model, cfg.d_ff
 
     def normal(*shape):
         return torch.randn(shape, generator=gen, dtype=torch.float32,
                            device=gen.device)
 
-    p = {"router": dense_init(gen, d, e, torch.float32),
+    p = {"router": dense_init(gen, d, cfg.n_experts, torch.float32),
          "w1": (normal(e, d, f) / math.sqrt(d)).to(dtype),
          "w3": (normal(e, d, f) / math.sqrt(d)).to(dtype),
          "w2": (normal(e, f, d) / math.sqrt(f)).to(dtype)}
@@ -138,19 +145,28 @@ def capacity(cfg: ModelConfig, tl: int) -> int:
     return max(cap, min(k, tl))
 
 
+def _gating(cfg: ModelConfig, params: Dict, xt):
+    """xt [..., D] -> (probs [..., E] fp32: the softmax of the fp32 router
+    product, gates [..., k] fp32: the top k of them, renormalised to sum
+    to 1 unless ``moe_norm_topk`` is off, their experts [..., k])."""
+    probs = torch.softmax(xt.float() @ params["router"].float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.moe_norm_topk:
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                            min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
 def _route(cfg: ModelConfig, params: Dict, xt):
     """Shared router (``repro/models/mlp.py::_route``): xt [ns, tl, D] ->
-    (probs [ns, tl, E] fp32, gates [ns, tl, k] fp32 (renormalised, 0 where
+    (probs [ns, tl, E] fp32, gates [ns, tl, k] fp32 (``_gating``'s, 0 where
     dropped), gate_idx [ns, tl, k], pos [ns, tl, k], keep [ns, tl, k],
     cap, counts [ns, E] (choices per expert)). ``pos`` is a choice's place
     in its expert's queue: the exclusive cumsum of the one-hot over the
     token-major flattening of (token, choice); ``keep`` is pos < cap."""
     ns, tl, _ = xt.shape
     e, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(xt.float() @ params["router"].float(), dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    probs, gate_vals, gate_idx = _gating(cfg, params, xt)
     cap = capacity(cfg, tl)
     # the one-hot expert-major, [ns*E, tl*k], scanned as one flat sequence:
     # a 1-D scan runs in parallel on the card, where a scan down the
@@ -184,9 +200,31 @@ def _aux_of(cfg: ModelConfig, me, ce):
     return (me * ce).sum() * cfg.n_experts * cfg.router_aux_coef
 
 
-def _aux_loss(cfg: ModelConfig, probs, counts):
-    """The aux loss, the means over every token of every routing shard."""
-    return _aux_of(cfg, *_aux_means(probs, counts))
+def _aux_loss(cfg: ModelConfig, probs, counts, gate_idx, b: int):
+    """The aux loss of ``b`` sequences, whose tokens (token-major) are
+    those of probs [.., E], gate_idx [.., k] and counts [.., E] (choices
+    per expert of each routing shard): GShard's, the means over every
+    token of every routing shard, or with ``router_aux`` "seq"
+    DeepSeekMoE's sequence-level loss, coef x mean_b sum_e f_be P_be with
+    f_be = (choices of e in b) E / (k S) and P_be = mean_t probs_bte. The
+    choice counts are exact in fp32; counts None counts gate_idx as one
+    routing shard. A coefficient of 0 launches nothing."""
+    if not cfg.router_aux_coef:
+        return probs.new_zeros(())
+    e, k = cfg.n_experts, cfg.top_k
+    if cfg.router_aux == "gshard":
+        if counts is None:
+            idx = gate_idx.reshape(1, -1)
+            counts = torch.zeros((1, e), dtype=torch.float32,
+                                 device=idx.device).scatter_add_(
+                1, idx, torch.ones_like(idx, dtype=torch.float32))
+        return _aux_of(cfg, *_aux_means(probs, counts))
+    idx = gate_idx.reshape(b, -1)
+    s_len = idx.shape[1] // k
+    f = torch.zeros((b, e), dtype=torch.float32, device=idx.device)
+    f.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
+    p = probs.reshape(b, s_len, e).mean(dim=1)
+    return ((f * e / (k * s_len)) * p).sum(-1).mean() * cfg.router_aux_coef
 
 
 def _experts(params: Dict, xe, dtype):
@@ -243,7 +281,7 @@ def _dispatch_gather(cfg: ModelConfig, params: Dict, xt):
     """Gather dispatch of xt [ns, tl, D]: each kept (token, choice) is
     copied into its expert slot -> (xe [ns, E, cap, D], the combine's
     context (gates, the slot each choice reads, the choice each slot
-    holds), probs, counts)."""
+    holds), probs, counts, gate_idx)."""
     ns, tl, _ = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
@@ -263,7 +301,7 @@ def _dispatch_gather(cfg: ModelConfig, params: Dict, xt):
     xe = _RowGather.apply(xt, torch.div(filled, k, rounding_mode="floor"),
                           slot_or_drop.view(ns, tl, k))
     ctx = (gates, torch.where(kept, flat_slot, 0), filled)
-    return xe.view(ns, e, cap, -1), ctx, probs, counts
+    return xe.view(ns, e, cap, -1), ctx, probs, counts, gate_idx
 
 
 def _combine_gather(ye, ctx, dtype):
@@ -280,7 +318,7 @@ def _combine_gather(ye, ctx, dtype):
 
 def _dispatch_einsum(cfg: ModelConfig, params: Dict, xt):
     """GShard one-hot dispatch of xt [ns, tl, D] -> (xe [ns, E, cap, D],
-    (the combine tensor [ns, tl, E, cap],), probs, counts)."""
+    (the combine tensor [ns, tl, E, cap],), probs, counts, gate_idx)."""
     e = cfg.n_experts
     probs, gates, gate_idx, pos, keep, cap, counts = _route(cfg, params, xt)
     onehot = F.one_hot(gate_idx, e)                          # [ns,tl,k,E]
@@ -290,7 +328,7 @@ def _dispatch_einsum(cfg: ModelConfig, params: Dict, xt):
     comb = torch.einsum("stke,stkc,stk->stec", onehot.float(),
                         pos_oh.float(), gates).to(xt.dtype)
     xe = torch.einsum("stec,std->secd", disp, xt)
-    return xe, (comb,), probs, counts
+    return xe, (comb,), probs, counts, gate_idx
 
 
 def _combine_einsum(ye, ctx, dtype):
@@ -309,9 +347,11 @@ def _moe_local(cfg: ModelConfig, params: Dict, x, impl: str):
     b, s_len, d = x.shape
     t = b * s_len
     ns = _shards(cfg, t)
-    xe, ctx, probs, counts = dispatch(cfg, params, x.reshape(ns, t // ns, d))
+    xe, ctx, probs, counts, gate_idx = dispatch(
+        cfg, params, x.reshape(ns, t // ns, d))
     y = combine(_experts(params, xe, x.dtype), ctx, x.dtype)
-    return _add_shared(cfg, params, x, y), _aux_loss(cfg, probs, counts)
+    return (_add_shared(cfg, params, x, y),
+            _aux_loss(cfg, probs, counts, gate_idx, b))
 
 
 def _expert_dims(w, taken) -> list:
@@ -346,8 +386,8 @@ def _moe_sharded(cfg: ModelConfig, params: Dict, x, impl: str):
     part = tuple(Partial() if i in data else p for i, p in enumerate(rep))
 
     def route(xl, router):
-        xe, ctx, probs, counts = dispatch(cfg, {"router": router},
-                                          xl.reshape(ns_l, -1, d))
+        xe, ctx, probs, counts, _ = dispatch(cfg, {"router": router},
+                                             xl.reshape(ns_l, -1, d))
         return (xe, *ctx, *_aux_means(probs, counts, parts))
 
     w = {n: params[n].to(x.dtype) for n in ("w1", "w3", "w2")}
@@ -396,13 +436,109 @@ def moe_einsum(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
     return _moe(cfg, params, x, "einsum")
 
 
+# ---------------------------------------------------------------------------
+# Dropless MoE over the held experts
+# ---------------------------------------------------------------------------
+
+class _Combine(torch.autograd.Function):
+    """out[t] = the sum over c of rows[slot[t, c]] in choice order (zeros
+    where slot[t, c] is the sentinel rows.shape[0]); rows [n, D], slot
+    [T, k]. Each row belongs to one token, ``tok``, so the backward is one
+    [n, D] gather (``_RowGather``'s would copy [T * k, D])."""
+
+    @staticmethod
+    def forward(ctx, rows, slot, tok):
+        ctx.save_for_backward(tok)
+        t, k = slot.shape
+        return _take_rows(rows[None], slot.view(1, t * k)).view(
+            t, k, -1).sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        tok, = ctx.saved_tensors
+        return dy.index_select(0, tok), None, None
+
+
+def _moe_dropless(cfg: ModelConfig, params: Dict, x):
+    """x [B, S, D] on one device -> (y [B, S, D], aux): every (token,
+    choice) whose expert this device holds is computed, none dropped.
+
+    Route over all ``n_experts`` (``_gating``); sort the pairs on held
+    experts into one contiguous segment per expert (a stable sort keeps
+    each segment token-major); read the segments' sizes to the host once
+    (the call's one wait for the card; on the card the shared expert is
+    queued behind the sizes' copy, so the card works while the host
+    waits); gather each pair's token row and run each held expert's
+    segment through the SwiGLU (the fused MLP kernel on the card);
+    weight each row by its gate in fp32 and sum each token's rows in
+    choice order. Dispatch and combine are gathers both ways, so the
+    step is bitwise deterministic."""
+    b, s_len, d = x.shape
+    t, k = b * s_len, cfg.top_k
+    held = cfg.held_experts
+    xt = x.reshape(t, d)
+    with span("moe.route"):
+        probs, gates, gate_idx = _gating(cfg, params, xt)
+        key = gate_idx.reshape(-1).clamp(max=held)
+        sorted_key, order = torch.sort(key, stable=True)
+        # each segment's end in the sorted keys; a bincount would wait
+        # on the card to size its output
+        ends = torch.searchsorted(sorted_key, torch.arange(
+            1, held + 1, device=x.device))
+        sizes = torch.diff(ends, prepend=ends.new_zeros(1))
+        rank = torch.empty_like(order).scatter_(
+            0, order, torch.arange(t * k, device=x.device))
+        ready = None
+        if x.is_cuda:
+            sizes = torch.empty(held, dtype=sizes.dtype,
+                                pin_memory=True).copy_(sizes,
+                                                       non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+    shared = mlp(cfg, params["shared"], x) if "shared" in params else None
+    with span("moe.readback"):
+        if ready is not None:
+            ready.synchronize()
+        sizes = sizes.tolist()
+    n = sum(sizes)
+    spans.count("moe.readbacks", 1)
+    spans.count("moe.routed_rows", n)
+    spans.count("moe.rows_by_expert", sizes)
+    rows = order[:n]
+    tok = torch.div(rows, k, rounding_mode="floor")
+    slot = torch.where(key < held, rank, n).view(t, k)
+    with span("moe.experts"):
+        xs = _RowGather.apply(xt[None], tok[None], slot[None])[0]
+        ws = [params[w].to(x.dtype).unbind(0) for w in ("w1", "w3", "w2")]
+        ys = [_swiglu_local(seg, *(w[e] for w in ws))
+              for e, seg in enumerate(xs.split(sizes)) if sizes[e]]
+        ys = torch.cat(ys) if ys else xs
+    with span("moe.combine"):
+        yw = ys.float() * gates.reshape(-1)[rows][:, None]
+        y = _Combine.apply(yw, slot, tok).to(x.dtype)
+    aux = _aux_loss(cfg, probs[None], None, gate_idx, b)
+    y = y.view(b, s_len, d)
+    return (y if shared is None else y + shared), aux
+
+
 def _moe(cfg: ModelConfig, params: Dict, x, impl: str):
-    run = _moe_sharded if parallel.is_dtensor(x) else _moe_local
-    return run(cfg, params, x, impl)
+    if parallel.is_dtensor(x):
+        if impl == "dropless" or cfg.held_experts != cfg.n_experts:
+            raise ValueError(f"{cfg.arch_id}: the dropless MoE and a share "
+                             "of the experts run on one device, not a mesh")
+        return _moe_sharded(cfg, params, x, impl)
+    if impl == "dropless":
+        return _moe_dropless(cfg, params, x)
+    if cfg.held_experts != cfg.n_experts:
+        raise ValueError(f"{cfg.arch_id}: {cfg.held_experts} of "
+                         f"{cfg.n_experts} experts held needs moe_impl "
+                         f"'dropless', not {impl!r}")
+    return _moe_local(cfg, params, x, impl)
 
 
 def moe(cfg: ModelConfig, params: Dict, x) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """Dispatch by ``cfg.moe_impl``: "gather" (the default) or "einsum";
-    on one device or, for DTensor x, on its mesh."""
+    """Dispatch by ``cfg.moe_impl``: "gather" (the default), "einsum" or
+    "dropless" (``_moe_dropless``; one device); "gather" and "einsum" on
+    one device or, for DTensor x, on its mesh."""
     return _moe(cfg, params, x, cfg.moe_impl)

@@ -75,7 +75,8 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
 def active_params_count(cfg: ModelConfig, params: PyTree) -> int:
     """Parameters one token runs through (``repro/launch/dryrun.py::
     _active_params``): all of them, less the routed experts' w1/w3/w2
-    except their top_k / n_experts share. A shared expert runs for every
+    except their top_k / n_experts share (of the experts held, where a
+    device holds ``experts_held`` of them). A shared expert runs for every
     token and counts in full (the reference's rule scales it too: its
     path also holds "moe")."""
     sizes = {}

@@ -84,6 +84,12 @@ class Trainer:
         self.train_step = steps_lib.make_train_step(cfg, self.opt_cfg)
         if mesh is None:
             return
+        if (cfg.first_dense_layers or cfg.experts_held
+                or cfg.moe_impl == "dropless"):
+            raise ValueError(
+                f"{cfg.arch_id}: leading dense layers, a share of the "
+                "experts (experts_held) and moe_impl 'dropless' train on one "
+                "device; the mesh trainer has no specs for them")
         pshapes = model_zoo.param_shapes(cfg)
         self.pspecs = sharding.param_specs(pshapes, mesh)
         self.ospecs = sharding.opt_state_specs(self.pspecs, pshapes, mesh)

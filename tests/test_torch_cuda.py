@@ -1209,6 +1209,78 @@ def test_moe_layer_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
 
 
+def test_dropless_moe_layer_card_matches_cpu(cuda):
+    """The dropless MoE layer (deepseek's smoke widths, 4 of 8 experts
+    held, top 3 unnormalised) under autograd: one fused MLP launch forward
+    and one backward per held expert that has rows, and the shared
+    expert's; the bf16 output and the gradients of x and of every weight
+    within the repo's bf16 tolerance (over each tensor's largest entry) of
+    the CPU's fp32 path on the same bf16 inputs; two calls bitwise
+    equal."""
+    cfg = get_config("deepseek_moe_16b", smoke=True).with_(
+        n_experts=8, experts_held=4, top_k=3, moe_norm_topk=False,
+        moe_impl="dropless")
+    gen = torch.Generator().manual_seed(0)
+    params = mlp.init_moe(cfg, gen, dtype=torch.bfloat16)
+    x = torch.randn((2, 96, cfg.d_model), generator=gen).to(torch.bfloat16)
+
+    def run(tree, xx):
+        leaves = tree_map(lambda _, t: t.clone().requires_grad_(), tree)
+        xx = xx.clone().requires_grad_()
+        y, aux = mlp.moe(cfg, leaves, xx)
+        (y.float().square().sum() + aux).backward()
+        grads = {}
+        tree_map(lambda path, t: grads.__setitem__(path, t.grad), leaves)
+        return y.detach(), xx.grad, grads
+
+    card = tree_map(lambda _, t: t.to(cuda), params)
+    before = _counts()
+    y, dx, grads = run(card, x.to(cuda))
+    torch.cuda.synchronize()
+    launched = _delta(before)
+    again = run(card, x.to(cuda))
+    want = run(tree_map(lambda _, t: t.float(), params), x.float())
+    idx = torch.topk(torch.softmax(x.float().reshape(-1, cfg.d_model)
+                                   @ params["router"].float(), -1),
+                     cfg.top_k, -1).indices
+    experts = len(torch.unique(idx[idx < cfg.experts_held]))
+    assert launched["mlp"] == launched["mlp_bwd"] == experts + 1, launched
+    assert torch.equal(y, again[0]) and torch.equal(dx, again[1])
+    assert all(torch.equal(grads[k], again[2][k]) for k in grads)
+    torch.testing.assert_close(y.float().cpu(), want[0], **BF16_TOL)
+    for got, ref in [(dx, want[1])] + [(grads[k], want[2][k])
+                                       for k in grads]:
+        scale = float(ref.abs().max())
+        assert float((got.float().cpu() - ref).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("router_aux", ["gshard", "seq"])
+def test_dropless_moe_waits_for_the_card_once(cuda, router_aux):
+    """The dropless MoE layer's one wait for the card is the event before
+    its read of the segments' sizes: forward and backward, balance loss
+    on, run under ``set_sync_debug_mode("error")``, which raises on any
+    other synchronising operation (a bincount reads its input's maximum
+    back to size its output). The first call builds the kernels."""
+    cfg = get_config("deepseek_moe_16b", smoke=True).with_(
+        n_experts=8, experts_held=4, top_k=3, moe_norm_topk=False,
+        moe_impl="dropless", router_aux=router_aux, router_aux_coef=0.01)
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda _, t: t.to(cuda).requires_grad_(),
+                      mlp.init_moe(cfg, gen, dtype=torch.bfloat16))
+    x = torch.randn((2, 96, cfg.d_model), generator=gen).to(
+        device=cuda, dtype=torch.bfloat16).requires_grad_()
+    for debug in (0, "error"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(debug)
+        try:
+            y, aux = mlp.moe(cfg, params, x)
+            (y.float().square().sum() + aux).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert float(aux.detach()) > 0 and bool(torch.isfinite(x.grad).all())
+
+
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_smoke_serves_on_card(cuda, arch):
     """The smoke MoE Engine on the card: flash once per layer in prefill,

@@ -48,9 +48,21 @@ def _np(x):
 @pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_registry_matches(arch, smoke):
+    """Every field the reference's ModelConfig has is equal; the fields
+    only the port has (the leading-dense layout, the held experts, the
+    top-k renormalisation and the balance loss's form) hold their
+    defaults in every registry config."""
     want = jax_configs.get_config(arch, smoke=smoke)
     got = configs.get_config(arch, smoke=smoke)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    theirs = dataclasses.asdict(want)
+    mine = dataclasses.asdict(got)
+    assert {k: mine[k] for k in theirs} == theirs
+    defaults = {f.name: f.default for f in dataclasses.fields(got)
+                if f.name not in theirs}
+    assert set(defaults) == {"first_dense_layers", "dense_d_ff",
+                             "experts_held", "moe_norm_topk",
+                             "router_aux"}
+    assert {k: mine[k] for k in defaults} == defaults
     assert (got.hd, got.padded_vocab, got.d_inner, got.ssm_heads) == \
         (want.hd, want.padded_vocab, want.d_inner, want.ssm_heads)
     assert configs.ALIASES == jax_configs.ALIASES
