@@ -182,6 +182,7 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import counters as kernel_counters  # noqa: E402
 from repro_torch.kernels.decode_attn import (decode_attention,  # noqa: E402
                                              decode_attention_ref,
                                              rope_table)
@@ -784,7 +785,7 @@ def decode_times(args, pos, flush):
                      + 2 * b * kv * hd + 2 * b * kv * hd)
               + (4.0 * hd if tab is not None else 0.0))
     bms, by = bound_ms(flops, nbytes)
-    splits = split_plan(b, kv, keys, _build.sm_count(0))[0]
+    splits = split_plan(b, kv, ck.shape[1], _build.sm_count(0))[0]
     shape = (f"B={b} S_max={ck.shape[1]} pos={pos} H={h} KV={kv} hd={hd}"
              f"{' RoPE' if tab is not None else ''} bf16, {splits} "
              f"split{'s' if splits > 1 else ''}")
@@ -806,10 +807,13 @@ def check_decode_attn(gen, flush):
     511, granite_8b's (B 4, KV 8, G 4, split), llava_next_34b's (B 1, G
     7), granite_moe_1b_a400m's and whisper_base's hd 64 (whisper without
     RoPE), stablelm_3b's hd 80, phi3's hd 96 and the smoke configs' hd
-    16; each output within the kernel tolerance, the cache row written at
+    16, and granite_8b's at pos 300, where the splits past pos are empty;
+    each output within the kernel tolerance, the cache row written at
     pos bitwise the plain version's and every other slot untouched, two
-    calls bitwise equal; the first three timed. Returns the kernel's
-    JSON entry."""
+    calls bitwise equal, and a call with ``pos`` a 0-d int32 on the card
+    (the engine's decode graph) within the tolerance and bitwise the int
+    position's, output and cache; the first three timed. Returns the
+    kernel's JSON entry."""
     cases = [  # (timed as, label, b, s_max, h, kv, hd, pos, rope)
         ("main", "olmo_1b decode pos 639", 32, 640, 16, 16, 128, 639, True),
         ("olmo_pos_511", "olmo_1b decode pos 511", 32, 640, 16, 16, 128,
@@ -823,19 +827,31 @@ def check_decode_attn(gen, flush):
         (None, "stablelm_3b decode", 2, 640, 32, 32, 80, 639, True),
         (None, "phi3_mini decode", 2, 640, 32, 32, 96, 0, True),
         (None, "smoke hd 16", 4, 40, 4, 4, 16, 33, True),
+        (None, "granite_8b decode pos 300", 4, 640, 32, 8, 128, 300, True),
     ]
-    timed, worst = {}, 0.0
+    timed, worst, empty = {}, 0.0, []
     for key, label, b, s, h, kv, hd, pos, rope in cases:
         args = decode_inputs(gen, b, s, h, kv, hd, rope)
         q, k, v, ck, cv, tab = args
         want_ck, want_cv = ck.clone(), cv.clone()
         want = decode_attention_ref(q, k, v, want_ck, want_cv, pos, tab)
-        ck2, cv2 = ck.clone(), cv.clone()
+        ck2, cv2, ck3, cv3 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
         got = decode_attention(q, k, v, ck, cv, pos, tab)
         again = decode_attention(q, k, v, ck2, cv2, pos, tab)
+        at = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        read = decode_attention(q, k, v, ck3, cv3, at, tab)
         torch.cuda.synchronize()
         worst = max(worst, compare(f"decode_attention [{label}]", got,
                                    want))
+        worst = max(worst, compare(f"decode_attention [{label}, position "
+                                   "on the card]", read, want))
+        if not (torch.equal(read, got) and torch.equal(ck3, ck)
+                and torch.equal(cv3, cv) and int(at) == pos):
+            raise RuntimeError(f"decode_attention [{label}]: the position "
+                               "on the card gives other bits than the int")
+        splits, chunk = split_plan(b, kv, s, _build.sm_count(0))
+        if pos // chunk + 1 < splits:
+            empty.append(f"{label} ({splits - pos // chunk - 1} of {splits})")
         if not (torch.equal(ck, want_ck) and torch.equal(cv, want_cv)):
             raise RuntimeError(f"decode_attention [{label}]: the cache "
                                "differs from the plain version's")
@@ -846,9 +862,13 @@ def check_decode_attn(gen, flush):
             timed[key] = {"max_abs_err": float((got.float() - want.float())
                                                .abs().max()),
                           **decode_times(args, pos, flush)}
-        del args, q, k, v, ck, cv, want_ck, want_cv, ck2, cv2
+        del args, q, k, v, ck, cv, want_ck, want_cv, ck2, cv2, ck3, cv3
+    if not empty:
+        raise RuntimeError("decode_attention: no case has a split past pos")
     print("  decode_attention: every cache row bitwise the plain "
-          "version's, two calls bitwise equal", flush=True)
+          "version's, two calls bitwise equal, the position on the card "
+          "bitwise the int's; empty splits past pos in "
+          + ", ".join(empty), flush=True)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attn.cu",
             "replaces": None, "launches": None, "max_abs_err_all": worst,
@@ -958,12 +978,7 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    for fn in (flash_attention, fused_mlp, ssd_scan):
-        fn.launches = fn.bwd_launches = 0
-    flash_attention.launches_by_regime = dict.fromkeys(REGIMES, 0)
-    decode_attention.launches = 0
-    decode_attention.launches_by_regime = dict.fromkeys(
-        decode_attention.launches_by_regime, 0)
+    kernel_counters.reset()
 
 
 def fused_mlps(cfg):
@@ -1184,9 +1199,9 @@ def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
     prompts = np.random.RandomState(SEED).randint(
         0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
     frames = extra_input(cfg, batch) if cfg.family == "audio" else None
-    Engine(cfg, eng.params, ServeConfig(max_seq=prompt_len + 2,
-                                        max_new_tokens=2)).generate(prompts,
-                                                                    frames)
+    # warm-up on this engine: kernels built and, where it keeps one, its
+    # decode graph captured before the timed call
+    eng.generate(prompts, frames)
 
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -1246,11 +1261,17 @@ def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
 # forward's chunk-state and state-passing kernels counts as ssd_scan)
 PORT_OPS = {"ssd": "ssd_scan", "mlp": "fused_mlp", "flash": "flash_attention",
             "decode": "decode_attention"}
+# the kernel an op launches once per call in a decode step: its calls on
+# the device trace (fused_mlp's gate/up kernel, decode or prefill regime;
+# the decode kernel's first launch, not the combine of its splits)
+CALL_KERNELS = {"fused_mlp": r"::mlp_(?:decode|prefill)<true\b",
+                "decode_attention": r"::decode_attn_kernel<"}
 
 
 def report(prof, label, wall, top=8):
     """Print a profiler window: wall and device busy/idle, the ``top``
-    device ops by self time, and the port's kernels by op."""
+    device ops by self time, and the port's kernels by op. Returns the
+    window's device events."""
     from torch.autograd import DeviceType
     averages = prof.key_averages()
     evts = [e for e in averages  # kernels, memsets, copies
@@ -1283,18 +1304,24 @@ def report(prof, label, wall, top=8):
             f"{e.key.rsplit(' ', 1)[-1]} {e.device_time_total / 1e3:.3f} ms "
             f"({100 * e.device_time_total / 1e3 / busy:.1f}%, x{e.count})"
             for e in bwd), flush=True)
+    return evts
 
 
 def profile(eng, batch):
     """Where the device time goes: torch.profiler over one prefill of the
     prefill ``batch`` and over 3 decode steps of the served model (run
-    after the counted main path). Device activity only: ``report`` reads
-    nothing of the host's ops here, and recording them costs seconds of
-    processing a window."""
+    after the counted main path; replays of its decode graph where the
+    engine keeps one). The decode steps' calls of the fused MLP and the
+    decode kernel on the device trace (``CALL_KERNELS``) must be
+    ``expected_launches``': a replay is counted where it ran, on the card.
+    Device activity only: ``report`` reads nothing of the host's ops here,
+    and recording them costs seconds of processing a window."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch.inference_mode():
-        logits, cache = eng._prefill(eng.params, batch)
+        graph = eng._graph(batch["tokens"].shape[0])
+        logits, cache = eng._prefill(eng.params, batch, cache=None if (
+            graph is None) else graph.cache)
         tok = torch.argmax(logits, -1).to(torch.int32)
         for label, steps in (("prefill", None), ("decode x3", 3)):
             torch.cuda.synchronize()
@@ -1307,7 +1334,18 @@ def profile(eng, batch):
                         logits, cache = eng._decode(eng.params, cache, tok)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            report(prof, label, wall)
+            evts = report(prof, label, wall)
+    # evts and steps are the last window's: the decode steps
+    want = {op: n for op, n in expected_launches(eng.cfg, 0, steps).items()
+            if op in CALL_KERNELS}
+    got = {op: sum(e.count for e in evts if re.search(pat, e.key))
+           for op, pat in CALL_KERNELS.items()}
+    if got != want:
+        raise RuntimeError(f"{eng.cfg.arch_id}: {steps} decode steps ran "
+                           f"{got} calls on the device trace, expected "
+                           f"{want}")
+    print(f"    decode steps' calls on the device trace {got}, as expected",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 // Decode attention for Hopper (sm_90a), bf16: in one launch per layer and
 // decode step, RoPE on the new token's query and key, the new key and value
 // written into the KV cache at `pos`, and GQA attention of the query over
-// the cache's keys [0, pos].
+// the cache's keys [0, pos]. `pos` is a kernel argument, or a 0-d int32 on
+// the device that the kernel reads (a step captured in a CUDA graph, whose
+// position advances on the device between replays); the two give the same
+// bits.
 //
 // Replaces no Pallas kernel: the JAX reference's decode attention
 // (src/repro/models/attention.py: decode_attention, gqa_decode_attend) is
@@ -41,15 +44,20 @@
 //     accumulator of its chunk); the warps merge in shared memory in a
 //     fixed order, and with several key splits a second launch combines
 //     the splits' partial sums in split order: bitwise deterministic;
-//   - the block that owns `pos` (the last split) rotates the new key,
-//     writes key and value into the cache and lets them enter its
-//     softmax from shared memory; no block reads a slot that another
+//   - the block that owns `pos` (the split whose range holds it) rotates
+//     the new key, writes key and value into the cache and lets them enter
+//     its softmax from shared memory; no block reads a slot that another
 //     block of the launch writes;
 //   - head dims below 128 run on a padded tile of 64 or 128 lanes whose
 //     chunks past hd load zeros (hd a multiple of 8): the cache is read
 //     in place, never copied to a padded layout.
 // The number of key splits comes from the caller (ops.split_plan: the
-// grid's (row, head) pairs against the SM count, and the keys).
+// grid's (row, head) pairs against the SM count, and the keys). The plan
+// covers the cache's S slots, wherever `pos` is, so it is the same for a
+// position given as an argument or read on the device; a split whose
+// range starts past `pos` reads no key and writes the neutral partial
+// (max -inf, sum 0, accumulator 0), which adds exactly zero to the
+// combine.
 //
 // Layout: q [B, 1, H, hd], k/v [B, 1, KV, hd] (the new token, before
 // RoPE), cache k/v [B, S, KV, hd], out [B, 1, H, hd]; element strides
@@ -83,7 +91,9 @@ struct Args {
   const float* sin;
   bf16* out;
   float* work;                   // the splits' partial sums (splits > 1)
-  int B, H, KV, hd, pos, splits, chunk;
+  const int* pos_dev;            // the position on the device, or null
+  int B, H, KV, hd, S, pos, splits, chunk;   // S: the cache's slots; pos:
+                                             // the position (no pos_dev)
   float scale;
   long long q_b, q_h, k_b, k_h, v_b, v_h;
   long long ck_b, ck_s, ck_h, cv_b, cv_s, cv_h;
@@ -251,11 +261,16 @@ decode_attn_kernel(const __grid_constant__ Args a) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r = lane / Gm::LPR, c = lane % Gm::LPR;
-  const int hd = a.hd, pos = a.pos;
+  const int hd = a.hd;
+  int pos = a.pos;
+  if (a.pos_dev != nullptr) {
+    pos = *a.pos_dev;
+    if (pos < 0 || pos >= a.S) __trap();     // past the cache: fail loudly
+  }
   const int k0 = split * a.chunk;
-  const int k1 = min(k0 + a.chunk, pos + 1);
-  const bool owner = k1 == pos + 1;          // this split holds `pos`
-  const int kend = owner ? pos : k1;         // cache keys read: [k0, kend)
+  const bool owner = k0 <= pos && pos < k0 + a.chunk;  // this split holds pos
+  // cache keys read: [k0, kend), none in a split that starts past pos
+  const int kend = owner ? pos : max(k0, min(k0 + a.chunk, pos + 1));
   const float* cs = a.cos ? a.cos + (long long)pos * (hd / 2) : nullptr;
   const float* sn = a.sin ? a.sin + (long long)pos * (hd / 2) : nullptr;
 
@@ -451,23 +466,28 @@ cudaError_t launch_g(const Args& a, int G, cudaStream_t s) {
 extern "C" {
 
 // q, k, v: the new token, [B, 1, H | KV, hd]; ck, cv: the cache [B, S, KV,
-// hd], written at `pos`; cos, sin: fp32 [>= pos + 1, hd / 2] RoPE tables,
-// or both null for no RoPE; out [B, 1, H, hd]; work: fp32 scratch of
-// B * KV * splits * (H / KV) * (pad + 2) floats when splits > 1 (pad: 64
-// for hd <= 64, else 128), else null. The keys [0, pos] are cut into
-// `splits` ranges of `chunk` keys, each non-empty. strides: 14 element
-// strides: (batch, head) of q, k, v; (batch, seq, head) of ck, cv;
+// hd] of S slots, written at the position: `pos`, or where pos_dev is not
+// null the device int32 it points to (`pos` is then not read; the kernel
+// traps on a position outside [0, S)); cos, sin: fp32 [S, hd / 2] RoPE
+// tables (rows up to the position are read), or both null for no RoPE;
+// out [B, 1, H, hd]; work: fp32 scratch of B * KV * splits * (H / KV) *
+// (pad + 2) floats when splits > 1 (pad: 64 for hd <= 64, else 128), else
+// null. The S slots are cut into `splits` ranges of `chunk` keys, each
+// non-empty; those past the position add nothing. strides: 14
+// element strides: (batch, head) of q, k, v; (batch, seq, head) of ck, cv;
 // (batch, head) of out. Returns the launch's cudaGetLastError() (0 on
 // success).
 int decode_attn_bf16(const void* q, const void* k, const void* v, void* ck,
                      void* cv, const void* cos, const void* sin, void* out,
-                     void* work, int B, int H, int KV, int hd, int pos,
-                     int splits, int chunk, float scale,
+                     void* work, int B, int H, int KV, int hd, int S,
+                     int pos, const void* pos_dev, int splits, int chunk,
+                     float scale,
                      const long long* strides, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || H / KV > MAX_G || hd % 8 != 0 ||
-      hd < 8 || hd > 128 || pos < 0 || splits < 1 || chunk < 1 ||
-      (long long)splits * chunk < pos + 1 ||
-      (long long)(splits - 1) * chunk >= pos + 1 ||
+      hd < 8 || hd > 128 || S < 1 ||
+      (pos_dev == nullptr && (pos < 0 || pos >= S)) || splits < 1 ||
+      chunk < 1 || (long long)splits * chunk < S ||
+      (long long)(splits - 1) * chunk >= S ||
       (splits > 1 && work == nullptr) || ((cos == nullptr) != (sin == nullptr)))
     return cudaErrorInvalidValue;
   const long long* st = strides;
@@ -475,7 +495,8 @@ int decode_attn_bf16(const void* q, const void* k, const void* v, void* ck,
          static_cast<const bf16*>(v), static_cast<bf16*>(ck),
          static_cast<bf16*>(cv), static_cast<const float*>(cos),
          static_cast<const float*>(sin), static_cast<bf16*>(out),
-         static_cast<float*>(work), B, H, KV, hd, pos, splits, chunk, scale,
+         static_cast<float*>(work), static_cast<const int*>(pos_dev), B, H,
+         KV, hd, S, pos, splits, chunk, scale,
          st[0], st[1], st[2], st[3], st[4], st[5],
          st[6], st[7], st[8], st[9], st[10], st[11],
          st[12], st[13]};

@@ -7,7 +7,11 @@ written into the KV cache at ``pos`` in place, and attention of the
 query over the cache's keys [0, pos], GQA without repeating the KV heads.
 On the card that is one launch (two when the keys are split), with
 ``pos`` a kernel argument: no host-to-device copy, no synchronisation,
-no fp32 copy of the cache.
+no fp32 copy of the cache. ``pos`` may also be a 0-d int32 tensor on the
+card, which the kernel reads there (a decode step captured in a CUDA
+graph advances it on the card between replays). Either way the keys are
+split by ``split_plan`` of the cache's capacity, and the splits past
+``pos`` add nothing, so the two give the same bits.
 
 The kernel replaces no Pallas kernel: the JAX reference's decode
 attention is plain jnp. ``decode_attention.launches`` counts calls that
@@ -53,7 +57,8 @@ def padded_head_dim(hd: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def split_plan(b: int, kv: int, keys: int, sms: int):
-    """(splits, chunk) for ``keys`` keys (pos + 1) of ``b`` rows of ``kv``
+    """(splits, chunk) for ``keys`` keys (the cache's length: the kernel
+    splits the whole cache, whatever the position) of ``b`` rows of ``kv``
     KV heads on ``sms`` SMs: the keys cut into ``splits`` ranges of
     ``chunk`` keys, each non-empty. The kernel runs a block per (row, KV
     head, split) and each block streams its range at the card's rate
@@ -98,7 +103,8 @@ def _scale(hd: int) -> float:
 def _bind(lib):
     if not hasattr(lib, "_decode_fn"):
         fn = lib.decode_attn_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 2
                        + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -165,27 +171,35 @@ def _strides_arg(strides):
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
-def decode_attention(q, k, v, ck, cv, pos: int, rope=None):
+def decode_attention(q, k, v, ck, cv, pos, rope=None):
     """Attention of the new token over the KV cache, with the cache write.
 
     q [B,1,H,hd], k/v [B,1,KV,hd]: the new token's projections, before
     RoPE; ck/cv [B,S,KV,hd]: the cache, written in place at ``pos`` (the
-    rotated key and the value); ``rope``: the (cos, sin) table of
-    ``rope_table``, or None for no RoPE. Returns the attention over keys
-    [0, pos] as [B, 1, H*hd] in q's dtype: the plain version on CPU
-    tensors, the kernel on CUDA tensors (or ValueError)."""
+    rotated key and the value); ``pos``: an int, or a 0-d int32 tensor on
+    q's device, read there (module docstring); ``rope``: the (cos, sin)
+    table of ``rope_table``, or None for no RoPE. Returns the attention
+    over keys [0, pos] as [B, 1, H*hd] in q's dtype: the plain version on
+    CPU tensors, the kernel on CUDA tensors (or ValueError)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, ck, cv, pos, rope)
     _build.refuse_grad("decode_attention", (q, k, v),
                        "decode under torch.no_grad or inference_mode")
     tabs = () if rope is None else tuple(rope)
+    on_card = torch.is_tensor(pos)
+    others = (k, v, ck, cv, *tabs, *((pos,) if on_card else ()))
     dev = q.get_device()
-    if dev < 0 or any(t.get_device() != dev for t in (k, v, ck, cv, *tabs)):
-        _build.require_cuda(q, k, v, ck, cv, *tabs)   # raises, naming them
-    strides = admit(q, k, v, ck, cv, pos, rope)
+    if dev < 0 or any(t.get_device() != dev for t in others):
+        _build.require_cuda(q, *others)   # raises, naming them
+    if on_card and (pos.dtype != torch.int32 or pos.dim()):
+        raise ValueError(f"a position on the card must be a 0-d int32, got "
+                         f"{pos.dtype} {tuple(pos.shape)}")
     b, _, h, hd = q.shape
-    kv = ck.shape[2]
-    splits, chunk = split_plan(b, kv, pos + 1, _build.sm_count(dev))
+    slots, kv = ck.shape[1], ck.shape[2]
+    # admitted for the largest position the kernel may meet: the cache's
+    # last slot when it reads the position on the card
+    strides = admit(q, k, v, ck, cv, slots - 1 if on_card else pos, rope)
+    splits, chunk = split_plan(b, kv, slots, _build.sm_count(dev))
     out = torch.empty((b, 1, h * hd), dtype=q.dtype, device=q.device)
     work = (torch.empty(b * kv * splits * (h // kv)
                         * (padded_head_dim(hd) + 2), dtype=torch.float32,
@@ -197,7 +211,8 @@ def decode_attention(q, k, v, ck, cv, pos: int, rope=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.data_ptr(),
             cv.data_ptr(), cos, sin, out.data_ptr(),
             None if work is None else work.data_ptr(),
-            b, h, kv, hd, pos, splits, chunk, _scale(hd),
+            b, h, kv, hd, slots, 0 if on_card else pos,
+            pos.data_ptr() if on_card else None, splits, chunk, _scale(hd),
             _strides_arg(strides), _build.stream_ptr(q))
     _build.check(lib, "decode_attn", rc)
     decode_attention.launches += 1

@@ -13,8 +13,9 @@ import torch.distributed as dist
 from ...models.common import apply_rope
 
 
-def gqa_decode_attend(q, ck, cv, pos: int, groups=()):
-    """q [B,1,H,hd] against cache [B,S,KV,hd] without repeating KV.
+def gqa_decode_attend(q, ck, cv, pos, groups=()):
+    """q [B,1,H,hd] against cache [B,S,KV,hd] without repeating KV; ``pos``
+    an int or a 0-d integer tensor on the cache's device.
 
     Operands are rounded to the query dtype, products accumulate in
     fp32; keys past ``pos`` are masked. With process ``groups`` (split-KV
@@ -45,16 +46,18 @@ def gqa_decode_attend(q, ck, cv, pos: int, groups=()):
     return out.reshape(b, 1, h * hd)
 
 
-def decode_attention_ref(q, k, v, ck, cv, pos: int, rope=None):
+def decode_attention_ref(q, k, v, ck, cv, pos, rope=None):
     """q [B,1,H,hd], k/v [B,1,KV,hd] (the new token, before RoPE); cache
     ck/cv [B,S,KV,hd], written in place at ``pos``; ``rope`` the (cos,
     sin) table [>= pos + 1, hd/2] of ``ops.rope_table``, or None for no
     RoPE. Returns the attention over keys [0, pos], [B, 1, H*hd] in
-    q's dtype."""
+    q's dtype. ``pos`` is an int, or a 0-d integer tensor on the cache's
+    device, gathered and written through there without a host read (the
+    same values)."""
+    at = pos.view(1).long() if torch.is_tensor(pos) else slice(pos, pos + 1)
     if rope is not None:
-        cos, sin = rope
-        c, s = cos[pos:pos + 1], sin[pos:pos + 1]
+        c, s = (t[at] for t in rope)
         q, k = apply_rope(q, c, s), apply_rope(k, c, s)
-    ck[:, pos] = k[:, 0]
-    cv[:, pos] = v[:, 0]
+    ck[:, at] = k
+    cv[:, at] = v
     return gqa_decode_attend(q, ck, cv, pos).to(q.dtype)

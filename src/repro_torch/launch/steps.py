@@ -133,9 +133,9 @@ def accumulate_micro_batch(cfg: ModelConfig, params: PyTree, gsum: PyTree,
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
-    def prefill_step(params, batch):
+    def prefill_step(params, batch, cache=None):
         return model_zoo.prefill(cfg, params, batch["tokens"], max_seq,
-                                 frames=batch.get("frames"))
+                                 frames=batch.get("frames"), cache=cache)
     return prefill_step
 
 

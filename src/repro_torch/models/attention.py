@@ -241,17 +241,20 @@ def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
 
 
-def decode_attention(cfg: ModelConfig, params, x, cache, pos: int, *,
+def decode_attention(cfg: ModelConfig, params, x, cache, pos, *,
                      n_heads=None, n_kv=None,
                      rope: Optional[bool] = None):
     """One-token decode: x [B, 1, D]; cache k/v [B, S_max, kv, hd]. RoPE
     at ``pos`` when ``rope`` (default: the config's ``use_rope``). On one
     card's cache ``kernels.decode_attn.decode_attention`` rotates, writes
     and attends, with the RoPE table built once per cache length
-    (``rope_table``) and ``pos`` passed as a plain int: no host-to-device
-    copy. A DTensor cache rotates here and goes to ``_decode_sharded``."""
+    (``rope_table``) and ``pos`` passed as a plain int, or as the 0-d
+    int32 tensor on the cache's device that a CUDA graph of the step reads
+    (not range-checked here: that would read it back): no host-to-device
+    copy. A DTensor cache takes an int ``pos``, rotates here and goes to
+    ``_decode_sharded``."""
     ck, cv = cache["k"], cache["v"]
-    if not 0 <= pos < ck.shape[1]:
+    if not torch.is_tensor(pos) and not 0 <= pos < ck.shape[1]:
         raise ValueError(f"decode position {pos} outside the cache's "
                          f"{ck.shape[1]} slots")
     use_rope = cfg.use_rope if rope is None else rope

@@ -457,14 +457,20 @@ def fresh_cache(cfg: ModelConfig, make: Callable, batch: int, ref) -> PyTree:
         cfg, batch, mesh, shapes), mesh)
 
 
-def prefill(cfg: ModelConfig, params: PyTree, tokens,
-            max_seq: int) -> Tuple[torch.Tensor, PyTree]:
+def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
+            cache: PyTree = None) -> Tuple[torch.Tensor, PyTree]:
     """Prefill a prompt into a fresh cache (on a mesh, placed by the
-    cache specs); returns (last logits, cache)."""
+    cache specs), or into ``cache`` (``init_cache``'s layout for the
+    prompt's batch) in place; returns (last logits, cache). The prompt's
+    slots [0, S) and the Mamba-2 state and conv buffers are overwritten
+    whole, and the KV slots past S take no part in attention until a
+    decode step writes them, so a reused cache leaks nothing of its last
+    prompt. A ``pos`` held as a tensor is set in place (``fill_``)."""
     b, s = tokens.shape
-    cache = fresh_cache(cfg, lambda dev: init_cache(cfg, b, max_seq,
-                                                    device=dev),
-                        b, params["embed"])
+    if cache is None:
+        cache = fresh_cache(cfg, lambda dev: init_cache(cfg, b, max_seq,
+                                                        device=dev),
+                            b, params["embed"])
     x = _embed(cfg, params, tokens)
     shared = params.get("shared_attn")
     for i, lp in enumerate(_per_layer(cfg, params, _layer_views)):
@@ -487,14 +493,20 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens,
         with span(_ffn_span(lp)):
             h = apply_norm(cfg, x, lp["ffn_norm"])
             x = x + parallel.like(_ffn(cfg, lp, h), x)
-    cache["pos"] = s
+    if torch.is_tensor(cache["pos"]):
+        cache["pos"].fill_(s)
+    else:
+        cache["pos"] = s
     return _unembed(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
                 tokens) -> Tuple[torch.Tensor, PyTree]:
     """tokens [B] -> (logits [B,Vp], cache advanced by one position). One
-    token for the whole batch; the cache tensors are written in place."""
+    token for the whole batch; the cache tensors are written in place. A
+    ``pos`` held as a 0-d tensor on the card (the serving engine's CUDA
+    graph) is read there and advanced in place, so the step makes no host
+    read and a replay of it moves to the next position."""
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)[:, None, :]
     shared = params.get("shared_attn")
@@ -518,4 +530,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
             h = apply_norm(cfg, x, lp["ffn_norm"])
             x = x + parallel.like(_ffn(cfg, lp, h), x)
     logits = _unembed(cfg, params, x)[:, 0, :]
+    if torch.is_tensor(pos):
+        pos.add_(1)
+        return logits, cache
     return logits, {**cache, "pos": pos + 1}

@@ -10,10 +10,13 @@ from typing import Any, Dict
 
 import torch
 
-from . import encdec, lm
-from .common import ModelConfig, tree_map
+from . import encdec, lm, parallel
+from .common import ModelConfig, tree_leaves, tree_map
 
 PyTree = Any
+
+# families whose decode step makes no host read (``decode_graph_ok``)
+GRAPH_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
@@ -57,19 +60,36 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree, tokens):
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
-            frames=None):
+            frames=None, cache: PyTree = None):
     """(last-position logits, cache). ``frames`` [B, T, D] is the audio
     family's encoder input (``encdec.prefill``: the cross cache primed,
-    the self cache empty at pos 0) and is refused for the others."""
+    the self cache empty at pos 0) and is refused for the others.
+    ``cache``, for the decoder-only families, is filled in place instead
+    of a fresh one (``lm.prefill``)."""
     if cfg.family == "audio":
         if frames is None:
             raise ValueError(f"{cfg.arch_id}: the audio family's prefill "
                              "needs frames")
+        if cache is not None:
+            raise ValueError(f"{cfg.arch_id}: the audio family's prefill "
+                             "makes its own cache")
         return encdec.prefill(cfg, params, tokens, frames, max_seq)
     if frames is not None:
         raise ValueError(f"{cfg.arch_id}: frames are the audio family's "
                          f"input, not the {cfg.family!r} family's")
-    return lm.prefill(cfg, params, tokens, max_seq)
+    return lm.prefill(cfg, params, tokens, max_seq, cache)
+
+
+def decode_graph_ok(cfg: ModelConfig, params: PyTree) -> bool:
+    """Whether ``decode_step`` of ``cfg`` on ``params`` can be captured as
+    one CUDA graph and replayed: with grad off, on CUDA parameters of
+    which none is a DTensor, for a family whose step reads nothing back
+    to the host (``GRAPH_FAMILIES``; the dropless MoE reads its experts'
+    row counts, and the audio family is left eager)."""
+    if cfg.family not in GRAPH_FAMILIES or torch.is_grad_enabled():
+        return False
+    return all(not parallel.is_dtensor(t) and t.is_cuda
+               for t in tree_leaves(params))
 
 
 def active_params_count(cfg: ModelConfig, params: PyTree) -> int:

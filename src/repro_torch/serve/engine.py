@@ -11,6 +11,17 @@ The engine runs on ``device`` ("cuda" unless the caller asks for
 "cpu"), and never falls back to the CPU. Weight matrices are cast to
 the compute dtype once, here, which gives the values the reference's
 per-use ``.astype`` gives without streaming fp32 weights at every step.
+
+Where ``model_zoo.decode_graph_ok`` allows (CUDA, no grad, no DTensor,
+the dense, ssm and hybrid families), the engine keeps one static cache
+per (batch, max_seq), prefills into it, and replays each decode step from
+a CUDA graph of it (``decode_graph.DecodeGraph``, captured at the first
+step); the same kernels run in the same order on the same data (the
+decode attention kernel splits the keys by the cache's capacity whether
+it reads ``pos`` on the card or as an int), so the tokens are the eager
+path's, bit for bit. Elsewhere each call prefills a fresh cache
+and runs every step eagerly. A replay runs no Python of the model, so it
+opens no ``model.*`` span.
 """
 from __future__ import annotations
 
@@ -21,9 +32,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..launch import spans
 from ..launch import steps as steps_lib
 from ..launch.spans import span
+from ..models import model_zoo
 from ..models.common import ModelConfig, keeps_fp32, torch_dtype, tree_map
+from .decode_graph import COUNTER, DecodeGraph
 
 PyTree = Any
 
@@ -62,7 +76,8 @@ class Engine:
             lambda path, t: t.to(self.device, torch.float32
                                  if keeps_fp32(path) else cdt), params)
         self._prefill = steps_lib.make_prefill_step(cfg, self.scfg.max_seq)
-        self._decode = steps_lib.make_decode_step(cfg)
+        self._step = steps_lib.make_decode_step(cfg)
+        self._graphs = {}       # (batch, max_seq) -> DecodeGraph
 
     def batch(self, prompts: np.ndarray,
               frames: Optional[np.ndarray] = None) -> dict:
@@ -86,18 +101,22 @@ class Engine:
         start until the first sampled token is on the host in
         ``engine.first_token``; each ``_prefill`` and ``_decode`` call in
         ``engine.prefill`` and ``engine.decode``, each sampling in
-        ``engine.sample``, each wait for a token in ``engine.readback``."""
+        ``engine.sample``, each wait for a token in ``engine.readback``.
+        Counter ``engine.decode_graph``: [replays, captures, eager steps]
+        of the decode steps (``_decode``)."""
         scfg = self.scfg
         b, s = prompts.shape
         if s + scfg.max_new_tokens > scfg.max_seq:
             raise ValueError(
                 f"prompt {s} + {scfg.max_new_tokens} new tokens exceeds "
                 f"max_seq {scfg.max_seq}")
+        graph = self._graph(b)
         with span("engine.generate"), contextlib.ExitStack() as first:
             first.enter_context(span("engine.first_token"))
             with span("engine.prefill"):
-                logits, cache = self._prefill(self.params,
-                                              self.batch(prompts, frames))
+                logits, cache = self._prefill(
+                    self.params, self.batch(prompts, frames),
+                    cache=None if graph is None else graph.cache)
 
             gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
             out = np.zeros((b, scfg.max_new_tokens), np.int32)
@@ -119,6 +138,27 @@ class Engine:
                 with span("engine.sample"):
                     tok = self._sample(logits, gen)
         return out
+
+    def _graph(self, b: int) -> Optional[DecodeGraph]:
+        """The decode graph of batch ``b`` (made at the first call), or
+        None where the steps run eagerly (``model_zoo.decode_graph_ok``)."""
+        if not model_zoo.decode_graph_ok(self.cfg, self.params):
+            return None
+        key = (b, self.scfg.max_seq)
+        if key not in self._graphs:
+            self._graphs[key] = DecodeGraph(self.cfg, self._step, self.params,
+                                            b, self.scfg.max_seq, self.device)
+        return self._graphs[key]
+
+    def _decode(self, params, cache, tok):
+        """One decode step -> (logits, cache): replayed from the decode
+        graph whose static cache ``cache`` is, else run eagerly."""
+        graph = self._graphs.get((tok.shape[0], self.scfg.max_seq))
+        if graph is not None and cache is graph.cache and (
+                params is graph.params):
+            return graph(tok)
+        spans.count(COUNTER, [0, 0, 1])
+        return self._step(params, cache, tok)
 
     def _sample(self, logits, gen: torch.Generator):
         if self.scfg.temperature <= 0.0:

@@ -366,11 +366,12 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd, pos, rope):
     within the forward kernels' 2e-2; the cache row at ``pos`` bitwise the
     plain version's (the same fp32 products and difference of
     ``apply_rope``, rounded once to bf16, from the same table), every
-    other slot untouched; one launch counted in its regime."""
+    other slot untouched; one launch counted in its regime, the split
+    plan of the cache's capacity."""
     q, k, v, ck, cv, tab = _decode_inputs(cuda, b, s, h, kv, hd, rope)
     want_ck, want_cv = ck.clone(), cv.clone()
     want = decode_attention_ref(q, k, v, want_ck, want_cv, pos, tab)
-    splits, _ = split_plan(b, kv, pos + 1, _build.sm_count(cuda.index or 0))
+    splits, _ = split_plan(b, kv, s, _build.sm_count(cuda.index or 0))
     key = "split" if splits > 1 else "no split"
     before = decode_attention.launches
     by = decode_attention.launches_by_regime[key]
@@ -384,10 +385,10 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd, pos, rope):
 
 
 def test_decode_kernel_splits_at_granite_shape(cuda):
-    """granite_8b's decode grid (4 rows x 8 KV heads) splits the keys;
-    olmo_1b's (32 x 16) does not."""
+    """granite_8b's decode grid (4 rows x 8 KV heads) splits the keys
+    of its 640-slot cache; olmo_1b's (32 x 16) does not."""
     sms = _build.sm_count(cuda.index or 0)
-    assert split_plan(4, 8, 576, sms)[0] > 1
+    assert split_plan(4, 8, 640, sms)[0] > 1
     assert split_plan(32, 16, 640, sms)[0] == 1
 
 
@@ -540,6 +541,175 @@ def test_mamba2_card_path_matches_cpu_path(cuda):
         assert float((g - w).norm() / w.norm()) < 3e-2
     out = eng.generate(toks.numpy()[:, :256])
     assert out.shape == (2, 4) and ((out >= 0) & (out < cfg.vocab)).all()
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's decode graph (serve/decode_graph.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,kv,hd,pos", [DECODE_SHAPES[0],
+                                             DECODE_SHAPES[1],
+                                             DECODE_SHAPES[3],
+                                             DECODE_SHAPES[4],
+                                             DECODE_SHAPES[5],
+                                             DECODE_SHAPES[6],
+                                             DECODE_SHAPES[11]])
+def test_decode_kernel_reads_its_position_on_the_card(cuda, b, s, h, kv, hd,
+                                                      pos):
+    """``pos`` as a 0-d int32 on the card: the keys split by the cache's
+    capacity, as for an int position (granite_8b's grid splits, llava's
+    too), the splits past ``pos`` adding nothing; the output within 2e-2
+    of the plain version and bitwise the int position's; the cache row
+    bitwise the int's; the position itself unchanged; one launch in the
+    cache's regime."""
+    q, k, v, ck, cv, tab = _decode_inputs(cuda, b, s, h, kv, hd, True)
+    int_ck, int_cv = ck.clone(), cv.clone()
+    want_ck, want_cv = ck.clone(), cv.clone()
+    want = decode_attention_ref(q, k, v, want_ck, want_cv, pos, tab)
+    sms = _build.sm_count(cuda.index or 0)
+    at = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    full, _ = split_plan(b, kv, s, sms)
+    key = "split" if full > 1 else "no split"
+    by = decode_attention.launches_by_regime[key]
+    got = decode_attention(q, k, v, ck, cv, at, tab)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_by_regime[key] == by + 1
+    assert int(at) == pos
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert torch.equal(ck, want_ck) and torch.equal(cv, want_cv)
+    by_int = decode_attention(q, k, v, int_ck, int_cv, pos, tab)
+    assert torch.equal(got, by_int)
+    assert torch.equal(int_ck, ck) and torch.equal(int_cv, cv)
+
+
+def test_decode_kernel_refuses_a_wrong_device_position(cuda):
+    """A position tensor off the card, of another dtype or not 0-d is
+    refused before a launch."""
+    q, k, v, ck, cv, tab = _decode_inputs(cuda, 2, 16, 4, 2, 64, True)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(q, k, v, ck, cv, torch.tensor(3, dtype=torch.int32),
+                         tab)
+    for bad in (torch.tensor(3, device=cuda),
+                torch.tensor([3], dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError, match="0-d int32"):
+            decode_attention(q, k, v, ck, cv, bad, tab)
+    assert decode_attention.launches == before
+
+
+def _graph_cfg(kind):
+    """A small dense config whose decode grid fills the card's SMs (one
+    split of the keys), the same at granite_8b's grid of 4 rows x 8 KV
+    heads over a cache of 232 slots (3 splits, the last empty until the
+    position passes 191), and a small Mamba-2 one; (config, batch, prompt
+    lengths)."""
+    if kind.startswith("dense"):
+        cfg = get_config("granite_8b").with_(
+            n_layers=2, d_model=256, n_heads=8, n_kv_heads=4, d_ff=512,
+            vocab=1000)
+        if kind == "dense_split":
+            cfg = cfg.with_(n_heads=16, n_kv_heads=8)
+            return cfg, 4, (200, 120)
+        return cfg, -(-_build.sm_count(0) // cfg.n_kv_heads), (40, 24)
+    cfg = get_config("mamba2_780m").with_(n_layers=2, d_model=256,
+                                          ssm_state=64, ssm_chunk=64,
+                                          vocab=1000)
+    return cfg, 4, (128, 64)
+
+
+def _eager_steps(cfg, params, prompt, max_seq, steps):
+    """Prefill into a fresh cache and ``steps`` greedy decode steps with an
+    int position, on the card: (logits of each step, tokens)."""
+    logits, cache = model_zoo.prefill(cfg, params, prompt, max_seq)
+    out, toks = [], []
+    for _ in range(steps):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks.append(tok.cpu().numpy())
+        logits, cache = model_zoo.decode_step(cfg, params, cache, tok)
+        out.append(logits.clone())
+    return out, np.stack(toks, 1)
+
+
+@pytest.mark.parametrize("kind", ["dense", "dense_split", "ssm"])
+def test_graphed_decode_is_bitwise_the_eager(cuda, kind):
+    """The engine's graphed decode against the eager steps on the card,
+    over 32 steps and two calls of other prompt lengths on the same static
+    cache: every step's logits and every token bitwise equal, with the
+    decode kernel's keys split or not; the launch counters move by what
+    the eager steps move them, by regime too; one capture, the other
+    steps replays."""
+    cfg, b, lengths = _graph_cfg(kind)
+    if kind == "dense_split":
+        assert split_plan(b, cfg.n_kv_heads, max(lengths) + 32,
+                          _build.sm_count(0)) == (3, 96)
+    new = 32
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    scfg = ServeConfig(max_seq=max(lengths) + new, max_new_tokens=new)
+    eng = Engine(cfg, params, scfg, device=cuda)
+    rng = np.random.RandomState(0)
+    for call, s in enumerate(lengths):
+        prompts = rng.randint(0, cfg.vocab, (b, s)).astype(np.int32)
+        dev = torch.from_numpy(prompts).to(cuda)
+        with torch.inference_mode():
+            c0, r0 = _counts(), dict(decode_attention.launches_by_regime)
+            want, want_toks = _eager_steps(cfg, eng.params, dev,
+                                           scfg.max_seq, new)
+            eager = _delta(c0), _regime_delta(r0)
+            c0, r0 = _counts(), dict(decode_attention.launches_by_regime)
+            got_toks = eng.generate(prompts)
+            torch.cuda.synchronize()
+            assert (_delta(c0), _regime_delta(r0)) == eager
+            graph, = eng._graphs.values()
+            assert graph.graph is not None
+            logits, cache = eng._prefill(eng.params, eng.batch(prompts),
+                                         cache=graph.cache)
+            for i in range(new):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                logits, cache = eng._decode(eng.params, cache, tok)
+                assert cache is graph.cache
+                assert torch.equal(logits, want[i]), (call, i)
+        assert np.array_equal(got_toks, want_toks), call
+
+
+def _regime_delta(before):
+    return {k: v - before[k]
+            for k, v in decode_attention.launches_by_regime.items()}
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b"])
+def test_decode_graph_captures_and_replays_without_a_sync(cuda, arch):
+    """The smoke dense, ssm and hybrid engines capture their decode step
+    (a host sync inside it would make the capture raise), and a replay,
+    with its token copy, runs under ``set_sync_debug_mode("error")``;
+    the counter reads one capture, then replays."""
+    from repro_torch.launch import spans
+    from repro_torch.serve.decode_graph import COUNTER
+    cfg = get_config(arch, smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = Engine(cfg, params, ServeConfig(max_seq=40, max_new_tokens=4),
+                 device=cuda)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, (3, 32)).astype(
+        np.int32)
+    spans.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = eng.generate(prompts)
+    assert spans.counters()[COUNTER] == [3, 1, 0]
+    assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab)).all()
+    graph, = eng._graphs.values()
+    tok = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        eng._prefill(eng.params, eng.batch(prompts), cache=graph.cache)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                logits, _ = eng._decode(eng.params, graph.cache, tok)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(graph.cache["pos"]) == 32 + 3
+    assert bool(torch.isfinite(logits[:, :cfg.vocab]).all())
 
 
 # ---------------------------------------------------------------------------
