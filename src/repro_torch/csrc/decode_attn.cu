@@ -1,10 +1,9 @@
 // Decode attention for Hopper (sm_90a), bf16: in one launch per layer and
 // decode step, RoPE on the new token's query and key, the new key and value
 // written into the KV cache at `pos`, and GQA attention of the query over
-// the cache's keys [0, pos]. `pos` is a kernel argument, or a 0-d int32 on
-// the device that the kernel reads (a step captured in a CUDA graph, whose
-// position advances on the device between replays); the two give the same
-// bits.
+// the cache's keys [0, pos]. `pos` is a 0-d int32 on the device that the
+// kernel reads (a step captured in a CUDA graph advances it on the device
+// between replays); no position crosses from the host.
 //
 // Replaces no Pallas kernel: the JAX reference's decode attention
 // (src/repro/models/attention.py: decode_attention, gqa_decode_attend) is
@@ -53,9 +52,9 @@
 //     in place, never copied to a padded layout.
 // The number of key splits comes from the caller (ops.split_plan: the
 // grid's (row, head) pairs against the SM count, and the keys). The plan
-// covers the cache's S slots, wherever `pos` is, so it is the same for a
-// position given as an argument or read on the device; a split whose
-// range starts past `pos` reads no key and writes the neutral partial
+// covers the cache's S slots, wherever `pos` is, so the host plans it
+// without knowing the position; a split whose range starts past `pos`
+// reads no key and writes the neutral partial
 // (max -inf, sum 0, accumulator 0), which adds exactly zero to the
 // combine.
 //
@@ -91,9 +90,8 @@ struct Args {
   const float* sin;
   bf16* out;
   float* work;                   // the splits' partial sums (splits > 1)
-  const int* pos_dev;            // the position on the device, or null
-  int B, H, KV, hd, S, pos, splits, chunk;   // S: the cache's slots; pos:
-                                             // the position (no pos_dev)
+  const int* pos_dev;            // the position, on the device
+  int B, H, KV, hd, S, splits, chunk;        // S: the cache's slots
   float scale;
   long long q_b, q_h, k_b, k_h, v_b, v_h;
   long long ck_b, ck_s, ck_h, cv_b, cv_s, cv_h;
@@ -262,11 +260,8 @@ decode_attn_kernel(const __grid_constant__ Args a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r = lane / Gm::LPR, c = lane % Gm::LPR;
   const int hd = a.hd;
-  int pos = a.pos;
-  if (a.pos_dev != nullptr) {
-    pos = *a.pos_dev;
-    if (pos < 0 || pos >= a.S) __trap();     // past the cache: fail loudly
-  }
+  const int pos = *a.pos_dev;
+  if (pos < 0 || pos >= a.S) __trap();       // past the cache: fail loudly
   const int k0 = split * a.chunk;
   const bool owner = k0 <= pos && pos < k0 + a.chunk;  // this split holds pos
   // cache keys read: [k0, kend), none in a split that starts past pos
@@ -466,10 +461,10 @@ cudaError_t launch_g(const Args& a, int G, cudaStream_t s) {
 extern "C" {
 
 // q, k, v: the new token, [B, 1, H | KV, hd]; ck, cv: the cache [B, S, KV,
-// hd] of S slots, written at the position: `pos`, or where pos_dev is not
-// null the device int32 it points to (`pos` is then not read; the kernel
-// traps on a position outside [0, S)); cos, sin: fp32 [S, hd / 2] RoPE
-// tables (rows up to the position are read), or both null for no RoPE;
+// hd] of S slots, written at the position, the device int32 pos_dev points
+// to (the kernel traps on a position outside [0, S)); cos, sin: fp32
+// [S, hd / 2] RoPE tables (rows up to the position are read), or both null
+// for no RoPE;
 // out [B, 1, H, hd]; work: fp32 scratch of B * KV * splits * (H / KV) *
 // (pad + 2) floats when splits > 1 (pad: 64 for hd <= 64, else 128), else
 // null. The S slots are cut into `splits` ranges of `chunk` keys, each
@@ -480,12 +475,10 @@ extern "C" {
 int decode_attn_bf16(const void* q, const void* k, const void* v, void* ck,
                      void* cv, const void* cos, const void* sin, void* out,
                      void* work, int B, int H, int KV, int hd, int S,
-                     int pos, const void* pos_dev, int splits, int chunk,
-                     float scale,
+                     const void* pos_dev, int splits, int chunk, float scale,
                      const long long* strides, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || H / KV > MAX_G || hd % 8 != 0 ||
-      hd < 8 || hd > 128 || S < 1 ||
-      (pos_dev == nullptr && (pos < 0 || pos >= S)) || splits < 1 ||
+      hd < 8 || hd > 128 || S < 1 || pos_dev == nullptr || splits < 1 ||
       chunk < 1 || (long long)splits * chunk < S ||
       (long long)(splits - 1) * chunk >= S ||
       (splits > 1 && work == nullptr) || ((cos == nullptr) != (sin == nullptr)))
@@ -496,7 +489,7 @@ int decode_attn_bf16(const void* q, const void* k, const void* v, void* ck,
          static_cast<bf16*>(cv), static_cast<const float*>(cos),
          static_cast<const float*>(sin), static_cast<bf16*>(out),
          static_cast<float*>(work), static_cast<const int*>(pos_dev), B, H,
-         KV, hd, S, pos, splits, chunk, scale,
+         KV, hd, S, splits, chunk, scale,
          st[0], st[1], st[2], st[3], st[4], st[5],
          st[6], st[7], st[8], st[9], st[10], st[11],
          st[12], st[13]};

@@ -6,12 +6,12 @@ token's query and key (when a RoPE table is given), the new key and value
 written into the KV cache at ``pos`` in place, and attention of the
 query over the cache's keys [0, pos], GQA without repeating the KV heads.
 On the card that is one launch (two when the keys are split), with
-``pos`` a kernel argument: no host-to-device copy, no synchronisation,
-no fp32 copy of the cache. ``pos`` may also be a 0-d int32 tensor on the
-card, which the kernel reads there (a decode step captured in a CUDA
-graph advances it on the card between replays). Either way the keys are
-split by ``split_plan`` of the cache's capacity, and the splits past
-``pos`` add nothing, so the two give the same bits.
+``pos`` a 0-d int32 tensor on the card that the kernel reads there (a
+decode step captured in a CUDA graph advances it on the card between
+replays): no host-to-device copy, no synchronisation, no fp32 copy of
+the cache. The keys are split by ``split_plan`` of the cache's
+capacity, whatever the position, and the splits past ``pos`` add
+nothing.
 
 The kernel replaces no Pallas kernel: the JAX reference's decode
 attention is plain jnp. ``decode_attention.launches`` counts calls that
@@ -103,7 +103,7 @@ def _scale(hd: int) -> float:
 def _bind(lib):
     if not hasattr(lib, "_decode_fn"):
         fn = lib.decode_attn_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p] + [ctypes.c_int] * 2
                        + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
                           ctypes.c_void_p])
@@ -112,15 +112,16 @@ def _bind(lib):
     return lib._decode_fn
 
 
-def admit(q, k, v, ck, cv, pos: int, rope=None):
-    """Raise ValueError unless the kernel takes these tensors: bfloat16 q
-    [B,1,H,hd], k/v [B,1,KV,hd], cache ck/cv [B,S,KV,hd] with ``pos`` in
-    [0, S); at most ``MAX_GROUP`` query heads a KV head; a head dim
-    ``padded_head_dim`` takes; a unit stride on hd; cache strides
-    multiples of 8 elements and 16-byte aligned cache data (its 16-byte
-    loads); a RoPE table of fp32 contiguous [> pos, hd/2] cos and sin.
-    Returns the 14 element strides the kernel takes. Each property is
-    read once: the check runs at every layer of a decode step."""
+def admit(q, k, v, ck, cv, rope=None):
+    """Raise ValueError unless the kernel takes these tensors at any
+    position of the cache: bfloat16 q [B,1,H,hd], k/v [B,1,KV,hd], cache
+    ck/cv [B,S,KV,hd]; at most ``MAX_GROUP`` query heads a KV head; a
+    head dim ``padded_head_dim`` takes; a unit stride on hd; cache
+    strides multiples of 8 elements and 16-byte aligned cache data (its
+    16-byte loads); a RoPE table of fp32 contiguous [>= S, hd/2] cos and
+    sin. (The kernel traps on a position outside [0, S).) Returns the 14
+    element strides the kernel takes. Each property is read once: the
+    check runs at every layer of a decode step."""
     if not (q.dtype == k.dtype == v.dtype == ck.dtype == cv.dtype
             == torch.bfloat16):
         raise ValueError("decode_attention kernel takes bfloat16 only, got "
@@ -139,9 +140,6 @@ def admit(q, k, v, ck, cv, pos: int, rope=None):
         raise ValueError(f"{h} query heads over {kv} KV heads: the kernel "
                          f"takes whole groups of at most {MAX_GROUP}")
     padded_head_dim(hd)
-    if not 0 <= pos < csh[1]:
-        raise ValueError(f"decode position {pos} outside the cache's "
-                         f"{csh[1]} slots")
     qs, ks, vs, cks, cvs = (q.stride(), k.stride(), v.stride(), ck.stride(),
                             cv.stride())
     if qs[3] != 1 or ks[3] != 1 or vs[3] != 1 or cks[3] != 1 or cvs[3] != 1:
@@ -154,12 +152,12 @@ def admit(q, k, v, ck, cv, pos: int, rope=None):
         cos, sin = rope
         tsh = cos.shape
         if (cos.dtype != torch.float32 or sin.dtype != torch.float32
-                or sin.shape != tsh or len(tsh) != 2 or tsh[0] <= pos
+                or sin.shape != tsh or len(tsh) != 2 or tsh[0] < csh[1]
                 or tsh[1] != hd // 2 or not cos.is_contiguous()
                 or not sin.is_contiguous()):
             raise ValueError(f"RoPE table {tuple(tsh)} {cos.dtype} / "
                              f"{tuple(sin.shape)} {sin.dtype}: needs "
-                             f"contiguous float32 [> {pos}, {hd // 2}]")
+                             f"contiguous float32 [>= {csh[1]}, {hd // 2}]")
     return (qs[0], qs[2], ks[0], ks[2], vs[0], vs[2], *cks[:3], *cvs[:3],
             h * hd, hd)
 
@@ -175,30 +173,28 @@ def decode_attention(q, k, v, ck, cv, pos, rope=None):
     """Attention of the new token over the KV cache, with the cache write.
 
     q [B,1,H,hd], k/v [B,1,KV,hd]: the new token's projections, before
-    RoPE; ck/cv [B,S,KV,hd]: the cache, written in place at ``pos`` (the
-    rotated key and the value); ``pos``: an int, or a 0-d int32 tensor on
-    q's device, read there (module docstring); ``rope``: the (cos, sin)
-    table of ``rope_table``, or None for no RoPE. Returns the attention
-    over keys [0, pos] as [B, 1, H*hd] in q's dtype: the plain version on
-    CPU tensors, the kernel on CUDA tensors (or ValueError)."""
+    RoPE; ck/cv [B,S,KV,hd]: the cache, written in place at ``pos``, a
+    0-d int32 tensor on q's device, read there (module docstring);
+    ``rope``: the (cos, sin) table of ``rope_table``, or None for no
+    RoPE. Returns the attention over keys [0, pos] as [B, 1, H*hd] in
+    q's dtype: the plain version on CPU tensors, the kernel on CUDA
+    tensors (or ValueError)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, ck, cv, pos, rope)
     _build.refuse_grad("decode_attention", (q, k, v),
                        "decode under torch.no_grad or inference_mode")
+    if getattr(pos, "dtype", None) != torch.int32 or pos.dim():
+        raise ValueError("the decode position must be a 0-d int32 tensor "
+                         f"on q's device, got {type(pos).__name__} "
+                         f"{getattr(pos, 'dtype', '')}")
     tabs = () if rope is None else tuple(rope)
-    on_card = torch.is_tensor(pos)
-    others = (k, v, ck, cv, *tabs, *((pos,) if on_card else ()))
+    others = (k, v, ck, cv, *tabs, pos)
     dev = q.get_device()
     if dev < 0 or any(t.get_device() != dev for t in others):
         _build.require_cuda(q, *others)   # raises, naming them
-    if on_card and (pos.dtype != torch.int32 or pos.dim()):
-        raise ValueError(f"a position on the card must be a 0-d int32, got "
-                         f"{pos.dtype} {tuple(pos.shape)}")
     b, _, h, hd = q.shape
     slots, kv = ck.shape[1], ck.shape[2]
-    # admitted for the largest position the kernel may meet: the cache's
-    # last slot when it reads the position on the card
-    strides = admit(q, k, v, ck, cv, slots - 1 if on_card else pos, rope)
+    strides = admit(q, k, v, ck, cv, rope)
     splits, chunk = split_plan(b, kv, slots, _build.sm_count(dev))
     out = torch.empty((b, 1, h * hd), dtype=q.dtype, device=q.device)
     work = (torch.empty(b * kv * splits * (h // kv)
@@ -211,8 +207,7 @@ def decode_attention(q, k, v, ck, cv, pos, rope=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.data_ptr(),
             cv.data_ptr(), cos, sin, out.data_ptr(),
             None if work is None else work.data_ptr(),
-            b, h, kv, hd, slots, 0 if on_card else pos,
-            pos.data_ptr() if on_card else None, splits, chunk, _scale(hd),
+            b, h, kv, hd, slots, pos.data_ptr(), splits, chunk, _scale(hd),
             _strides_arg(strides), _build.stream_ptr(q))
     _build.check(lib, "decode_attn", rc)
     decode_attention.launches += 1

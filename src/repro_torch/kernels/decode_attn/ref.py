@@ -48,13 +48,12 @@ def gqa_decode_attend(q, ck, cv, pos, groups=()):
 
 def decode_attention_ref(q, k, v, ck, cv, pos, rope=None):
     """q [B,1,H,hd], k/v [B,1,KV,hd] (the new token, before RoPE); cache
-    ck/cv [B,S,KV,hd], written in place at ``pos``; ``rope`` the (cos,
-    sin) table [>= pos + 1, hd/2] of ``ops.rope_table``, or None for no
-    RoPE. Returns the attention over keys [0, pos], [B, 1, H*hd] in
-    q's dtype. ``pos`` is an int, or a 0-d integer tensor on the cache's
-    device, gathered and written through there without a host read (the
-    same values)."""
-    at = pos.view(1).long() if torch.is_tensor(pos) else slice(pos, pos + 1)
+    ck/cv [B,S,KV,hd], written in place at ``pos``, a 0-d integer tensor
+    on the cache's device, gathered and written through there without a
+    host read; ``rope`` the (cos, sin) table [>= pos + 1, hd/2] of
+    ``ops.rope_table``, or None for no RoPE. Returns the attention over
+    keys [0, pos], [B, 1, H*hd] in q's dtype."""
+    at = pos.view(1).long()
     if rope is not None:
         c, s = (t[at] for t in rope)
         q, k = apply_rope(q, c, s), apply_rope(k, c, s)

@@ -220,8 +220,9 @@ def placements(spec: Spec, mesh) -> tuple:
 def distribute(tree: PyTree, spec_tree: PyTree, mesh) -> PyTree:
     """``tree``'s tensors as DTensors on ``mesh`` with the placements of
     ``spec_tree``; every rank passes the same full tensors and keeps its
-    shard (no communication). Non-tensor leaves (a cache's ``pos``) and
-    leaves whose spec is None (the optimizer's step) pass through."""
+    shard (no communication); a cache's ``pos`` (spec ``()``) is
+    replicated. Non-tensor leaves and leaves whose spec is None (the
+    optimizer's step) pass through."""
     def one(path, t):
         spec = tree_get(spec_tree, path) if path else spec_tree
         if not isinstance(t, torch.Tensor) or spec is None:

@@ -225,6 +225,12 @@ def init_kv_cache(b: int, s_max: int, n_kv: int, hd: int,
                              device=device)}
 
 
+def init_pos(device=None):
+    """A cache's decode position: a 0-d int32 zero on ``device``, which
+    prefill sets and each decode step advances in place."""
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
 def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
                        n_heads=None, n_kv=None):
     """Run prefill attention AND write k/v into the cache at [0, S)."""
@@ -244,24 +250,21 @@ def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
 def decode_attention(cfg: ModelConfig, params, x, cache, pos, *,
                      n_heads=None, n_kv=None,
                      rope: Optional[bool] = None):
-    """One-token decode: x [B, 1, D]; cache k/v [B, S_max, kv, hd]. RoPE
-    at ``pos`` when ``rope`` (default: the config's ``use_rope``). On one
-    card's cache ``kernels.decode_attn.decode_attention`` rotates, writes
-    and attends, with the RoPE table built once per cache length
-    (``rope_table``) and ``pos`` passed as a plain int, or as the 0-d
-    int32 tensor on the cache's device that a CUDA graph of the step reads
-    (not range-checked here: that would read it back): no host-to-device
-    copy. A DTensor cache takes an int ``pos``, rotates here and goes to
-    ``_decode_sharded``."""
+    """One-token decode: x [B, 1, D]; cache k/v [B, S_max, kv, hd]; ``pos``
+    the cache's position, a 0-d int32 on its device (``init_pos``), read
+    there and never on the host. RoPE at ``pos`` when ``rope`` (default:
+    the config's ``use_rope``). On one card's cache
+    ``kernels.decode_attn.decode_attention`` rotates, writes and attends,
+    with the RoPE table built once per cache length (``rope_table``). A
+    DTensor cache rotates here and goes to ``_decode_sharded``, each rank
+    with its local copy of ``pos``."""
     ck, cv = cache["k"], cache["v"]
-    if not torch.is_tensor(pos) and not 0 <= pos < ck.shape[1]:
-        raise ValueError(f"decode position {pos} outside the cache's "
-                         f"{ck.shape[1]} slots")
     use_rope = cfg.use_rope if rope is None else rope
     if parallel.is_dtensor(ck) or parallel.is_dtensor(x):
+        pos = pos.to_local()        # replicated by the cache specs
         q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
         if use_rope:
-            q, k = _rope_qk(cfg, q, k, torch.tensor([pos], device=x.device))
+            q, k = _rope_qk(cfg, q, k, pos.view(1))
         out = _decode_sharded(q, ck, cv, pos, k, v)
         return out.to(x.dtype) @ params["wo"].to(x.dtype), cache
     q, k, v = _qkv_token(cfg, params, x, n_heads, n_kv)
@@ -283,14 +286,16 @@ def attend_cache(q, ck, cv, pos: int):
     return gqa_decode_attend(q, ck, cv, pos)
 
 
-def _decode_sharded(q, ck, cv, pos: int, k=None, v=None):
-    """Write k/v (when given) at ``pos`` into DTensor caches [B, S, KV,
-    hd] placed by ``launch.sharding.cache_specs`` and attend, on each
-    rank's shards: q, k and v take the cache's batch and kv-head sharding
-    and are replicated over the mesh dims that shard its sequence
-    (split-KV decode). Only the rank whose sequence shard holds ``pos``
-    writes it; ``gqa_decode_attend`` reduces over the groups that split
-    the sequence (none when it is whole)."""
+def _decode_sharded(q, ck, cv, pos, k=None, v=None):
+    """Write k/v (when given) at ``pos`` (a plain 0-d integer tensor on
+    the rank's device; an int for the cross cache's last frame) into
+    DTensor caches [B, S, KV, hd] placed by ``launch.sharding.cache_specs``
+    and attend, on each rank's shards: q, k and v take the cache's batch
+    and kv-head sharding and are replicated over the mesh dims that shard
+    its sequence (split-KV decode). Every rank writes one slot of its
+    shard on the device: the new key where the shard holds ``pos``, else
+    the slot's own value back; ``gqa_decode_attend`` reduces over the
+    groups that split the sequence (none when it is whole)."""
     mesh = ck.device_mesh
     keep = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
                  else Replicate() for p in ck.placements)
@@ -301,11 +306,14 @@ def _decode_sharded(q, ck, cv, pos: int, k=None, v=None):
     groups = [mesh.get_group(d) for d in seq_dims]
 
     def local(q, ck, cv, k, v):
-        off = index * ck.shape[1]
-        if k is not None and off <= pos < off + ck.shape[1]:
-            ck[:, pos - off] = k[:, 0]
-            cv[:, pos - off] = v[:, 0]
-        return gqa_decode_attend(q, ck, cv, pos - off, groups)
+        at = pos - index * ck.shape[1]
+        if k is not None:
+            slot = at.clamp(0, ck.shape[1] - 1).view(1).long()
+            mine = (at >= 0) & (at < ck.shape[1])
+            for c, new in ((ck, k), (cv, v)):
+                c.index_copy_(1, slot, torch.where(mine, new,
+                                                   c.index_select(1, slot)))
+        return gqa_decode_attend(q, ck, cv, at, groups)
 
     kvp = keep if k is not None else None
     return parallel.local_call(local, keep, (keep, ck.placements,

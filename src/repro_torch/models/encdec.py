@@ -31,7 +31,7 @@ import torch
 
 from . import parallel
 from .attention import (attend_cache, attention, decode_attention,
-                        init_attn, init_kv_cache)
+                        init_attn, init_kv_cache, init_pos)
 from .common import (ModelConfig, apply_norm, dense_init, meta_generator,
                      torch_dtype)
 from .lm import (_remat, _run, _stacked, _unstacked, draw_layers,
@@ -169,14 +169,15 @@ def loss_fn(cfg: ModelConfig, params: PyTree,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_t: int,
                device=None) -> PyTree:
     """Layer-stacked self-attention KV [L, B, max_seq, KV, hd] and
-    cross-attention KV [L, B, enc_t, KV, hd] in compute dtype, pos 0."""
+    cross-attention KV [L, B, enc_t, KV, hd] in compute dtype; ``pos`` a
+    0-d int32 zero on ``device`` (``init_pos``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     return {"self": _stacked(init_kv_cache(L * batch, max_seq, kvh, hd, cdt,
                                            device), L, batch),
             "cross": _stacked(init_kv_cache(L * batch, enc_t, kvh, hd, cdt,
                                             device), L, batch),
-            "pos": 0}
+            "pos": init_pos(device)}
 
 
 def _write_cross(cfg: ModelConfig, params: PyTree, cache: PyTree, enc):
@@ -204,32 +205,40 @@ def prime_cross_cache(cfg: ModelConfig, params: PyTree, cache: PyTree,
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens, frames,
-            max_seq: int) -> Tuple[torch.Tensor, PyTree]:
+            max_seq: int, cache: PyTree = None) -> Tuple[torch.Tensor,
+                                                      PyTree]:
     """The reference's audio prefill (``repro/models/model_zoo.py:56-65``)
-    -> (last-position logits [B,Vp], cache). It primes only the cross
-    cache: the self-attention cache stays zero and ``pos`` stays 0, so
-    decoded tokens do not attend to the prompt (a reference decision,
-    copied). The reference runs the encoder twice (once to prime, once in
+    -> (last-position logits [B,Vp], cache), into a fresh cache or into
+    ``cache`` (``init_cache``'s layout for this batch and frame count) in
+    place. It primes only the cross cache, rewritten whole: ``pos`` is set
+    to 0, so decoded tokens do not attend to the prompt (a reference
+    decision, copied), and a self-attention slot is written by a decode
+    step before it is read, so a reused cache leaks nothing. The
+    reference runs the encoder twice (once to prime, once in
     ``forward``); this runs it once and feeds both, the same function of
     the same inputs."""
     enc = encode(cfg, params, frames)
     b = tokens.shape[0]
-    cache = fresh_cache(cfg, lambda dev: init_cache(
-        cfg, b, max_seq, enc.shape[1], device=dev), b, params["embed"])
+    if cache is None:
+        cache = fresh_cache(cfg, lambda dev: init_cache(
+            cfg, b, max_seq, enc.shape[1], device=dev), b, params["embed"])
     _write_cross(cfg, params, cache, enc)
+    cache["pos"].fill_(0)
     x = _decoder(cfg, params, tokens, enc)
     return _unembed(params, x[:, -1]), cache
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
                 tokens) -> Tuple[torch.Tensor, PyTree]:
-    """tokens [B] -> (logits [B,Vp], cache advanced by one position): the
-    self-attention cache is written in place at ``pos``; cross-attention
+    """tokens [B] -> (logits [B,Vp], the same cache, advanced by one
+    position): the self-attention cache is written in place at ``pos``,
+    whose ``dec_pos`` row is gathered on its device; cross-attention
     reads every primed encoder frame."""
     cdt = torch_dtype(cfg.compute_dtype)
     pos = cache["pos"]
     x = (parallel.gather_rows(params["embed"], tokens.long()).to(cdt)
-         + params["dec_pos"][pos].to(cdt))[:, None, :]
+         + parallel.gather_rows(params["dec_pos"], pos.view(1).long()).to(
+             cdt))[:, None, :]
     b = x.shape[0]
     for i in range(cfg.n_layers):
         lp = layer_params(params["decoder"], i)
@@ -247,4 +256,6 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
         h = apply_norm(cfg, x, lp["ffn_norm"])
         x = x + parallel.like(mlp(cfg, lp["mlp"], h), x)
     x = apply_norm(cfg, x, params["final_norm"])
-    return _unembed(params, x[:, 0]), {**cache, "pos": pos + 1}
+    logits = _unembed(params, x[:, 0])
+    pos.add_(1)
+    return logits, cache

@@ -60,7 +60,7 @@ from torch.utils.checkpoint import (checkpoint,
 from ..launch.spans import span
 from . import parallel
 from .attention import (attention, decode_attention, init_attn,
-                        init_kv_cache, prefill_into_cache)
+                        init_kv_cache, init_pos, prefill_into_cache)
 from .common import (ModelConfig, apply_norm, dense_init, meta_generator,
                      torch_dtype, tree_get, tree_leaves, tree_map)
 from .mlp import init_mlp, init_moe, mlp, moe
@@ -427,15 +427,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dense, moe and vlm: KV [L, B, max_seq, KV, hd]; ssm: the Mamba-2 cache
     [L, B, ...]; hybrid: the Mamba-2 cache per layer plus the shared
     block's KV with ONE slot per invocation, ceil(L / attn_every) slots,
-    as the reference lays it out."""
+    as the reference lays it out. ``pos``, the next decode position, is a
+    0-d int32 on ``device`` (``init_pos``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     L = cfg.n_layers
     if not cfg.is_ssm_family:
         kv = init_kv_cache(L * batch, max_seq, cfg.n_kv_heads, cfg.hd, cdt,
                            device)
-        return {"layers": _stacked(kv, L, batch), "pos": 0}
+        return {"layers": _stacked(kv, L, batch), "pos": init_pos(device)}
     ssm = init_ssm_cache(cfg, L * batch, cdt, device)
-    cache = {"layers": _stacked(ssm, L, batch), "pos": 0}
+    cache = {"layers": _stacked(ssm, L, batch), "pos": init_pos(device)}
     if cfg.family == "hybrid":
         n_slots = max(1, (L + cfg.attn_every - 1) // cfg.attn_every)
         kv = init_kv_cache(n_slots * batch, max_seq, cfg.n_kv_heads, cfg.hd,
@@ -465,7 +466,7 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
     slots [0, S) and the Mamba-2 state and conv buffers are overwritten
     whole, and the KV slots past S take no part in attention until a
     decode step writes them, so a reused cache leaks nothing of its last
-    prompt. A ``pos`` held as a tensor is set in place (``fill_``)."""
+    prompt. ``pos`` is set to S in place."""
     b, s = tokens.shape
     if cache is None:
         cache = fresh_cache(cfg, lambda dev: init_cache(cfg, b, max_seq,
@@ -493,20 +494,17 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
         with span(_ffn_span(lp)):
             h = apply_norm(cfg, x, lp["ffn_norm"])
             x = x + parallel.like(_ffn(cfg, lp, h), x)
-    if torch.is_tensor(cache["pos"]):
-        cache["pos"].fill_(s)
-    else:
-        cache["pos"] = s
+    cache["pos"].fill_(s)
     return _unembed(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
                 tokens) -> Tuple[torch.Tensor, PyTree]:
-    """tokens [B] -> (logits [B,Vp], cache advanced by one position). One
-    token for the whole batch; the cache tensors are written in place. A
-    ``pos`` held as a 0-d tensor on the card (the serving engine's CUDA
-    graph) is read there and advanced in place, so the step makes no host
-    read and a replay of it moves to the next position."""
+    """tokens [B] -> (logits [B,Vp], the same cache, advanced by one
+    position). One token for the whole batch; the cache tensors are
+    written in place, and ``pos`` is read on its device and advanced in
+    place, so the step makes no host read and a replay of it (the serving
+    engine's CUDA graph) moves to the next position."""
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)[:, None, :]
     shared = params.get("shared_attn")
@@ -530,7 +528,5 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
             h = apply_norm(cfg, x, lp["ffn_norm"])
             x = x + parallel.like(_ffn(cfg, lp, h), x)
     logits = _unembed(cfg, params, x)[:, 0, :]
-    if torch.is_tensor(pos):
-        pos.add_(1)
-        return logits, cache
-    return logits, {**cache, "pos": pos + 1}
+    pos.add_(1)
+    return logits, cache

@@ -63,17 +63,14 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
             frames=None, cache: PyTree = None):
     """(last-position logits, cache). ``frames`` [B, T, D] is the audio
     family's encoder input (``encdec.prefill``: the cross cache primed,
-    the self cache empty at pos 0) and is refused for the others.
-    ``cache``, for the decoder-only families, is filled in place instead
-    of a fresh one (``lm.prefill``)."""
+    pos 0) and is refused for the others. ``cache``, an earlier prefill's
+    cache of this batch, is filled in place instead of a fresh one
+    (``lm.prefill``, ``encdec.prefill``)."""
     if cfg.family == "audio":
         if frames is None:
             raise ValueError(f"{cfg.arch_id}: the audio family's prefill "
                              "needs frames")
-        if cache is not None:
-            raise ValueError(f"{cfg.arch_id}: the audio family's prefill "
-                             "makes its own cache")
-        return encdec.prefill(cfg, params, tokens, frames, max_seq)
+        return encdec.prefill(cfg, params, tokens, frames, max_seq, cache)
     if frames is not None:
         raise ValueError(f"{cfg.arch_id}: frames are the audio family's "
                          f"input, not the {cfg.family!r} family's")

@@ -1,13 +1,13 @@
 """One decode step captured as a CUDA graph and replayed, for the serving
 engine (``engine.Engine``).
 
-A ``DecodeGraph`` owns what the graph reads and writes at fixed
-addresses: a static cache for one (batch, max_seq), whose ``pos`` is a
-0-d int32 tensor on the card (the decode attention kernel reads it there
-and the step advances it in place), the token buffer the step reads, and
-the logits it writes. Its first call runs the step eagerly on a side
-stream (the warm-up: kernels built, the RoPE table made, cuBLAS set up on
-that stream; that call's logits are the warm-up's) and then captures the
+A ``DecodeGraph`` holds what the graph reads and writes at fixed
+addresses: the engine's cache of one batch (its ``pos`` a 0-d int32 on
+the card, which the decode attention kernel reads there and the step
+advances in place), the token buffer the step reads, and the logits it
+writes. Its first call runs the step eagerly on a side stream (the
+warm-up: kernels built, the RoPE table made, cuBLAS set up on that
+stream; that call's logits are the warm-up's) and then captures the
 same step, ``model_zoo.decode_step`` unchanged, on that stream; capture
 runs nothing on the card. Every later call copies the token in and
 replays the graph: one launch on the host for the step's kernels.
@@ -31,34 +31,29 @@ import torch
 
 from ..kernels import counters
 from ..launch import spans
-from ..models import model_zoo
-from ..models.common import ModelConfig
 
 COUNTER = "engine.decode_graph"
 
 
 class DecodeGraph:
     """``step(params, cache, tok)`` (``launch.steps.make_decode_step``) on
-    ``params`` over a static cache of ``batch`` rows and ``max_seq``
-    positions on CUDA ``device``, captured at the first call and replayed
-    at the others (module docstring)."""
+    ``params`` over ``cache``, a CUDA cache the engine prefills between
+    calls, captured at the first call and replayed at the others (module
+    docstring)."""
 
-    def __init__(self, cfg: ModelConfig, step: Callable, params, batch: int,
-                 max_seq: int, device):
-        self.step, self.params = step, params
-        self.cache = model_zoo.init_cache(cfg, batch, max_seq, device=device)
-        self.cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
-        self.tok = torch.zeros((batch,), dtype=torch.int32, device=device)
-        self.graph = self.logits = self.moved = None
+    def __init__(self, step: Callable, params, cache):
+        self.step, self.params, self.cache = step, params, cache
+        self.graph = self.tok = self.logits = self.moved = None
 
     def __call__(self, tok):
-        """(logits, cache) of the decode step of ``tok`` [B] at the static
-        cache's ``pos``; the logits are the graph's own buffer, rewritten
-        by the next call."""
-        self.tok.copy_(tok)
+        """(logits, cache) of the decode step of ``tok`` [B] at the cache's
+        ``pos``; the logits are the graph's own buffer, rewritten by the
+        next call."""
         if self.graph is None:
+            self.tok = tok.clone()
             spans.count(COUNTER, [0, 1, 0])
             return self._capture(), self.cache
+        self.tok.copy_(tok)
         self.graph.replay()
         counters.add(self.moved)
         spans.count(COUNTER, [1, 0, 0])

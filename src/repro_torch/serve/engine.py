@@ -12,16 +12,18 @@ The engine runs on ``device`` ("cuda" unless the caller asks for
 the compute dtype once, here, which gives the values the reference's
 per-use ``.astype`` gives without streaming fp32 weights at every step.
 
-Where ``model_zoo.decode_graph_ok`` allows (CUDA, no grad, no DTensor,
-the dense, ssm and hybrid families), the engine keeps one static cache
-per (batch, max_seq), prefills into it, and replays each decode step from
-a CUDA graph of it (``decode_graph.DecodeGraph``, captured at the first
-step); the same kernels run in the same order on the same data (the
-decode attention kernel splits the keys by the cache's capacity whether
-it reads ``pos`` on the card or as an int), so the tokens are the eager
-path's, bit for bit. Elsewhere each call prefills a fresh cache
-and runs every step eagerly. A replay runs no Python of the model, so it
-opens no ``model.*`` span.
+The engine keeps one cache per (batch, max_seq), the one its first
+prefill of that batch made, and prefills every later call into it (a
+prefill rewrites what the next decode steps read, so nothing leaks from
+call to call). Its ``pos`` is a 0-d int32 on the cache's device, read
+there by the decode step and advanced in place. Where
+``model_zoo.decode_graph_ok`` allows (CUDA, no grad, no DTensor, the
+dense, ssm and hybrid families), each decode step on that cache is
+replayed from a CUDA graph of it (``decode_graph.DecodeGraph``, captured
+at the first step); the same kernels run in the same order on the same
+data, so the tokens are the eager step's, bit for bit. Elsewhere every
+step runs eagerly on the same cache. A replay runs no Python of the
+model, so it opens no ``model.*`` span.
 """
 from __future__ import annotations
 
@@ -77,7 +79,8 @@ class Engine:
                                  if keeps_fp32(path) else cdt), params)
         self._prefill = steps_lib.make_prefill_step(cfg, self.scfg.max_seq)
         self._step = steps_lib.make_decode_step(cfg)
-        self._graphs = {}       # (batch, max_seq) -> DecodeGraph
+        self._caches = {}       # (batch, max_seq) -> the kept cache
+        self._graphs = {}       # (batch, max_seq) -> DecodeGraph or None
 
     def batch(self, prompts: np.ndarray,
               frames: Optional[np.ndarray] = None) -> dict:
@@ -110,13 +113,14 @@ class Engine:
             raise ValueError(
                 f"prompt {s} + {scfg.max_new_tokens} new tokens exceeds "
                 f"max_seq {scfg.max_seq}")
-        graph = self._graph(b)
+        key = (b, scfg.max_seq)
         with span("engine.generate"), contextlib.ExitStack() as first:
             first.enter_context(span("engine.first_token"))
             with span("engine.prefill"):
                 logits, cache = self._prefill(
                     self.params, self.batch(prompts, frames),
-                    cache=None if graph is None else graph.cache)
+                    cache=self._caches.get(key))
+            self._caches[key] = cache
 
             gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
             out = np.zeros((b, scfg.max_new_tokens), np.int32)
@@ -139,26 +143,21 @@ class Engine:
                     tok = self._sample(logits, gen)
         return out
 
-    def _graph(self, b: int) -> Optional[DecodeGraph]:
-        """The decode graph of batch ``b`` (made at the first call), or
-        None where the steps run eagerly (``model_zoo.decode_graph_ok``)."""
-        if not model_zoo.decode_graph_ok(self.cfg, self.params):
-            return None
-        key = (b, self.scfg.max_seq)
-        if key not in self._graphs:
-            self._graphs[key] = DecodeGraph(self.cfg, self._step, self.params,
-                                            b, self.scfg.max_seq, self.device)
-        return self._graphs[key]
-
     def _decode(self, params, cache, tok):
-        """One decode step -> (logits, cache): replayed from the decode
-        graph whose static cache ``cache`` is, else run eagerly."""
-        graph = self._graphs.get((tok.shape[0], self.scfg.max_seq))
-        if graph is not None and cache is graph.cache and (
-                params is graph.params):
-            return graph(tok)
-        spans.count(COUNTER, [0, 0, 1])
-        return self._step(params, cache, tok)
+        """One decode step on ``cache``, the one ``_prefill`` returned for
+        this batch -> (logits, cache): replayed from the batch's decode
+        graph (captured at its first step) where
+        ``model_zoo.decode_graph_ok`` holds, else run eagerly."""
+        key = (tok.shape[0], self.scfg.max_seq)
+        if key not in self._graphs:
+            self._graphs[key] = (
+                DecodeGraph(self._step, params, cache)
+                if model_zoo.decode_graph_ok(self.cfg, params) else None)
+        graph = self._graphs[key]
+        if graph is None:
+            spans.count(COUNTER, [0, 0, 1])
+            return self._step(params, cache, tok)
+        return graph(tok)
 
     def _sample(self, logits, gen: torch.Generator):
         if self.scfg.temperature <= 0.0:

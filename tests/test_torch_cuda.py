@@ -349,6 +349,11 @@ DECODE_SHAPES = [
 ]
 
 
+def _at(cuda, pos):
+    """A decode position as the caches hold it: a 0-d int32 on the card."""
+    return torch.tensor(pos, dtype=torch.int32, device=cuda)
+
+
 def _decode_inputs(cuda, b, s, h, kv, hd, rope, seed=0):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q = _randn(gen, b, 1, h, hd)
@@ -369,6 +374,7 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd, pos, rope):
     other slot untouched; one launch counted in its regime, the split
     plan of the cache's capacity."""
     q, k, v, ck, cv, tab = _decode_inputs(cuda, b, s, h, kv, hd, rope)
+    pos = _at(cuda, pos)
     want_ck, want_cv = ck.clone(), cv.clone()
     want = decode_attention_ref(q, k, v, want_ck, want_cv, pos, tab)
     splits, _ = split_plan(b, kv, s, _build.sm_count(cuda.index or 0))
@@ -399,6 +405,7 @@ def test_decode_kernel_is_deterministic(cuda, b, s, h, kv, hd, pos):
     """Two calls on equal inputs give bitwise equal outputs and caches,
     split or not."""
     q, k, v, ck, cv, tab = _decode_inputs(cuda, b, s, h, kv, hd, True)
+    pos = _at(cuda, pos)
     ck2, cv2 = ck.clone(), cv.clone()
     y = decode_attention(q, k, v, ck, cv, pos, tab)
     y2 = decode_attention(q, k, v, ck2, cv2, pos, tab)
@@ -421,30 +428,33 @@ def test_decode_kernel_raises_for_unsupported_input(cuda):
     off the multiples of 8, a RoPE table off the card and a query that
     needs a gradient are refused before a launch."""
     q, k, v, ck, cv, tab = _decode_inputs(cuda, 2, 16, 4, 2, 64, True)
+    at = _at(cuda, 3)
     before = decode_attention.launches
     with pytest.raises(ValueError, match="bfloat16"):
-        decode_attention(q.float(), k, v, ck, cv, 3, tab)
+        decode_attention(q.float(), k, v, ck, cv, at, tab)
     q9 = torch.zeros(2, 1, 18, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="whole groups"):
-        decode_attention(q9, k, v, ck, cv, 3, tab)
+        decode_attention(q9, k, v, ck, cv, at, tab)
     for hd in (136, 20):
         t = torch.zeros(2, 1, 2, hd, dtype=torch.bfloat16, device=cuda)
         c = torch.zeros(2, 16, 2, hd, dtype=torch.bfloat16, device=cuda)
         with pytest.raises(ValueError, match="head dim"):
-            decode_attention(t, t, t, c, c, 3)
+            decode_attention(t, t, t, c, c, at)
     with pytest.raises(ValueError, match="CUDA"):
-        decode_attention(q, k, v, ck, cv, 3, tuple(t.cpu() for t in tab))
+        decode_attention(q, k, v, ck, cv, at, tuple(t.cpu() for t in tab))
     with pytest.raises(NotImplementedError, match="no backward"):
-        decode_attention(q.requires_grad_(), k, v, ck, cv, 3, tab)
+        decode_attention(q.requires_grad_(), k, v, ck, cv, at, tab)
     assert decode_attention.launches == before
 
 
 def test_decode_attention_sublayer_makes_no_sync(cuda):
     """A decode step's attention sublayer on one card (projections, the
     kernel, the output projection) makes no host-to-device copy and no
-    stream synchronisation: it runs under ``set_sync_debug_mode("error")``,
-    which raises on the per-step ``torch.tensor([pos])`` copy the torch
-    path made. The first call builds the RoPE table and is left out."""
+    stream synchronisation, with the position read on the card and
+    advanced there as a decode step does: it runs under
+    ``set_sync_debug_mode("error")``, which raises on the per-step
+    ``torch.tensor([pos])`` copy the torch path made. The first call
+    builds the RoPE table and is left out."""
     cfg = get_config("olmo_1b", smoke=True)
     gen = torch.Generator().manual_seed(0)
     params = tree_map(lambda _, t: t.to(cuda), attention.init_attn(
@@ -453,20 +463,23 @@ def test_decode_attention_sublayer_makes_no_sync(cuda):
                                     device=cuda)
     x = torch.randn((4, 1, cfg.d_model), generator=gen).to(
         device=cuda, dtype=torch.bfloat16)
+    pos = _at(cuda, 3)
     with torch.inference_mode():
-        attention.decode_attention(cfg, params, x, cache, 3)
+        attention.decode_attention(cfg, params, x, cache, pos)
+        pos.add_(1)
         torch.cuda.synchronize()
         before = decode_attention.launches
         torch.cuda.set_sync_debug_mode("error")
         try:
-            for pos in (4, 5, 6):
+            for _ in range(3):
                 y, _ = attention.decode_attention(cfg, params, x, cache, pos)
+                pos.add_(1)
             with pytest.raises(RuntimeError):
                 torch.tensor([7], device=cuda)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 3
+    assert decode_attention.launches == before + 3 and int(pos) == 7
     assert y.shape == (4, 1, cfg.d_model) and bool(torch.isfinite(y).all())
 
 
@@ -557,17 +570,15 @@ def test_mamba2_card_path_matches_cpu_path(cuda):
 def test_decode_kernel_reads_its_position_on_the_card(cuda, b, s, h, kv, hd,
                                                       pos):
     """``pos`` as a 0-d int32 on the card: the keys split by the cache's
-    capacity, as for an int position (granite_8b's grid splits, llava's
-    too), the splits past ``pos`` adding nothing; the output within 2e-2
-    of the plain version and bitwise the int position's; the cache row
-    bitwise the int's; the position itself unchanged; one launch in the
-    cache's regime."""
+    capacity (granite_8b's grid splits, llava's too), the splits past
+    ``pos`` adding nothing; the output within 2e-2 of the plain version;
+    the cache row bitwise the plain version's; the position itself
+    unchanged; one launch in the cache's regime."""
     q, k, v, ck, cv, tab = _decode_inputs(cuda, b, s, h, kv, hd, True)
-    int_ck, int_cv = ck.clone(), cv.clone()
+    at = _at(cuda, pos)
     want_ck, want_cv = ck.clone(), cv.clone()
-    want = decode_attention_ref(q, k, v, want_ck, want_cv, pos, tab)
+    want = decode_attention_ref(q, k, v, want_ck, want_cv, at, tab)
     sms = _build.sm_count(cuda.index or 0)
-    at = torch.tensor(pos, dtype=torch.int32, device=cuda)
     full, _ = split_plan(b, kv, s, sms)
     key = "split" if full > 1 else "no split"
     by = decode_attention.launches_by_regime[key]
@@ -577,20 +588,17 @@ def test_decode_kernel_reads_its_position_on_the_card(cuda, b, s, h, kv, hd,
     assert int(at) == pos
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     assert torch.equal(ck, want_ck) and torch.equal(cv, want_cv)
-    by_int = decode_attention(q, k, v, int_ck, int_cv, pos, tab)
-    assert torch.equal(got, by_int)
-    assert torch.equal(int_ck, ck) and torch.equal(int_cv, cv)
 
 
 def test_decode_kernel_refuses_a_wrong_device_position(cuda):
-    """A position tensor off the card, of another dtype or not 0-d is
-    refused before a launch."""
+    """A position that is an int, a tensor off the card, of another dtype
+    or not 0-d is refused before a launch."""
     q, k, v, ck, cv, tab = _decode_inputs(cuda, 2, 16, 4, 2, 64, True)
     before = decode_attention.launches
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention(q, k, v, ck, cv, torch.tensor(3, dtype=torch.int32),
                          tab)
-    for bad in (torch.tensor(3, device=cuda),
+    for bad in (3, torch.tensor(3, device=cuda),
                 torch.tensor([3], dtype=torch.int32, device=cuda)):
         with pytest.raises(ValueError, match="0-d int32"):
             decode_attention(q, k, v, ck, cv, bad, tab)
@@ -618,8 +626,8 @@ def _graph_cfg(kind):
 
 
 def _eager_steps(cfg, params, prompt, max_seq, steps):
-    """Prefill into a fresh cache and ``steps`` greedy decode steps with an
-    int position, on the card: (logits of each step, tokens)."""
+    """Prefill into a fresh cache of its own and ``steps`` greedy decode
+    steps run eagerly, on the card: (logits of each step, tokens)."""
     logits, cache = model_zoo.prefill(cfg, params, prompt, max_seq)
     out, toks = [], []
     for _ in range(steps):
@@ -630,14 +638,28 @@ def _eager_steps(cfg, params, prompt, max_seq, steps):
     return out, np.stack(toks, 1)
 
 
+def _recorded(eng):
+    """The logits of every ``eng._decode`` call, copied as it returns
+    (a replay rewrites the graph's buffer at the next step)."""
+    seen, decode = [], eng._decode
+
+    def spy(params, cache, tok):
+        logits, cache = decode(params, cache, tok)
+        seen.append(logits.clone())
+        return logits, cache
+
+    eng._decode = spy
+    return seen
+
+
 @pytest.mark.parametrize("kind", ["dense", "dense_split", "ssm"])
 def test_graphed_decode_is_bitwise_the_eager(cuda, kind):
-    """The engine's graphed decode against the eager steps on the card,
-    over 32 steps and two calls of other prompt lengths on the same static
-    cache: every step's logits and every token bitwise equal, with the
-    decode kernel's keys split or not; the launch counters move by what
-    the eager steps move them, by regime too; one capture, the other
-    steps replays."""
+    """The engine's graphed decode against ``model_zoo``'s eager steps on
+    a cache of their own on the card, over 32 steps and two calls of
+    other prompt lengths on the engine's kept cache: every step's logits
+    and every token bitwise equal, with the decode kernel's keys split or
+    not; the launch counters move by what the eager steps move them, by
+    regime too; one capture, the other steps replays."""
     cfg, b, lengths = _graph_cfg(kind)
     if kind == "dense_split":
         assert split_plan(b, cfg.n_kv_heads, max(lengths) + 32,
@@ -646,6 +668,7 @@ def test_graphed_decode_is_bitwise_the_eager(cuda, kind):
     params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
     scfg = ServeConfig(max_seq=max(lengths) + new, max_new_tokens=new)
     eng = Engine(cfg, params, scfg, device=cuda)
+    seen = _recorded(eng)
     rng = np.random.RandomState(0)
     for call, s in enumerate(lengths):
         prompts = rng.randint(0, cfg.vocab, (b, s)).astype(np.int32)
@@ -656,18 +679,16 @@ def test_graphed_decode_is_bitwise_the_eager(cuda, kind):
                                            scfg.max_seq, new)
             eager = _delta(c0), _regime_delta(r0)
             c0, r0 = _counts(), dict(decode_attention.launches_by_regime)
+            seen.clear()
             got_toks = eng.generate(prompts)
             torch.cuda.synchronize()
             assert (_delta(c0), _regime_delta(r0)) == eager
-            graph, = eng._graphs.values()
-            assert graph.graph is not None
-            logits, cache = eng._prefill(eng.params, eng.batch(prompts),
-                                         cache=graph.cache)
-            for i in range(new):
-                tok = torch.argmax(logits, -1).to(torch.int32)
-                logits, cache = eng._decode(eng.params, cache, tok)
-                assert cache is graph.cache
-                assert torch.equal(logits, want[i]), (call, i)
+        graph, = eng._graphs.values()
+        assert graph.graph is not None
+        assert graph.cache is eng._caches[(b, scfg.max_seq)]
+        assert len(seen) == new
+        for i in range(new):
+            assert torch.equal(seen[i], want[i]), (call, i)
         assert np.array_equal(got_toks, want_toks), call
 
 
@@ -679,9 +700,10 @@ def _regime_delta(before):
 @pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b"])
 def test_decode_graph_captures_and_replays_without_a_sync(cuda, arch):
     """The smoke dense, ssm and hybrid engines capture their decode step
-    (a host sync inside it would make the capture raise), and a replay,
-    with its token copy, runs under ``set_sync_debug_mode("error")``;
-    the counter reads one capture, then replays."""
+    (a host sync inside it would make the capture raise), and a replay on
+    the engine's kept cache, with its token copy, runs under
+    ``set_sync_debug_mode("error")``; the counter reads one capture, then
+    replays."""
     from repro_torch.launch import spans
     from repro_torch.serve.decode_graph import COUNTER
     cfg = get_config(arch, smoke=True)
@@ -696,19 +718,20 @@ def test_decode_graph_captures_and_replays_without_a_sync(cuda, arch):
         out = eng.generate(prompts)
     assert spans.counters()[COUNTER] == [3, 1, 0]
     assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab)).all()
-    graph, = eng._graphs.values()
+    cache = eng._caches[(3, 40)]
+    assert eng._graphs[(3, 40)].cache is cache
     tok = torch.zeros(3, dtype=torch.int32, device=cuda)
     with torch.inference_mode():
-        eng._prefill(eng.params, eng.batch(prompts), cache=graph.cache)
+        eng._prefill(eng.params, eng.batch(prompts), cache=cache)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             for _ in range(3):
-                logits, _ = eng._decode(eng.params, graph.cache, tok)
+                logits, _ = eng._decode(eng.params, cache, tok)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert int(graph.cache["pos"]) == 32 + 3
+    assert int(cache["pos"]) == 32 + 3
     assert bool(torch.isfinite(logits[:, :cfg.vocab]).all())
 
 

@@ -55,8 +55,8 @@ def _torch_path(cfg, q, k, v, ck, cv, pos, rope):
 def test_decode_op_cpu_path_is_the_torch_path(b, s, h, kv, hd, pos, rope,
                                               dtype):
     """On CPU tensors the op takes the plain path, whose output and cache
-    writes are bitwise the models' former torch path, and launches
-    nothing."""
+    writes at a 0-d int32 position are bitwise the models' former torch
+    path at the int, and launches nothing."""
     cfg = get_config("granite_8b").with_(n_heads=h, n_kv_heads=kv,
                                          head_dim=hd)
     assert cfg.hd == hd
@@ -64,8 +64,10 @@ def test_decode_op_cpu_path_is_the_torch_path(b, s, h, kv, hd, pos, rope,
     want_ck, want_cv = ck.clone(), cv.clone()
     want = _torch_path(cfg, q, k, v, want_ck, want_cv, pos, rope)
     before = dict(decode_attention.launches_by_regime)
-    got = decode_attention(q, k, v, ck, cv, pos,
+    at = torch.tensor(pos, dtype=torch.int32)
+    got = decode_attention(q, k, v, ck, cv, at,
                            rope_table(cfg, s, "cpu") if rope else None)
+    assert int(at) == pos
     assert decode_attention.launches == 0
     assert decode_attention.launches_by_regime == before
     assert got.shape == (b, 1, h * hd) and got.dtype == dtype
@@ -75,8 +77,8 @@ def test_decode_op_cpu_path_is_the_torch_path(b, s, h, kv, hd, pos, rope,
 
 def test_model_decode_attention_goes_through_the_op(monkeypatch):
     """``models.attention.decode_attention`` hands one card's cache to the
-    op, with the RoPE table of the cache's length, and no table when
-    ``rope`` is off (whisper's decoder)."""
+    op, with the position tensor as it is, the RoPE table of the cache's
+    length, and no table when ``rope`` is off (whisper's decoder)."""
     cfg = get_config("olmo_1b", smoke=True)
     params = attention.init_attn(cfg, torch.Generator().manual_seed(0),
                                  dtype=torch.bfloat16)
@@ -89,10 +91,12 @@ def test_model_decode_attention_goes_through_the_op(monkeypatch):
         return decode_attention_ref(q, k, v, ck, cv, pos, rope)
 
     monkeypatch.setattr(attention.decode_kernel, "decode_attention", spy)
-    attention.decode_attention(cfg, params, x, cache, 5)
-    attention.decode_attention(cfg, params, x, cache, 6, rope=False)
+    at = [torch.tensor(p, dtype=torch.int32) for p in (5, 6)]
+    attention.decode_attention(cfg, params, x, cache, at[0])
+    attention.decode_attention(cfg, params, x, cache, at[1], rope=False)
     (p0, tab), (p1, none) = seen
-    assert (p0, p1, none) == (5, 6, None)
+    assert p0 is at[0] and p1 is at[1] and none is None
+    assert (int(p0), int(p1)) == (5, 6)
     assert tab is rope_table(cfg, 12, "cpu")
     assert tab[0].shape == (12, cfg.hd // 2)
 
@@ -167,7 +171,6 @@ def _bf16(*shape):
     ("gqa_3_over_2", "whole groups"),
     ("head_dim_136", "head dim"),
     ("head_dim_20", "head dim"),
-    ("pos_past_cache", "outside"),
     ("cache_stride", "strides a multiple of 8"),
     ("misaligned_cache", "aligned"),
     ("kv_shape", "shape mismatch"),
@@ -175,8 +178,9 @@ def _bf16(*shape):
     ("rope_float64", "RoPE table"),
 ])
 def test_decode_admission_rejects(case, match):
-    """What the kernel cannot take is refused before a launch."""
-    h, kv, hd, s, pos = 4, 2, 64, 16, 3
+    """What the kernel cannot take is refused before a launch; its RoPE
+    table must cover every slot of the cache."""
+    h, kv, hd, s = 4, 2, 64, 16
     if case == "group_9":
         h, kv = 9, 1
     elif case == "gqa_3_over_2":
@@ -189,8 +193,6 @@ def test_decode_admission_rejects(case, match):
     rope = (torch.zeros(s, hd // 2), torch.zeros(s, hd // 2))
     if case == "float32":
         q = q.float()
-    elif case == "pos_past_cache":
-        pos = s
     elif case == "cache_stride":
         ck = _bf16(2, s, kv, hd + 4)[..., :hd]
     elif case == "misaligned_cache":
@@ -198,8 +200,8 @@ def test_decode_admission_rejects(case, match):
     elif case == "kv_shape":
         v = _bf16(2, 1, kv + 1, hd)
     elif case == "rope_short":
-        rope = (rope[0][:pos], rope[1][:pos])
+        rope = (rope[0][:s - 1], rope[1][:s - 1])
     elif case == "rope_float64":
         rope = tuple(t.double() for t in rope)
     with pytest.raises(ValueError, match=match):
-        decode_ops.admit(q, k, v, ck, cv, pos, rope)
+        decode_ops.admit(q, k, v, ck, cv, rope)

@@ -1,8 +1,10 @@
-"""The serving engine's decode graph on the CPU (``serve/decode_graph.py``):
-the rule that picks it, the CPU engine staying eager, the decode position
-as a 0-d tensor giving the int path's bits, the static cache reused
-across calls leaking nothing, and the launch counters' bookkeeping. The
-capture and replay themselves run on the card (tests/test_torch_cuda.py).
+"""The serving engine's cache and decode graph on the CPU
+(``serve/engine.py``, ``serve/decode_graph.py``): the rule that picks the
+graph, the CPU engine staying eager on the one cache it keeps, the cache's
+position as a 0-d int32 on its device advanced in place, the kept cache
+leaking nothing across calls in every family, and the launch counters'
+bookkeeping. The capture and replay themselves run on the card
+(tests/test_torch_cuda.py).
 """
 import importlib
 import os
@@ -21,12 +23,10 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import counters  # noqa: E402
-from repro_torch.kernels.decode_attn import (decode_attention_ref,  # noqa: E402
-                                             rope_table)
 from repro_torch.kernels.decode_attn import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.fused_mlp import ops as mlp_ops  # noqa: E402
 from repro_torch.launch import spans  # noqa: E402
-from repro_torch.models import attention, model_zoo  # noqa: E402
+from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
 from repro_torch.serve import decode_graph  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
@@ -74,71 +74,77 @@ def _prompts(vocab, s, seed):
         np.int32)
 
 
+def _frames(cfg, seed):
+    """The audio family's encoder frames [2, T, D] (None for the
+    others)."""
+    if cfg.family != "audio":
+        return None
+    return np.random.RandomState(seed).randn(
+        2, cfg.enc_frames, cfg.d_model).astype(np.float32)
+
+
 @pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b"])
 def test_cpu_engine_stays_eager_with_the_step_loops_tokens(arch):
-    """A CPU engine makes no decode graph and counts every decode step
-    eager; its greedy tokens are those of prefill, then argmax and
-    ``decode_step`` a token at a time."""
+    """A CPU engine makes no decode graph: it keeps the one cache its
+    first call made, prefills the second call into it, and counts every
+    decode step eager; its greedy tokens are those of prefill, then
+    argmax and ``decode_step`` a token at a time."""
     eng = _engine(arch)
-    prompts = _prompts(eng.cfg.vocab, 16, 0)
+    calls = [_prompts(eng.cfg.vocab, 16, 0), _prompts(eng.cfg.vocab, 8, 3)]
     with profile(activities=[ProfilerActivity.CPU]):
-        got = eng.generate(prompts)
-    assert eng._graphs == {}
-    assert spans.counters()[decode_graph.COUNTER] == [0, 0, NEW]
-    want = []
+        got = [eng.generate(calls[0])]
+        kept = eng._caches[(2, 24)]
+        got.append(eng.generate(calls[1]))
+    assert eng._caches == {(2, 24): kept} and eng._graphs == {(2, 24): None}
+    assert spans.counters()[decode_graph.COUNTER] == [0, 0, 2 * NEW]
+    for prompts, out in zip(calls, got):
+        want = []
+        with torch.inference_mode():
+            logits, cache = model_zoo.prefill(eng.cfg, eng.params,
+                                              torch.from_numpy(prompts), 24)
+            for _ in range(NEW):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                want.append(tok.numpy())
+                logits, cache = model_zoo.decode_step(eng.cfg, eng.params,
+                                                      cache, tok)
+        assert np.array_equal(out, np.stack(want, 1))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_cache_position_is_a_device_scalar_advanced_in_place(arch):
+    """``init_cache`` and ``prefill`` give ``pos`` as a 0-d int32 on the
+    cache's device (the meta device too); a prefill into a kept cache
+    sets that tensor in place, and ``decode_step`` returns the same dict
+    with the same tensor advanced by one."""
+    cfg = get_config(arch, smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    meta = model_zoo.init_cache(cfg, 2, 24, device="meta")["pos"]
+    assert meta.device.type == "meta" and meta.dtype == torch.int32
+    cache = model_zoo.init_cache(cfg, 2, 24)
+    pos = cache["pos"]
+    assert pos.shape == () and pos.dtype == torch.int32
+    assert pos.device.type == "cpu" and int(pos) == 0
+    frames = _frames(cfg, 0)
+    frames = None if frames is None else torch.from_numpy(frames)
+    toks = torch.from_numpy(_prompts(cfg.vocab, 8, 0))
+    start = 0 if cfg.family == "audio" else 8     # the reference's rule
     with torch.inference_mode():
-        logits, cache = model_zoo.prefill(eng.cfg, eng.params,
-                                          torch.from_numpy(prompts), 24)
-        for _ in range(NEW):
-            tok = torch.argmax(logits, -1).to(torch.int32)
-            want.append(tok.numpy())
-            logits, cache = model_zoo.decode_step(eng.cfg, eng.params, cache,
-                                                  tok)
-    assert np.array_equal(got, np.stack(want, 1))
-
-
-@pytest.mark.parametrize("b,s,h,kv,hd,pos", [(2, 40, 16, 16, 128, 0),
-                                             (2, 40, 8, 4, 64, 17),
-                                             (3, 20, 4, 4, 16, 19)])
-@pytest.mark.parametrize("rope", [True, False])
-def test_decode_attention_with_a_tensor_position_is_bitwise_the_int(
-        b, s, h, kv, hd, pos, rope):
-    """The plain decode path and the model-level ``decode_attention``
-    give bitwise the same output and caches with ``pos`` an int and a 0-d
-    int32 tensor."""
-    cfg = get_config("granite_8b").with_(n_heads=h, n_kv_heads=kv,
-                                         head_dim=hd, d_model=64)
-    gen = torch.Generator().manual_seed(pos)
-
-    def draw(*shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16)
-
-    q, k, v = draw(b, 1, h, hd), draw(b, 1, kv, hd), draw(b, 1, kv, hd)
-    ck, cv = draw(b, s, kv, hd), draw(b, s, kv, hd)
-    tab = rope_table(cfg, s, "cpu") if rope else None
-    at = torch.tensor(pos, dtype=torch.int32)
-    caches = [(ck.clone(), cv.clone()) for _ in range(2)]
-    want = decode_attention_ref(q, k, v, *caches[0], pos, tab)
-    got = decode_attention_ref(q, k, v, *caches[1], at, tab)
-    assert torch.equal(got, want)
-    assert all(torch.equal(a, b) for a, b in zip(*caches))
-
-    params = attention.init_attn(cfg, gen, dtype=torch.bfloat16)
-    x = draw(b, 1, cfg.d_model)
-    kv_caches = [{"k": ck.clone(), "v": cv.clone()} for _ in range(2)]
-    with torch.inference_mode():
-        want, _ = attention.decode_attention(cfg, params, x, kv_caches[0],
-                                             pos, rope=rope)
-        got, _ = attention.decode_attention(cfg, params, x, kv_caches[1], at,
-                                            rope=rope)
-    assert torch.equal(got, want)
-    assert all(torch.equal(kv_caches[0][n], kv_caches[1][n]) for n in "kv")
-    assert int(at) == pos       # read, not advanced, by the sublayer
+        _, fresh = model_zoo.prefill(cfg, params, toks, 24, frames=frames)
+        assert fresh["pos"].shape == () and fresh["pos"].dtype == torch.int32
+        assert int(fresh["pos"]) == start
+        _, got = model_zoo.prefill(cfg, params, toks, 24, frames=frames,
+                                   cache=cache)
+        assert got is cache and got["pos"] is pos and int(pos) == start
+        for i in range(1, 3):
+            _, got = model_zoo.decode_step(cfg, params, cache,
+                                           toks[:, i].contiguous())
+            assert got is cache and got["pos"] is pos
+            assert int(pos) == start + i
 
 
 class _EagerGraph(decode_graph.DecodeGraph):
     """``DecodeGraph`` whose capture and replay run the step eagerly (the
-    CPU has no CUDA graph): the engine's static cache, its position as a
+    CPU has no CUDA graph): the engine's kept cache, its position as a
     0-d tensor and the routing of its steps as on the card."""
 
     def _capture(self):
@@ -150,26 +156,35 @@ class _EagerGraph(decode_graph.DecodeGraph):
         self.logits, _ = self.step(self.params, self.cache, self.tok)
 
 
-@pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b"])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_static_cache_leaks_nothing_across_calls(arch, monkeypatch):
-    """Two calls in a row on one engine's static cache, with other prompts
-    of other lengths, return exactly what a fresh engine returns for each
-    (the eager path, int ``pos``); the engine made one static cache,
-    captured once and replayed the other steps, and its position ends at
-    the second prompt's length plus the new tokens."""
+    """Two calls in a row on one engine's kept cache, with other prompts
+    of other lengths (and other frames), return exactly what a fresh
+    engine returns for each; the engine kept one cache, and as on the
+    card the dense, ssm and hybrid families captured once and replayed
+    the other steps while the others ran every step eagerly on it; its
+    position ends at the second prompt's length (0 for the audio family)
+    plus the new tokens."""
     monkeypatch.setattr(engine_mod, "DecodeGraph", _EagerGraph)
     monkeypatch.setattr(model_zoo, "decode_graph_ok",
-                        lambda cfg, params: True)
+                        lambda cfg, params: cfg.family in GRAPHED)
     eng = _engine(arch)
-    calls = [_prompts(eng.cfg.vocab, 16, 1), _prompts(eng.cfg.vocab, 8, 2)]
+    calls = [(_prompts(eng.cfg.vocab, 16, 1), _frames(eng.cfg, 1)),
+             (_prompts(eng.cfg.vocab, 8, 2), _frames(eng.cfg, 2))]
     with profile(activities=[ProfilerActivity.CPU]):
-        got = [eng.generate(p) for p in calls]
-    graph, = eng._graphs.values()
-    assert spans.counters()[decode_graph.COUNTER] == [2 * NEW - 1, 1, 0]
-    assert int(graph.cache["pos"]) == 8 + NEW
+        got = [eng.generate(*c) for c in calls]
+    cache, = eng._caches.values()
+    graphed = eng.cfg.family in GRAPHED
+    assert spans.counters()[decode_graph.COUNTER] == (
+        [2 * NEW - 1, 1, 0] if graphed else [0, 0, 2 * NEW])
+    assert list(eng._graphs) == [(2, 24)]
+    if graphed:
+        assert eng._graphs[(2, 24)].cache is cache
+    start = 0 if eng.cfg.family == "audio" else 8
+    assert int(cache["pos"]) == start + NEW
     monkeypatch.undo()
-    for p, out in zip(calls, got):
-        assert np.array_equal(out, _engine(arch).generate(p))
+    for c, out in zip(calls, got):
+        assert np.array_equal(out, _engine(arch).generate(*c))
 
 
 def test_launch_counters_move_back_and_forth():

@@ -421,7 +421,8 @@ def test_prefill_and_decode_attention_keywords_match_jax():
             jcfg, jp, jnp.asarray(x1), jcache, pos, n_heads=8, n_kv=2,
             rope=rope)
         ty, tcache = attention.decode_attention(
-            cfg, tp, torch.from_numpy(x1), tcache, pos, n_heads=8, n_kv=2,
+            cfg, tp, torch.from_numpy(x1), tcache,
+            torch.tensor(pos, dtype=torch.int32), n_heads=8, n_kv=2,
             rope=rope)
         np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
         _assert_kv_close(tcache, jcache)
