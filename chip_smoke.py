@@ -32,7 +32,13 @@ Phases, each raising on failure:
                 kernel (``check_decode_attn``) at olmo_1b's, granite_8b's,
                 llava_next_34b's and other decode shapes: output, the
                 cache row it writes (bitwise), two calls bitwise equal,
-                and its time (events, and alone by the profiler).
+                and its time (events, and alone by the profiler); then
+                the Mamba-2 chain's two kernels (``check_ssm_chain``:
+                conv_silu and gated_rmsnorm) against their plain versions
+                in fp32 at mamba2_780m's and zamba2_1_2b's widths, 4 x
+                2048, at the smoke widths and a 2-token prompt, two calls
+                bitwise equal, timed beside the torch chain and the bytes
+                bound.
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
                 CPU in fp32, on the same weights: granite_8b, stablelm_3b
@@ -204,6 +210,9 @@ from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: 
                                           ssd_ref, ssd_scan, ssd_scan_bwd,
                                           to_pallas_layout)
 from repro_torch.kernels.ssd_scan.ops import bwd_work as ssd_bwd_work  # noqa: E402
+from repro_torch.kernels.ssm_chain import (conv_silu,  # noqa: E402
+                                           conv_silu_ref, gated_rmsnorm,
+                                           gated_rmsnorm_ref)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
@@ -873,6 +882,100 @@ def check_decode_attn(gen, flush):
             "granite": timed["granite"]}
 
 
+def chain_inputs(gen, b, s, w, gn, h, p):
+    """The Mamba-2 chain's inputs as a prefill makes them: bf16
+    projections xin [b,s,w], B and C [b,s,gn], dt [b,s,h], conv weights
+    [4, *], the scan's y [b,s,h,p] and the gate z [b,s,w]; fp32 dt_bias,
+    A_log, D and gn_scale off their init values."""
+    def f32(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift)
+
+    conv = (randn(gen, b, s, w), randn(gen, b, s, gn), randn(gen, b, s, gn),
+            randn(gen, 4, w, scale=0.5), randn(gen, 4, gn, scale=0.5),
+            randn(gen, 4, gn, scale=0.5), randn(gen, b, s, h, scale=2.0),
+            f32(h), f32(h, scale=0.5))
+    norm = (randn(gen, b, s, h, p), conv[0], randn(gen, b, s, w),
+            f32(h, shift=1.0), f32(w, scale=0.2, shift=1.0))
+    return conv, norm
+
+
+def chain_bytes(b, s, w, gn, h):
+    """Bytes each chain kernel must move at least: (conv_silu: xin, B, C
+    and dt read, xc, B, C and fp32 dt written, the weights and [H] params;
+    gated_rmsnorm: y, xc and z read, the bf16 output written, D and
+    gn_scale)."""
+    rows = b * s
+    conv = (2 * 2 * rows * (w + 2 * gn) + 2 * rows * h + 4 * rows * h
+            + 2 * 4 * (w + 2 * gn) + 3 * 4 * h)
+    norm = 4 * 2 * rows * w + 4 * (h + w)
+    return conv, norm
+
+
+def check_ssm_chain(gen, flush):
+    """The Mamba-2 chain's two kernels against their plain versions in fp32
+    (on the same bf16 inputs) at mamba2_780m's and zamba2_1_2b's prefill
+    widths, B 4 x S 2048, at the smoke widths and at a prompt of 2 tokens
+    (shorter than the conv); two calls bitwise equal; timed at B 4 x S
+    2048: the kernel (CUDA events, and alone by the profiler, L2 flushed),
+    the plain version on the card (the torch chain) and the bytes bound.
+    Returns the two kernels' JSON entries."""
+    cases = [  # (timed as, label, b, s, w, gn, h, p)
+        ("main", "mamba2_780m", 4, 2048, 3072, 128, 48, 64),
+        ("zamba2_1_2b", "zamba2_1_2b", 4, 2048, 4096, 64, 64, 64),
+        (None, "mamba2_780m S=2", 3, 2, 3072, 128, 48, 64),
+        (None, "smoke", 4, 16, 128, 16, 8, 16),
+    ]
+    out = {"conv_silu": {}, "gated_rmsnorm": {}}
+    worst = dict.fromkeys(out, 0.0)
+    for key, label, b, s, w, gn, h, p in cases:
+        conv, norm = chain_inputs(gen, b, s, w, gn, h, p)
+        got = conv_silu(*conv)
+        want = conv_silu_ref(*(t.float() for t in conv))
+        y = gated_rmsnorm(*norm)
+        want_y = gated_rmsnorm_ref(*(t.float() for t in norm))
+        torch.cuda.synchronize()
+        errs = [compare(f"conv_silu {name} [{label} B={b} S={s} W={w} "
+                        f"GN={gn} H={h}]", g, wt)
+                for name, g, wt in zip(("xc", "B", "C", "dt", "A"), got,
+                                       want)]
+        worst["conv_silu"] = max(worst["conv_silu"], *errs)
+        worst["gated_rmsnorm"] = max(worst["gated_rmsnorm"], compare(
+            f"gated_rmsnorm [{label} B={b} S={s} W={w} P={p}]", y, want_y))
+        same = (all(torch.equal(g, a) for g, a in zip(got, conv_silu(*conv)))
+                and torch.equal(y, gated_rmsnorm(*norm)))
+        if not same:
+            raise RuntimeError(f"ssm chain [{label}]: two calls differ")
+        if key:
+            nbytes = dict(zip(out, chain_bytes(b, s, w, gn, h)))
+            for name, fn, plain, args, pat in (
+                    ("conv_silu", conv_silu, conv_silu_ref, conv,
+                     r"mamba2_conv_silu"),
+                    ("gated_rmsnorm", gated_rmsnorm, gated_rmsnorm_ref, norm,
+                     r"mamba2_gated_rmsnorm")):
+                ms = cuda_ms(lambda: fn(*args), 20, flush)
+                alone = kernel_device_ms(lambda: fn(*args), pat, 10, flush)
+                plain_ms = cuda_ms(lambda: plain(*args), 5, flush)
+                bms, by = bound_ms(0.0, nbytes[name])
+                out[name][key] = {"ms": ms, "alone_ms": alone,
+                                  "plain_ms": plain_ms, "bound_ms": bms,
+                                  "bound_by": by, "bytes": nbytes[name],
+                                  "shape": f"B={b} S={s} W={w} GN={gn} "
+                                           f"H={h} P={p}"}
+                print(f"  {name} [{label} B={b} S={s}]: kernel {ms:.4f} ms "
+                      f"(alone {alone:.4f}, {100 * bms / alone:.1f}% of the "
+                      f"bound), plain (torch chain) {plain_ms:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by}; {nbytes[name] / 1e6:.2f} MB)",
+                      flush=True)
+        del conv, norm, got, want, y, want_y
+    print("  ssm chain: two calls bitwise equal in every case", flush=True)
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/ssm_chain.cu", "replaces": None,
+             "launches": None, "max_abs_err": worst[name],
+             **out[name]["main"], "zamba2_1_2b": out[name]["zamba2_1_2b"]}
+            for name in out]
+
+
 def check_smoke_shapes(gen):
     """Each kernel at the registry's smoke shapes, which its op zero-pads
     to the kernel's native sizes (flash hd 16 -> 64, fused_mlp K 64 ->
@@ -961,6 +1064,7 @@ def rel_rms(got, want):
 
 
 FWD_OPS = ("flash_attention", "fused_mlp", "ssd_scan")   # with a smoke check
+CHAIN_OPS = ("conv_silu", "gated_rmsnorm")   # forward-only: serving alone
 BWD_OPS = ("flash_attention_bwd", "fused_mlp_bwd",   # the backward kernels
            "ssd_scan_bwd")
 
@@ -969,6 +1073,8 @@ def launch_counts():
     return {"flash_attention": flash_attention.launches,
             "fused_mlp": fused_mlp.launches, "ssd_scan": ssd_scan.launches,
             "decode_attention": decode_attention.launches,
+            "conv_silu": conv_silu.launches,
+            "gated_rmsnorm": gated_rmsnorm.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "fused_mlp_bwd": fused_mlp.bwd_launches,
             "ssd_scan_bwd": ssd_scan.bwd_launches}
@@ -995,7 +1101,8 @@ def fused_mlps(cfg):
 def expected_launches(cfg, prefills: int, decode_steps: int):
     """Kernel launches for ``prefills`` prefills and ``decode_steps`` decode
     steps: flash once per attention block in prefill, fused_mlp once per
-    SwiGLU MLP per step, ssd_scan once per Mamba-2 layer in prefill, the
+    SwiGLU MLP per step, ssd_scan and the Mamba-2 chain's two kernels
+    (``CHAIN_OPS``) once per Mamba-2 layer in prefill, the
     decode kernel once per self-attention block (firing of the hybrid's
     shared block) per decode step, no backward kernel. The
     encoder-decoder's prefill runs its encoder once (enc_layers
@@ -1008,11 +1115,11 @@ def expected_launches(cfg, prefills: int, decode_steps: int):
         blocks, self_attn = cfg.enc_layers + 2 * L, L
     else:
         blocks = self_attn = L if not cfg.is_ssm_family else fused_mlps(cfg)
+    ssm = L * prefills if cfg.is_ssm_family else 0
     return {"flash_attention": blocks * prefills,
             "fused_mlp": fused_mlps(cfg) * (prefills + decode_steps),
-            "ssd_scan": L * prefills if cfg.is_ssm_family else 0,
-            "decode_attention": self_attn * decode_steps,
-            **dict.fromkeys(BWD_OPS, 0)}
+            "ssd_scan": ssm, "decode_attention": self_attn * decode_steps,
+            **dict.fromkeys(CHAIN_OPS, ssm), **dict.fromkeys(BWD_OPS, 0)}
 
 
 def expected_flash_regimes(cfg, prefills: int, prompt_len: int):
@@ -1255,7 +1362,8 @@ def serve(arch: str, batch: int, prompt_len: int, new: int, n_layers=None):
 
 # kernel name prefix in csrc/ -> the op whose wrapper launches it (a
 # "_bwd_" kernel: that op's backward; the SSD backward's re-run of the
-# forward's chunk-state and state-passing kernels counts as ssd_scan)
+# forward's chunk-state and state-passing kernels counts as ssd_scan; a
+# "mamba2_" kernel is named after its op)
 PORT_OPS = {"ssd": "ssd_scan", "mlp": "fused_mlp", "flash": "flash_attention",
             "decode": "decode_attention"}
 # the kernel an op launches once per call in a decode step: its calls on
@@ -1283,9 +1391,11 @@ def report(prof, label, wall, top=8):
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     ops = {}                    # the port's kernels, by op
     for e in evts:
-        m = re.search(r"::(ssd|mlp|flash|decode)_(bwd_)?", e.key)
+        m = re.search(r"::(ssd|mlp|flash|decode|mamba2)_(bwd_|conv_silu|"
+                      r"gated_rmsnorm)?", e.key)
         if m:
-            op = PORT_OPS[m.group(1)] + ("_bwd" if m.group(2) else "")
+            op = (m.group(2) if m.group(1) == "mamba2" else
+                  PORT_OPS[m.group(1)] + ("_bwd" if m.group(2) else ""))
             ms, n = ops.get(op, (0.0, 0))
             ops[op] = (ms + e.self_device_time_total / 1e3, n + e.count)
     print("    port kernels: " + (", ".join(
@@ -1736,9 +1846,11 @@ def expected_train_launches(cfg, steps: int):
     Mamba-2 layer runs its kernel in the forward and again in the
     backward's recompute (the hybrid's shared block once per firing);
     each attention block (firing), SwiGLU MLP and Mamba-2 layer runs its
-    backward kernel once."""
+    backward kernel once. The Mamba-2 chain's kernels never run in a
+    train step: it records a gradient, so the chain is torch's."""
     per_step = expected_launches(cfg, 1, 0)
-    want = {op: 2 * n * steps for op, n in per_step.items()}
+    want = {op: 0 if op in CHAIN_OPS else 2 * n * steps
+            for op, n in per_step.items()}
     for op in ("flash_attention", "fused_mlp", "ssd_scan"):
         want[op + "_bwd"] = per_step[op] * steps
     return want
@@ -2537,7 +2649,9 @@ def run_launchers(arch, train=True):
           f"{t_train:.1f} s, launches {trained} (expected {want}); "
           f"launch.serve --arch {arch}: {t_serve:.1f} s, launches {served}",
           flush=True)
-    if (trained != want or any(served[op] == 0 for op in FWD_OPS if want[op])
+    serve_ops = FWD_OPS + (CHAIN_OPS if cfg.is_ssm_family else ())
+    if (trained != want or any(served[op] == 0 for op in serve_ops
+                               if want[op] or op in CHAIN_OPS)
             or any(served[op] for op in BWD_OPS)):
         raise RuntimeError(f"{arch}: a launcher did not run the kernels")
 
@@ -2704,6 +2818,7 @@ def main():
     for e in entries:
         e["smoke"] = smoke[e["name"]]
     entries.append(clocked("decode_attn", check_decode_attn, gen, flush))
+    entries.extend(clocked("ssm_chain", check_ssm_chain, gen, flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -2715,7 +2830,8 @@ def main():
     phase("serve")
     # each kernel's launches come from the path that runs it
     path_of = {"flash_attention": "granite_8b", "fused_mlp": "granite_8b",
-               "ssd_scan": "mamba2_780m", "decode_attention": "granite_8b"}
+               "ssd_scan": "mamba2_780m", "decode_attention": "granite_8b",
+               "conv_silu": "mamba2_780m", "gated_rmsnorm": "mamba2_780m"}
     moe_path = {"flash_attention": "granite_moe_1b_a400m",
                 "fused_mlp": "deepseek_moe_16b"}
     launches, regimes = {}, {}

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attn", "flash_attn_bwd", "fused_mlp", "fused_mlp_bwd",
-           "ssd_scan", "ssd_scan_bwd", "decode_attn")
+           "ssd_scan", "ssd_scan_bwd", "decode_attn", "ssm_chain")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

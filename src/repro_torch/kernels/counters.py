@@ -15,9 +15,11 @@ from .decode_attn import ops as decode_ops
 from .flash_attn import ops as flash_ops
 from .fused_mlp import ops as mlp_ops
 from .ssd_scan import ops as ssd_ops
+from .ssm_chain import ops as chain_ops
 
 OPS = (flash_ops.flash_attention, mlp_ops.fused_mlp, ssd_ops.ssd_scan,
-       decode_ops.decode_attention)
+       decode_ops.decode_attention, chain_ops.conv_silu,
+       chain_ops.gated_rmsnorm)
 
 _BY_NAME = {fn.__name__: fn for fn in OPS}
 Key = Tuple[str, str]      # (op name, counter attribute)

@@ -9,6 +9,14 @@ inter-chunk state recurrence) under plain autograd. Both return the
 final state, so prefill fills the decode cache from the same scan that
 gives its output.
 
+The chain around the scan (conv, SiLU, softplus before it; D skip, gate
+and gated RMSNorm after it) runs as two forward-only kernels
+(``kernels.ssm_chain``) on plain CUDA tensors when no gradient is
+recorded, i.e. in every serving prefill, and as the torch chain
+(``ssm_chain.ref``) everywhere else: under autograd (training and its
+remat recompute), on DTensors (the norm would need the heads' shards)
+and on the CPU.
+
 Decode is the O(1)-per-token recurrence on the [H, N, P] state, in torch
 (no Pallas kernel stands behind it). Like the KV cache, the SSM cache is
 updated in place: prefill and decode write the state and the conv
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
 from ..kernels import ssd_scan as ssd_kernel
+from ..kernels import ssm_chain
 from . import parallel
 from .common import ModelConfig, dense_init, rmsnorm
 
@@ -58,14 +67,6 @@ def init_mamba2(cfg: ModelConfig, gen: torch.Generator,
         "gn_scale": fp32(1.0, di),
         "wo": dense_init(gen, di, d, dtype),
     }
-
-
-def _causal_dw_conv(x, w):
-    """Depthwise causal 1D conv. x [B,S,W], w [K,W]. The reference's sum
-    of shifted products, so bf16 rounds at the same places."""
-    k, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
-    return sum(xp[:, i:i + s, :] * w[i] for i in range(k))
 
 
 def _causal_decay(seg, causal):
@@ -173,6 +174,18 @@ def _ssd(x, dt, A, B, C, chunk: int):
     return _ssd_local(x, dt, A, B, C, chunk)
 
 
+def _chain_kernels(x, params: Dict) -> bool:
+    """Whether ``_block`` runs the chain around the scan as the
+    ``ssm_chain`` kernels: plain CUDA tensors (no DTensor) and no
+    gradient recorded (grad mode off, or no input requiring grad). The
+    kernels have no backward, so a recorded gradient keeps the torch
+    chain."""
+    if not x.is_cuda or parallel.is_dtensor(x):
+        return False
+    return not (torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in params.values())))
+
+
 def _block(cfg: ModelConfig, params: Dict, x):
     """(out [B,S,D], final state, pre-conv (xin, B, C) projections)."""
     b, s, _ = x.shape
@@ -193,20 +206,23 @@ def _block(cfg: ModelConfig, params: Dict, x):
     Bv = x @ w("wB")
     Cv = x @ w("wC")
     dt = x @ w("wdt")
+    pre = (xin, Bv, Cv, w("conv_x"), w("conv_B"), w("conv_C"), dt,
+           params["dt_bias"], params["A_log"])
 
-    xc = F.silu(_causal_dw_conv(xin, w("conv_x")))
-    Bc = F.silu(_causal_dw_conv(Bv, w("conv_B")))
-    Cc = F.silu(_causal_dw_conv(Cv, w("conv_C")))
+    if _chain_kernels(x, params):
+        xc, Bc, Cc, dt, A = ssm_chain.conv_silu(*pre)
+        y, final = _ssd_local(xc.view(b, s, h, p), dt, A,
+                              Bc.view(b, s, g, n), Cc.view(b, s, g, n), chunk)
+        y = ssm_chain.gated_rmsnorm(y, xc, z, params["D"],
+                                    params["gn_scale"])
+        return y @ w("wo"), final, (xin, Bv, Cv)
 
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    xc, Bc, Cc, dt, A = ssm_chain.conv_silu_ref(*pre)
     xc = parallel.splittable(xc, h)
     Bc, Cc = (parallel.splittable(t, g) for t in (Bc, Cc))
     y, final = _ssd(xc.reshape(b, s, h, p), dt, A, Bc.reshape(b, s, g, n),
                     Cc.reshape(b, s, g, n), chunk)
-    y = y + params["D"].to(x.dtype)[:, None] * xc.reshape(b, s, h, p)
-    y = y.reshape(b, s, cfg.d_inner)
-    y = rmsnorm(y * F.silu(z), params["gn_scale"])
+    y = ssm_chain.gated_rmsnorm_ref(y, xc, z, params["D"], params["gn_scale"])
     return y @ w("wo"), final, (xin, Bv, Cv)
 
 

@@ -37,6 +37,7 @@ from repro_torch.kernels.decode_attn import (decode_attention,  # noqa: E402
                                              decode_attention_ref,
                                              rope_table, split_plan)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels import ssm_chain  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
@@ -324,6 +325,127 @@ def test_ssd_kernel_pads_small_head_dims(cuda, b, s, h, g, n, p, chunk):
 
 
 # ---------------------------------------------------------------------------
+# the Mamba-2 chain around the scan (kernels/ssm_chain)
+# ---------------------------------------------------------------------------
+
+# (b, s, W, G*N, H, P): mamba2_780m's and zamba2_1_2b's widths and the
+# smoke configs' (W 128, G*N 16, H 8, P 16); two or more sequences in a
+# batch, a prompt shorter than the conv (S 2), one of 256 and one of 2048
+CHAIN_SHAPES = [
+    (4, 2048, 3072, 128, 48, 64),
+    (2, 256, 3072, 128, 48, 64),
+    (3, 2, 3072, 128, 48, 64),
+    (2, 2048, 4096, 64, 64, 64),
+    (2, 256, 4096, 64, 64, 64),
+    (4, 2, 4096, 64, 64, 64),
+    (4, 16, 128, 16, 8, 16),
+    (2, 256, 128, 16, 8, 16),
+]
+
+
+def _chain_inputs(dev, b, s, w, gn, h, p, seed=0):
+    """The chain's inputs as a prefill makes them: bf16 projections and
+    conv weights, fp32 dt_bias, A_log, D and gn_scale off their init
+    values, the scan's y and the gate z."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def f32(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    conv = [_randn(gen, b, s, w), _randn(gen, b, s, gn),
+            _randn(gen, b, s, gn), _randn(gen, 4, w, scale=0.5),
+            _randn(gen, 4, gn, scale=0.5), _randn(gen, 4, gn, scale=0.5),
+            _randn(gen, b, s, h, scale=2.0), f32(h), f32(h, scale=0.5)]
+    norm = [_randn(gen, b, s, h, p), _randn(gen, b, s, w), f32(h, shift=1.0),
+            f32(w, scale=0.2, shift=1.0)]
+    return conv, norm
+
+
+def _fp32(ts):
+    return [t.float() for t in ts]
+
+
+@pytest.mark.parametrize("b,s,w,gn,h,p", CHAIN_SHAPES)
+def test_conv_silu_kernel_matches_plain(cuda, b, s, w, gn, h, p):
+    """The pre-scan kernel against its plain version in fp32 on the same
+    bf16 inputs: xc, B and C within the bf16 tolerance (the first rows of
+    every sequence included: the conv pads each with zeros), dt and A
+    within fp32 rounding; one launch; two calls bitwise equal."""
+    args, _ = _chain_inputs(cuda, b, s, w, gn, h, p)
+    before = ssm_chain.conv_silu.launches
+    got = ssm_chain.conv_silu(*args)
+    again = ssm_chain.conv_silu(*args)
+    torch.cuda.synchronize()
+    assert ssm_chain.conv_silu.launches == before + 2
+    want = ssm_chain.conv_silu_ref(*_fp32(args))
+    for g, wt in zip(got[:3], want[:3]):
+        assert g.dtype == torch.bfloat16 and g.shape == wt.shape
+        torch.testing.assert_close(g.float(), wt, **BF16_TOL)
+    for g, wt in zip(got[3:], want[3:]):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, wt, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("b,s,w,gn,h,p", CHAIN_SHAPES)
+def test_gated_rmsnorm_kernel_matches_plain(cuda, b, s, w, gn, h, p):
+    """The post-scan kernel against its plain version in fp32 on the same
+    bf16 inputs, within the bf16 tolerance; one launch; two calls bitwise
+    equal."""
+    conv, (y, z, d, scale) = _chain_inputs(cuda, b, s, w, gn, h, p, seed=1)
+    xc = conv[0]
+    before = ssm_chain.gated_rmsnorm.launches
+    got = ssm_chain.gated_rmsnorm(y, xc, z, d, scale)
+    again = ssm_chain.gated_rmsnorm(y, xc, z, d, scale)
+    torch.cuda.synchronize()
+    assert ssm_chain.gated_rmsnorm.launches == before + 2
+    want = ssm_chain.gated_rmsnorm_ref(*_fp32((y, xc, z)), d, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, w)
+    torch.testing.assert_close(got.float(), want, **BF16_TOL)
+    assert torch.equal(got, again)
+
+
+def test_chain_kernels_refuse_cpu_tensors_and_grad(cuda):
+    """A CPU tensor among CUDA ones and an input that requires grad are
+    refused before a launch."""
+    args, _ = _chain_inputs(cuda, 2, 16, 128, 16, 8, 16)
+    before = ssm_chain.conv_silu.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_chain.conv_silu(*args[:-1], args[-1].cpu())
+    args[-1].requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssm_chain.conv_silu(*args)
+    assert ssm_chain.conv_silu.launches == before
+
+
+def _chain_counts():
+    return (ssm_chain.conv_silu.launches, ssm_chain.gated_rmsnorm.launches)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
+def test_ssm_prefill_runs_the_chain_kernels_once_a_layer(cuda, arch):
+    """A smoke prefill under inference mode (as ``Engine.generate`` runs
+    it) launches each chain kernel once a Mamba-2 layer, and its logits
+    stay within 3% relative RMS of the CPU's fp32 path."""
+    cfg = get_config(arch, smoke=True)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda _, t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    c0 = _chain_counts()
+    with torch.inference_mode():
+        got, _ = model_zoo.prefill(cfg, card, toks.to(cuda), 40)
+        torch.cuda.synchronize()
+        assert _chain_counts() == (c0[0] + cfg.n_layers,
+                                   c0[1] + cfg.n_layers)
+        want, _ = model_zoo.prefill(cfg.with_(compute_dtype="float32"),
+                                    params, toks, 40)
+    g, w = got.float().cpu()[:, :cfg.vocab], want[:, :cfg.vocab]
+    assert torch.isfinite(g).all()
+    assert float((g - w).norm() / w.norm()) < 3e-2
+
+
+# ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------
 
@@ -527,8 +649,8 @@ def test_dense_lm_card_path_matches_cpu_path(cuda):
 def test_mamba2_card_path_matches_cpu_path(cuda):
     """Small-width Mamba-2 (head dim 64, as the kernel takes): bf16 kernel
     path on the card vs fp32 plain path on the CPU, same weights; prefill
-    and one decode step within 3% relative RMS. ssd_scan runs once per
-    layer in prefill and never in decode."""
+    and one decode step within 3% relative RMS. ssd_scan and the chain's
+    two kernels run once per layer in prefill and never in decode."""
     cfg = get_config("mamba2_780m").with_(n_layers=2, d_model=256,
                                           ssm_state=64, vocab=1000)
     params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
@@ -539,9 +661,10 @@ def test_mamba2_card_path_matches_cpu_path(cuda):
                  device=cuda)
     with torch.inference_mode():
         want, cpu_cache = model_zoo.prefill(cpu_cfg, params, toks, 520)
-        ssd0 = ssd_scan.launches
+        ssd0, chain0 = ssd_scan.launches, _chain_counts()
         got, cache = model_zoo.prefill(cfg, eng.params, toks.to(cuda), 520)
         assert ssd_scan.launches - ssd0 == cfg.n_layers
+        assert _chain_counts() == tuple(n + cfg.n_layers for n in chain0)
         nxt = torch.argmax(want, -1).to(torch.int32)
         want_d, _ = model_zoo.decode_step(cpu_cfg, params, cpu_cache, nxt)
         got_d, _ = model_zoo.decode_step(cfg, eng.params, cache,
@@ -1291,10 +1414,11 @@ def test_ssm_train_step_launches_under_each_policy(cuda, arch, policy):
     toks = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab, (2, 65)).astype(np.int32)).to(cuda)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    before = _counts()
+    before, chain = _counts(), _chain_counts()
     loss, _, grads = value_and_grad(cfg, params, batch)
     torch.cuda.synchronize()
     assert _delta(before) == _train_launches(cfg, policy)
+    assert _chain_counts() == chain    # training keeps the torch chain
     full, _, _ = value_and_grad(cfg.with_(remat_policy="full"), params,
                                 batch)
     assert torch.isfinite(loss) and float(loss) == float(full)
