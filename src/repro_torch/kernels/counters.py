@@ -6,11 +6,15 @@ or a dict of ints by regime (each ``ops`` module's docstring). ``OPS``
 lists the ops; ``read``, ``moved`` and ``add`` snapshot, difference and
 add to every counter they carry (a decode step replayed from a CUDA
 graph runs no Python, so ``serve.decode_graph`` adds what its capture
-moved), and ``reset`` sets them all to zero."""
+moved), and ``reset`` sets them all to zero. ``add`` also adds the
+decode attention's launches by regime to its span counter
+(``decode_attn.ops.COUNTER``), which a profiled window reads as its
+own."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+from ..launch import spans
 from .decode_attn import ops as decode_ops
 from .flash_attn import ops as flash_ops
 from .fused_mlp import ops as mlp_ops
@@ -47,7 +51,8 @@ def moved(before: Dict[Key, object], after: Dict[Key, object]):
 
 
 def add(amounts: Dict[Key, object], sign: int = 1) -> None:
-    """Add ``sign`` times ``amounts`` (``moved``'s) to the counters."""
+    """Add ``sign`` times ``amounts`` (``moved``'s) to the counters, the
+    decode attention's span counter included."""
     for (name, attr), n in amounts.items():
         fn = _BY_NAME[name]
         cur = getattr(fn, attr)
@@ -56,6 +61,9 @@ def add(amounts: Dict[Key, object], sign: int = 1) -> None:
                 cur[k] += sign * v
         else:
             setattr(fn, attr, cur + sign * n)
+        if (name, attr) == ("decode_attention", "launches_by_regime"):
+            spans.count(decode_ops.COUNTER,
+                        [sign * n[k] for k in decode_ops.REGIMES])
 
 
 def reset() -> None:

@@ -17,6 +17,10 @@ The kernel replaces no Pallas kernel: the JAX reference's decode
 attention is plain jnp. ``decode_attention.launches`` counts calls that
 launched the kernel, and ``decode_attention.launches_by_regime`` splits
 them by ``regime``: whether ``split_plan`` cut the keys into splits.
+The same launches by regime also go to the span counter ``COUNTER``
+(``launch.spans.count``, [no split, split]), which counts only while
+spans are live, so a profiled window reads its own launches; a decode
+step replayed from a CUDA graph adds to both (``kernels.counters.add``).
 
 Head dims the kernel does not take natively (any multiple of 8 up to
 128) run on a tile padded to ``padded_head_dim`` whose lanes past the
@@ -32,6 +36,7 @@ import functools
 import torch
 
 from .. import _build
+from ...launch import spans
 from ...models.common import rope_freqs
 from .ref import decode_attention_ref
 
@@ -41,6 +46,7 @@ WARP_KEYS = 32           # keys of a round of the four warps (WARPS * TILE)
 MIN_SPLIT_KEYS = 64      # fewest keys a split is given
 MAX_SPLITS = 16
 REGIMES = ("no split", "split")
+COUNTER = "decode_attention.launches_by_regime"   # span counter, by REGIMES
 
 _TABLES = {}
 
@@ -212,6 +218,7 @@ def decode_attention(q, k, v, ck, cv, pos, rope=None):
     _build.check(lib, "decode_attn", rc)
     decode_attention.launches += 1
     decode_attention.launches_by_regime[regime(splits)] += 1
+    spans.count(COUNTER, [int(splits == 1), int(splits > 1)])
     return out
 
 

@@ -15,7 +15,8 @@ replays the graph: one launch on the host for the step's kernels.
 The kernel wrappers count their launches on the host
 (``kernels.counters``), and a replay runs no Python. So the capture notes
 how far every counter moved while the step was recorded and takes that
-back (nothing ran), and each replay adds it again. A replay's kernels are
+back (nothing ran), and each replay adds it again, the decode attention's
+span counter of launches by regime included. A replay's kernels are
 counted on the card by the device trace of chip_smoke's serve phase,
 which holds them to the same expected counts.
 

@@ -820,6 +820,54 @@ def _regime_delta(before):
             for k, v in decode_attention.launches_by_regime.items()}
 
 
+def test_split_regime_under_the_decode_graph_at_granite_grid(cuda):
+    """granite_8b.decode's decode grid at small widths: 8 rows x 8 KV
+    heads of 4 query heads each, a 640-slot cache cut into 3 splits of 224
+    keys on the H100 (two launches a call, the split kernel's workspace
+    made inside the capture). Over two calls on the engine's kept cache
+    the graphed steps' logits and tokens are bitwise the eager steps' on
+    a cache of their own, and every decode attention launch, the replayed
+    ones too, is counted as split: by the host counter and by the span
+    counter of the profiled calls."""
+    from repro_torch.kernels.decode_attn.ops import COUNTER
+    from repro_torch.launch import spans
+    cfg = get_config("granite_8b").with_(n_layers=2, d_model=512,
+                                         n_heads=32, n_kv_heads=8,
+                                         head_dim=128, d_ff=512, vocab=1000)
+    b, prompt, new, slots = 8, 512, 16, 640
+    splits, chunk = split_plan(b, cfg.n_kv_heads, slots, _build.sm_count(0))
+    assert splits > 1 and (_build.sm_count(0) != 132
+                           or (splits, chunk) == (3, 224))
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(1))
+    eng = Engine(cfg, params, ServeConfig(max_seq=slots, max_new_tokens=new),
+                 device=cuda)
+    seen = _recorded(eng)
+    rng = np.random.RandomState(1)
+    for call in range(2):
+        prompts = rng.randint(0, cfg.vocab, (b, prompt)).astype(np.int32)
+        with torch.inference_mode():
+            want, want_toks = _eager_steps(
+                cfg, eng.params, torch.from_numpy(prompts).to(cuda), slots,
+                new)
+        seen.clear()
+        r0 = dict(decode_attention.launches_by_regime)
+        spans.reset_counters()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got_toks = eng.generate(prompts)
+        torch.cuda.synchronize()
+        launches = cfg.n_layers * new
+        assert _regime_delta(r0) == {"no split": 0, "split": launches}
+        assert spans.counters()[COUNTER] == [0, launches]
+        assert len(seen) == new
+        for i in range(new):
+            assert torch.equal(seen[i], want[i]), (call, i)
+        assert np.array_equal(got_toks, want_toks), call
+    graph, = eng._graphs.values()
+    assert graph.graph is not None
+    spans.reset_counters()
+
+
 @pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_780m", "zamba2_1_2b"])
 def test_decode_graph_captures_and_replays_without_a_sync(cuda, arch):
     """The smoke dense, ssm and hybrid engines capture their decode step
