@@ -38,7 +38,12 @@ Phases, each raising on failure:
                 in fp32 at mamba2_780m's and zamba2_1_2b's widths, 4 x
                 2048, at the smoke widths and a 2-token prompt, two calls
                 bitwise equal, timed beside the torch chain and the bytes
-                bound.
+                bound; then AdamW's two passes (``check_adamw``) over the
+                leaves of the benchmark's olmo_1b.train (1.281 B params)
+                and deepseek_moe_16b.train (1.688 B): p, m and v bitwise
+                the plain version's at the same scalars, the norm against
+                a float64 sum, two calls bitwise equal, timed beside the
+                plain torch update and the bytes bound.
   4. numerics-- at full width, the card's bf16 kernel path (prefill logits,
                 then one decode step) against the port's plain path on the
                 CPU in fp32, on the same weights: granite_8b, stablelm_3b
@@ -188,6 +193,7 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import adamw as adamw_kernels  # noqa: E402
 from repro_torch.kernels import counters as kernel_counters  # noqa: E402
 from repro_torch.kernels.decode_attn import (decode_attention,  # noqa: E402
                                              decode_attention_ref,
@@ -231,7 +237,8 @@ from repro_torch.serve import (MappingHTTPServer, MappingRequest,  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
-                                         adamw_update, global_norm)
+                                         adamw_update, global_norm,
+                                         lr_schedule)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.workloads import describe_scenario, list_scenarios  # noqa: E402
 
@@ -974,6 +981,100 @@ def check_ssm_chain(gen, flush):
              "launches": None, "max_abs_err": worst[name],
              **out[name]["main"], "zamba2_1_2b": out[name]["zamba2_1_2b"]}
             for name in out]
+
+
+def bench_leaf_shapes(workload: str):
+    """The parameter leaves' shapes of a benchmark cell's model, as the
+    benchmark builds it (``bench/program.py``)."""
+    from bench import manifest, program
+    cell = manifest.cell(workload)
+    shapes = model_zoo.param_shapes(program.model_config(cell.config,
+                                                         cell.traffic))
+    out = []
+    tree_map(lambda _, t: out.append(tuple(t.shape)), shapes)
+    return out
+
+
+def check_adamw(gen, flush):
+    """AdamW's two passes (``kernels.adamw``) over the leaves of the
+    benchmark's olmo_1b.train and deepseek_moe_16b.train, fp32 p, g, m and
+    v: each leaf's step kernel bitwise the plain version given the same
+    scale, lr and bias corrections; the clip's norm within 1e-5 of a
+    float64 sum and bitwise the same from call to call; timed (CUDA events
+    around the clip pass and every leaf's step, and the kernels alone by
+    the profiler) beside the plain torch update (``global_norm`` and the
+    plain step a leaf) and the bound, 32 bytes a parameter. Returns the
+    kernels' JSON entry."""
+    cfg = OptimizerConfig()
+    out = {}
+    for key, workload in (("olmo_1b", "olmo_1b.train"),
+                          ("deepseek_moe_16b", "deepseek_moe_16b.train")):
+        shapes = bench_leaf_shapes(workload)
+        leaves = [tuple(torch.randn(s, generator=gen, device="cuda") * sc
+                        for sc in (1.0, 1e-3, 1e-4, 1e-4)) for s in shapes]
+        for _, _, _, v in leaves:
+            v.square_()
+        n = sum(p.numel() for p, *_ in leaves)
+        gs = [g for _, g, _, _ in leaves]
+        want = float(np.sqrt(sum(float(torch.sum(g.double() ** 2))
+                                 for g in gs)))
+        norm, scale = adamw_kernels.adamw_sumsq(gs, cfg.clip_norm)
+        again, _ = adamw_kernels.adamw_sumsq(gs, cfg.clip_norm)
+        torch.cuda.synchronize()
+        norm_rel = abs(float(norm) - want) / want
+        if norm_rel > 1e-5 or not torch.equal(norm, again):
+            raise RuntimeError(f"adamw_sumsq [{key}]: norm {float(norm)!r} "
+                               f"vs float64 {want!r} (rel {norm_rel:.2e}), "
+                               f"again {float(again)!r}")
+        step = torch.tensor(3, dtype=torch.int32, device="cuda")
+        t = step.to(torch.float32)
+        scalars = (scale, lr_schedule(cfg, step), 1 - torch.pow(cfg.b1, t),
+                   1 - torch.pow(cfg.b2, t))
+        for i, (p, g, m, v) in enumerate(leaves):
+            ref = [x.clone() for x in (p, m, v)]
+            adamw_kernels.adamw_step(cfg, p, g, m, v, *scalars)
+            adamw_kernels.adamw_step_ref(cfg, ref[0], g, ref[1], ref[2],
+                                         *scalars)
+            if not all(torch.equal(a, b) for a, b in zip((p, m, v), ref)):
+                raise RuntimeError(f"adamw_step [{key} leaf {i} "
+                                   f"{shapes[i]}]: not the plain version's "
+                                   "bits")
+            del ref
+
+        def kernels():
+            _, sc = adamw_kernels.adamw_sumsq(gs, cfg.clip_norm)
+            for p, g, m, v in leaves:
+                adamw_kernels.adamw_step(cfg, p, g, m, v, sc, *scalars[1:])
+
+        def plain():
+            norm = torch.sqrt(adamw_kernels.sumsq_ref(gs))  # global_norm
+            sc = adamw_kernels.clip_scale_ref(norm, cfg.clip_norm)
+            for p, g, m, v in leaves:
+                adamw_kernels.adamw_step_ref(cfg, p, g, m, v, sc,
+                                             *scalars[1:])
+
+        ms = cuda_ms(kernels, 10, flush)
+        alone = kernel_device_ms(kernels, r"adamw_", 5, flush)
+        plain_ms = cuda_ms(plain, 3, flush)
+        nbytes = 32 * n
+        bms, by = bound_ms(0.0, nbytes)
+        out[key] = {"ms": ms, "alone_ms": alone, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                    "params": n, "leaves": len(leaves),
+                    "norm_rel_err": norm_rel}
+        print(f"  adamw [{key}: {n / 1e9:.4f} B params, {len(leaves)} "
+              f"leaves]: kernels {ms:.4f} ms (alone {alone:.4f}, "
+              f"{100 * bms / alone:.1f}% of the bound), plain (torch) "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{nbytes / 1e9:.2f} GB); every leaf bitwise the plain "
+              f"version's; norm rel err {norm_rel:.2e}, two calls bitwise "
+              "equal", flush=True)
+        del leaves, gs, norm, again, scale, scalars
+        torch.cuda.empty_cache()
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/csrc/adamw.cu", "replaces": None,
+            "launches": None, "max_abs_err": 0.0, **out["olmo_1b"],
+            "deepseek_moe_16b": out["deepseek_moe_16b"]}
 
 
 def check_smoke_shapes(gen):
@@ -2819,6 +2920,7 @@ def main():
         e["smoke"] = smoke[e["name"]]
     entries.append(clocked("decode_attn", check_decode_attn, gen, flush))
     entries.extend(clocked("ssm_chain", check_ssm_chain, gen, flush))
+    adamw_entry = clocked("adamw", check_adamw, gen, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -2956,7 +3058,7 @@ def main():
         run_launchers(arch, train=False)
 
     print(f"  chip_smoke wall {time.perf_counter() - T0:.1f} s", flush=True)
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": entries + [adamw_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from ..launch import spans
+from .adamw import ops as adamw_ops
 from .decode_attn import ops as decode_ops
 from .flash_attn import ops as flash_ops
 from .fused_mlp import ops as mlp_ops
@@ -23,7 +24,7 @@ from .ssm_chain import ops as chain_ops
 
 OPS = (flash_ops.flash_attention, mlp_ops.fused_mlp, ssd_ops.ssd_scan,
        decode_ops.decode_attention, chain_ops.conv_silu,
-       chain_ops.gated_rmsnorm)
+       chain_ops.gated_rmsnorm, adamw_ops.adamw_sumsq, adamw_ops.adamw_step)
 
 _BY_NAME = {fn.__name__: fn for fn in OPS}
 Key = Tuple[str, str]      # (op name, counter attribute)

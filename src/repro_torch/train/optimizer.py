@@ -12,6 +12,13 @@ DTensors, the moments placed by the ZeRO specs
 (``launch.sharding.opt_state_specs``): each gradient is reduced to its
 moment's placements, the update runs on those shards, and the new
 values are redistributed to the param's placements and copied in.
+
+The update runs in two passes (``kernels.adamw``): the clip's norm, then
+one read-modify-write of p, g, m and v a leaf. On plain CUDA leaves each
+pass is a hand-written kernel, and the norm and the clip's factor stay
+on the card; on DTensor leaves the norm is the mesh's reduction
+(``global_norm``) and each local shard takes the step op; on the CPU
+both are the plain torch versions.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor import zeros as dtensor_zeros
 
+from ..kernels.adamw import (adamw_step, adamw_sumsq, clip_scale_ref,
+                             sumsq_ref)
 from ..models.common import tree_get, tree_leaves, tree_map
 
 PyTree = Any
@@ -85,13 +94,8 @@ def fp32_zeros(params: PyTree, placements: Optional[PyTree] = None
 def global_norm(tree: PyTree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32; over every
     shard of DTensor leaves (a plain scalar, the same on every rank)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+    norm = torch.sqrt(sumsq_ref(tree_leaves(tree)))
     return norm.full_tensor() if isinstance(norm, DTensor) else norm
-
-
-def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
-    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float
@@ -99,7 +103,7 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
     """(grads scaled so their global norm is at most ``max_norm``, as
     new fp32 tensors; the norm before clipping)."""
     norm = global_norm(grads)
-    scale = _clip_scale(norm, max_norm)
+    scale = clip_scale_ref(norm, max_norm)
     return tree_map(lambda _, g: g.float() * scale, grads), norm
 
 
@@ -128,8 +132,11 @@ def adamw_update(cfg: OptimizerConfig, params: PyTree, grads: PyTree,
         return g
 
     grads = tree_map(where_moments_live, tree_map(zero_if_none, grads))
-    gnorm = global_norm(grads)
-    scale = _clip_scale(gnorm, cfg.clip_norm)
+    if any(isinstance(g, DTensor) for g in tree_leaves(grads)):
+        gnorm = global_norm(grads)          # the mesh's reduction
+        scale = clip_scale_ref(gnorm, cfg.clip_norm)
+    else:
+        gnorm, scale = adamw_sumsq(tree_leaves(grads), cfg.clip_norm)
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     t = step.to(torch.float32)
@@ -139,30 +146,19 @@ def adamw_update(cfg: OptimizerConfig, params: PyTree, grads: PyTree,
                           tree_leaves(state["mu"]),
                           tree_leaves(state["nu"])):
         if not isinstance(m, DTensor):
-            p.copy_(_leaf_update(cfg, p, g, m, v, scale, lr, bc1, bc2))
+            adamw_step(cfg, p, g, m, v, scale, lr, bc1, bc2)
             continue
-        # ZeRO: update the shard that the moments hold, then bring the
+        # ZeRO: update the shard that the moments hold (a contiguous copy
+        # where the redistribution left a strided view), then bring the
         # new values back to the param's placements
         mesh, where = m.device_mesh, m.placements
-        new = _leaf_update(cfg, p.redistribute(mesh, where).to_local(),
-                           g.to_local(), m.to_local(), v.to_local(), scale,
-                           lr, bc1, bc2)
-        new = DTensor.from_local(new, mesh, where, run_check=False)
+        shard = p.redistribute(mesh, where).to_local().contiguous()
+        adamw_step(cfg, shard, g.to_local().contiguous(), m.to_local(),
+                   v.to_local(), scale, lr, bc1, bc2)
+        new = DTensor.from_local(shard, mesh, where, run_check=False)
         p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
-
-
-def _leaf_update(cfg: OptimizerConfig, p, g, m, v, scale, lr, bc1, bc2):
-    """One leaf's AdamW arithmetic on plain tensors: the moments ``m``,
-    ``v`` updated in place; returns the new fp32 values of ``p``."""
-    g = g.float() * scale              # clipped, one leaf at a time
-    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-    v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-    u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-    p32 = p.float()
-    u.add_(cfg.weight_decay * p32)
-    return p32 - lr * u
 
 
 def topk_compress(g: torch.Tensor, frac: float = 0.1) -> torch.Tensor:

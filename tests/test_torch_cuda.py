@@ -33,6 +33,8 @@ from repro_torch.kernels.ssd_scan import (SSDScan, from_pallas_layout,  # noqa: 
                                           ssd_ref, ssd_scan,
                                           ssd_scan_backward, to_pallas_layout)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import adamw  # noqa: E402
+from repro_torch.kernels.adamw import ops as adamw_ops  # noqa: E402
 from repro_torch.kernels.decode_attn import (decode_attention,  # noqa: E402
                                              decode_attention_ref,
                                              rope_table, split_plan)
@@ -44,9 +46,12 @@ from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import attention, mlp, model_zoo  # noqa: E402
 from repro_torch.models.common import rope_freqs  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
-from repro_torch.models.common import tree_get, tree_map  # noqa: E402
+from repro_torch.models.common import (tree_get, tree_leaves,  # noqa: E402
+                                       tree_map)
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
-from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         adamw_update, global_norm,
+                                         init_opt_state, lr_schedule)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -1863,3 +1868,205 @@ def test_encdec_vlm_serve_launcher_defaults_on_card(cuda, arch, capsys):
     serve_launcher.main(["--arch", arch])
     assert capsys.readouterr().out.count("seq") == 4
     assert _delta(before) == _serve_launches(cfg, 16)
+
+
+# AdamW's two passes (kernels/adamw)
+
+# olmo_1b's leaves (embed, final_norm, the stacked norms, attention and
+# MLP weights; unembed is embed's shape transposed), then ragged ones
+OLMO_LEAVES = [(50688, 2048), (2048,), (16, 2048), (16, 2048, 2048),
+               (16, 2048, 8192)]
+RAGGED_LEAVES = [(1,), (3,), (4 * 1000 + 3,), (16384 + 5,), (2, 3, 5)]
+
+
+def _adamw_leaf(gen, shape, pd, gd, offset=0):
+    """p (pd), g (gd), m and v (fp32, v > 0) on the card, as a few steps
+    in; ``offset`` elements into their storage, so an offset of 1 starts
+    each off its 16-byte alignment (the kernel's element-by-element
+    path)."""
+    n = int(np.prod(shape))
+
+    def draw(dtype, scale=1.0):
+        t = torch.randn(n + offset, generator=gen, device=gen.device)
+        return (t * scale).to(dtype)[offset:].view(shape)
+
+    return (draw(pd), draw(gd, 3.0), draw(torch.float32, 0.1),
+            draw(torch.float32, 0.01).abs())
+
+
+def _adamw_scalars(dev, cfg, k=3, scale=0.43):
+    """(scale, lr, bc1, bc2) of step ``k``, fp32 on the card, as
+    ``adamw_update`` computes them."""
+    step = torch.tensor(k, dtype=torch.int32, device=dev)
+    t = step.to(torch.float32)
+    return (torch.tensor(scale, device=dev), lr_schedule(cfg, step),
+            1 - torch.pow(cfg.b1, t), 1 - torch.pow(cfg.b2, t))
+
+
+@pytest.mark.parametrize("shape,pd,gd,offset", [
+    *((s, "float32", "float32", 0) for s in OLMO_LEAVES),
+    *((s, pd, gd, off) for s in RAGGED_LEAVES
+      for pd, gd in (("float32", "float32"), ("bfloat16", "float32"),
+                     ("float32", "bfloat16"), ("bfloat16", "bfloat16"))
+      for off in (0, 1)),
+])
+def test_adamw_step_kernel_is_bitwise_the_plain_version(cuda, shape, pd, gd,
+                                                        offset):
+    """One launch gives the plain version's p, m and v on the card bit for
+    bit, given the same scale, lr and bias corrections: at olmo_1b's leaf
+    shapes and at ragged ones, p and g fp32 or bf16, aligned or not."""
+    cfg = OptimizerConfig()
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + offset)
+    p, g, m, v = _adamw_leaf(gen, shape, getattr(torch, pd),
+                             getattr(torch, gd), offset)
+    want = [t.clone() for t in (p, m, v)]
+    scalars = _adamw_scalars(cuda, cfg)
+    before = adamw_ops.adamw_step.launches
+    adamw.adamw_step(cfg, p, g, m, v, *scalars)
+    adamw.adamw_step_ref(cfg, want[0], g, want[1], want[2], *scalars)
+    torch.cuda.synchronize()
+    assert adamw_ops.adamw_step.launches == before + 1
+    for name, got, w in zip("pmv", (p, m, v), want):
+        assert got.dtype == w.dtype
+        assert torch.equal(got, w), (name, float((got.float() - w.float())
+                                                 .abs().max()))
+
+
+def test_adamw_sumsq_kernel_norm_scale_and_bits(cuda):
+    """The clip's pass over olmo_1b's leaves and ragged ones (bf16,
+    unaligned and empty ones too): the norm within 1e-5 relative of a
+    float64 sum, the scale min(clip / norm, 1), and two calls the same
+    bits."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    leaves = [_adamw_leaf(gen, s, torch.float32, torch.float32)[1]
+              for s in OLMO_LEAVES]
+    leaves += [_adamw_leaf(gen, s, torch.float32, dt, off)[1]
+               for s in RAGGED_LEAVES
+               for dt, off in ((torch.bfloat16, 0), (torch.float32, 1))]
+    leaves.append(torch.zeros(0, device=cuda))
+    want = float(np.sqrt(sum(float(torch.sum(g.double() ** 2))
+                             for g in leaves)))
+    before = adamw_ops.adamw_sumsq.launches
+    for clip in (1.0, 1e9):
+        norm, scale = adamw.adamw_sumsq(leaves, clip)
+        again, scale2 = adamw.adamw_sumsq(leaves, clip)
+        torch.cuda.synchronize()
+        assert norm.shape == () and norm.device == leaves[0].device
+        assert abs(float(norm) - want) <= 1e-5 * want
+        assert torch.equal(norm, again) and torch.equal(scale, scale2)
+        assert float(scale) == pytest.approx(min(clip / float(norm), 1.0),
+                                             rel=1e-6)
+    assert adamw_ops.adamw_sumsq.launches == before + 4
+
+
+def test_adamw_kernels_refuse_strided_and_other_dtypes(cuda):
+    cfg = OptimizerConfig()
+    scalars = _adamw_scalars(cuda, cfg)
+    z = torch.zeros((64, 32), device=cuda)
+    before = (adamw_ops.adamw_step.launches, adamw_ops.adamw_sumsq.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw.adamw_step(cfg, z.t(), z.t().clone(), z.t().clone(),
+                         z.t().clone(), *scalars)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw.adamw_step(cfg, z.clone(), torch.zeros((32, 64),
+                                                     device=cuda).t(),
+                         z.clone(), z.clone(), *scalars)
+    with pytest.raises(ValueError, match="float16"):
+        adamw.adamw_step(cfg, z.half(), z.clone(), z.clone(), z.clone(),
+                         *scalars)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw.adamw_sumsq([z, z.t()], 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw.adamw_sumsq([z, z.cpu()], 1.0)
+    assert (adamw_ops.adamw_step.launches,
+            adamw_ops.adamw_sumsq.launches) == before
+
+
+def _adamw_tree(gen):
+    shapes = {"a": (2048, 512), "b": (16, 2048), "c": (4099,),
+              "d": {"e": (3, 1000)}, "one": (1,)}
+
+    def draw(_, s):
+        return torch.randn(s, generator=gen, device=gen.device)
+
+    params = tree_map(draw, shapes)
+    params["d"]["e"] = params["d"]["e"].to(torch.bfloat16)
+    return shapes, params, draw
+
+
+def _plain_adamw_update(cfg, params, grads, state):
+    """``adamw_update`` with the plain versions on the card: the torch
+    update as it ran before the kernels."""
+    norm = global_norm(grads)
+    scale = adamw.clip_scale_ref(norm, cfg.clip_norm)
+    step = state["step"] + 1
+    lr = lr_schedule(cfg, step)
+    t = step.to(torch.float32)
+    bc1, bc2 = 1 - torch.pow(cfg.b1, t), 1 - torch.pow(cfg.b2, t)
+    for p, g, m, v in zip(*(tree_leaves(x) for x in (
+            params, grads, state["mu"], state["nu"]))):
+        adamw.adamw_step_ref(cfg, p, g, m, v, scale, lr, bc1, bc2)
+    state["step"] = step
+    return norm
+
+
+def test_adamw_update_makes_no_sync_and_launches_once_a_leaf(cuda):
+    """A full ``adamw_update`` on the card runs under
+    ``set_sync_debug_mode("error")``: nothing read back to the host. It
+    makes one clip pass and one step launch a leaf; two identical runs of
+    two steps give the same bits."""
+    cfg = OptimizerConfig(warmup_steps=2)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        shapes, params, draw = _adamw_tree(gen)
+        state = init_opt_state(params)
+        grads = [tree_map(draw, shapes) for _ in range(2)]
+        adamw_update(cfg, params, tree_map(draw, shapes), state)  # builds
+        torch.cuda.synchronize()
+        before = (adamw_ops.adamw_sumsq.launches,
+                  adamw_ops.adamw_step.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for g in grads:
+                params, state, out = adamw_update(cfg, params, g, state)
+            with pytest.raises(RuntimeError):
+                torch.tensor([7], device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        leaves = len(list(tree_leaves(params)))
+        assert (adamw_ops.adamw_sumsq.launches,
+                adamw_ops.adamw_step.launches) == (before[0] + 2,
+                                                   before[1] + 2 * leaves)
+        assert out["grad_norm"].is_cuda and out["lr"].is_cuda
+        runs.append(list(tree_leaves({"p": params, "mu": state["mu"],
+                                      "nu": state["nu"]}))
+                    + [out["grad_norm"]])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_adamw_update_on_card_tracks_the_plain_update(cuda):
+    """Three steps through the kernels against three through the plain
+    versions on the card, from the same params and gradients: each leaf's
+    change within the benchmark's ``change_gap`` rule (the gap of the
+    change's norms over the larger of the leaf's and the median leaf's,
+    at most olmo_1b.train's limit of 1e-3), and the norms within 1e-5."""
+    cfg = OptimizerConfig(warmup_steps=1, clip_norm=0.5)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    shapes, params, draw = _adamw_tree(gen)
+    plain = tree_map(lambda _, t: t.clone(), params)
+    p0 = tree_map(lambda _, t: t.float().clone(), params)
+    state, plain_state = init_opt_state(params), init_opt_state(plain)
+    for _ in range(3):
+        g = tree_map(draw, shapes)
+        params, state, out = adamw_update(cfg, params, g, state)
+        norm = _plain_adamw_update(cfg, plain, g, plain_state)
+        assert float(out["grad_norm"]) == pytest.approx(float(norm),
+                                                        rel=1e-5)
+    got, want = ([float((p.float() - q).norm()) for p, q in zip(
+        tree_leaves(t), tree_leaves(p0))] for t in (params, plain))
+    med = float(np.median(want))
+    gaps = [abs(a - b) / max(b, med) for a, b in zip(got, want)]
+    assert max(gaps) <= 1e-3, gaps
