@@ -922,14 +922,17 @@ def chain_bytes(b, s, w, gn, h):
 def check_ssm_chain(gen, flush):
     """The Mamba-2 chain's two kernels against their plain versions in fp32
     (on the same bf16 inputs) at mamba2_780m's and zamba2_1_2b's prefill
-    widths, B 4 x S 2048, at the smoke widths and at a prompt of 2 tokens
-    (shorter than the conv); two calls bitwise equal; timed at B 4 x S
-    2048: the kernel (CUDA events, and alone by the profiler, L2 flushed),
+    widths, B 4 x S 2048, at granite_4_h_small's (W 8192, H 128) at its
+    cell's B 8 x S 4096, at the smoke widths and at a prompt of 2 tokens
+    (shorter than the conv); two calls bitwise equal; timed at those
+    sizes: the kernel (CUDA events, and alone by the profiler, L2 flushed),
     the plain version on the card (the torch chain) and the bytes bound.
     Returns the two kernels' JSON entries."""
     cases = [  # (timed as, label, b, s, w, gn, h, p)
         ("main", "mamba2_780m", 4, 2048, 3072, 128, 48, 64),
         ("zamba2_1_2b", "zamba2_1_2b", 4, 2048, 4096, 64, 64, 64),
+        ("granite_4_h_small", "granite_4_h_small", 8, 4096, 8192, 128, 128,
+         64),
         (None, "mamba2_780m S=2", 3, 2, 3072, 128, 48, 64),
         (None, "smoke", 4, 16, 128, 16, 8, 16),
     ]
@@ -979,7 +982,8 @@ def check_ssm_chain(gen, flush):
     return [{"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/ssm_chain.cu", "replaces": None,
              "launches": None, "max_abs_err": worst[name],
-             **out[name]["main"], "zamba2_1_2b": out[name]["zamba2_1_2b"]}
+             **out[name]["main"], "zamba2_1_2b": out[name]["zamba2_1_2b"],
+             "granite_4_h_small": out[name]["granite_4_h_small"]}
             for name in out]
 
 

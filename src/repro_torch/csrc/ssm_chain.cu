@@ -42,6 +42,10 @@
 // and holds its gated values, fp32, in registers (VPT vectors of 8 a
 // thread), so the sum of squares is reduced in the block, in a fixed
 // order (bitwise deterministic), and the row is written once in bf16.
+// VPT is the least that holds the row, one instance each up to MAX_VPT:
+// W <= 8192 (Granite 4.0-H's d_inner). A row of W <= 4096 runs the same
+// instance, with the same threads and order, as before the wider ones
+// were added (bitwise the same output).
 //
 // Layout: every tensor contiguous, rows [B*S] by channels; y [B,S,H,P]
 // is [B*S, H*P] (channel c of head c / P); 16-byte aligned pointers, the
@@ -62,7 +66,7 @@ constexpr int CONV_ROWS = 4;     // rows of one sequence a thread computes
 constexpr int K = 4;             // the conv width: every config's ssm_conv
 constexpr int NORM_THREADS = 128;
 constexpr int NORM_WARPS = NORM_THREADS / 32;
-constexpr int MAX_VPT = 4;       // vectors a thread holds: W <= 4096
+constexpr int MAX_VPT = 8;       // vectors a thread holds: W <= 8192
 constexpr float SOFTPLUS_THRESHOLD = 20.f;   // torch.nn.functional.softplus
 
 struct ConvArgs {
@@ -332,7 +336,11 @@ int ssm_chain_gated_rmsnorm_bf16(const void* y, const void* xc, const void* z,
     case 1: return launch_norm<1>(args, rows, s);
     case 2: return launch_norm<2>(args, rows, s);
     case 3: return launch_norm<3>(args, rows, s);
-    default: return launch_norm<4>(args, rows, s);
+    case 4: return launch_norm<4>(args, rows, s);
+    case 5: return launch_norm<5>(args, rows, s);
+    case 6: return launch_norm<6>(args, rows, s);
+    case 7: return launch_norm<7>(args, rows, s);
+    default: return launch_norm<8>(args, rows, s);
   }
 }
 

@@ -101,9 +101,11 @@ def rope_table(cfg, s_max: int, device):
 
 
 @functools.lru_cache(maxsize=None)
-def _scale(hd: int) -> float:
-    """1/sqrt(hd) rounded to bf16, the torch path's bf16 scalar."""
-    return float(torch.tensor(1.0 / (hd ** 0.5), dtype=torch.bfloat16))
+def _scale(hd: int, scale=None) -> float:
+    """The softmax scale (``scale``, or 1/sqrt(hd)) rounded to bf16, the
+    torch path's bf16 scalar."""
+    return float(torch.tensor(1.0 / (hd ** 0.5) if scale is None else scale,
+                              dtype=torch.bfloat16))
 
 
 def _bind(lib):
@@ -175,18 +177,18 @@ def _strides_arg(strides):
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
-def decode_attention(q, k, v, ck, cv, pos, rope=None):
+def decode_attention(q, k, v, ck, cv, pos, rope=None, scale=None):
     """Attention of the new token over the KV cache, with the cache write.
 
     q [B,1,H,hd], k/v [B,1,KV,hd]: the new token's projections, before
     RoPE; ck/cv [B,S,KV,hd]: the cache, written in place at ``pos``, a
     0-d int32 tensor on q's device, read there (module docstring);
     ``rope``: the (cos, sin) table of ``rope_table``, or None for no
-    RoPE. Returns the attention over keys [0, pos] as [B, 1, H*hd] in
-    q's dtype: the plain version on CPU tensors, the kernel on CUDA
-    tensors (or ValueError)."""
+    RoPE; ``scale``: the softmax scale, None for 1/sqrt(hd). Returns the
+    attention over keys [0, pos] as [B, 1, H*hd] in q's dtype: the plain
+    version on CPU tensors, the kernel on CUDA tensors (or ValueError)."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, ck, cv, pos, rope)
+        return decode_attention_ref(q, k, v, ck, cv, pos, rope, scale)
     _build.refuse_grad("decode_attention", (q, k, v),
                        "decode under torch.no_grad or inference_mode")
     if getattr(pos, "dtype", None) != torch.int32 or pos.dim():
@@ -213,7 +215,8 @@ def decode_attention(q, k, v, ck, cv, pos, rope=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ck.data_ptr(),
             cv.data_ptr(), cos, sin, out.data_ptr(),
             None if work is None else work.data_ptr(),
-            b, h, kv, hd, slots, pos.data_ptr(), splits, chunk, _scale(hd),
+            b, h, kv, hd, slots, pos.data_ptr(), splits, chunk,
+            _scale(hd, scale),
             _strides_arg(strides), _build.stream_ptr(q))
     _build.check(lib, "decode_attn", rc)
     decode_attention.launches += 1

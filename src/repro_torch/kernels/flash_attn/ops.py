@@ -41,6 +41,12 @@ from .ref import attention_ref
 HEAD_DIMS = (64, 80, 96, 128)
 
 
+def softmax_scale(hd: int, scale=None) -> float:
+    """The softmax scale of a call: ``scale``, or 1/sqrt(hd) of the real
+    head dim."""
+    return 1.0 / (hd ** 0.5) if scale is None else float(scale)
+
+
 def padded_head_dim(hd: int) -> int:
     """The head dim the kernel runs for a real head dim ``hd``: ``hd``
     itself when native, else the smallest of ``HEAD_DIMS`` above it.
@@ -121,17 +127,18 @@ def regime(causal: bool, sq: int, skv: int) -> str:
     return REGIMES[1] if sq == skv else REGIMES[2]
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """softmax(q k^T / sqrt(hd)) v with native GQA; causal queries are
-    end-aligned (they sit at the last Sq of the Skv keys).
+def flash_attention(q, k, v, causal: bool = True, scale=None):
+    """softmax(q k^T * scale) v with native GQA, ``scale`` by default
+    1/sqrt(hd); causal queries are end-aligned (they sit at the last Sq of
+    the Skv keys).
 
     Pallas layout: q [BH, Sq, hd], k/v [BKV, Skv, hd] -> [BH, Sq, hd].
     Model layout: q [B, Sq, H, hd], k/v [B, Skv, KV, hd] -> [B, Sq, H, hd].
     """
-    return _attend(q, k, v, causal, with_lse=False)[0]
+    return _attend(q, k, v, causal, with_lse=False, scale=scale)[0]
 
 
-def _attend(q, k, v, causal: bool, with_lse: bool):
+def _attend(q, k, v, causal: bool, with_lse: bool, scale=None):
     """``flash_attention``'s (out, lse): the plain version on CPU tensors
     (lse None), else the forward kernel, and with ``with_lse`` each row's
     fp32 log-sum-exp of the scaled, masked scores in log2 units, [B, H,
@@ -139,7 +146,7 @@ def _attend(q, k, v, causal: bool, with_lse: bool):
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
         raise ValueError("q, k, v must all be 3-D or all 4-D")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal), None
+        return attention_ref(q, k, v, causal, scale), None
     _build.refuse_grad("flash_attention", (q, k, v),
                        "call FlashAttention.apply, which has a backward")
     hd = q.shape[-1]
@@ -165,14 +172,16 @@ def _attend(q, k, v, causal: bool, with_lse: bool):
         rc = _bind(lib)(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                         o4.data_ptr(), None if lse is None else lse.data_ptr(),
                         b, h, kv, sq, skv, hdp, int(causal),
-                        1.0 / (hd ** 0.5), strides, _build.stream_ptr(q))
+                        softmax_scale(hd, scale), strides,
+                        _build.stream_ptr(q))
     _build.check(lib, "flash_attn", rc)
     flash_attention.launches += 1
     flash_attention.launches_by_regime[regime(causal, sq, skv)] += 1
     return (out[..., :hd].contiguous() if pad else out), lse
 
 
-def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
+                             scale=None):
     """Gradients (dq, dk, dv) of ``flash_attention`` for its output's
     gradient ``do``, in either layout of the op: on CUDA tensors the
     backward kernels (``csrc/flash_attn_bwd.cu``: D = rowsum(do o o),
@@ -183,14 +192,15 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     ``attention_bwd``, which recomputes everything from q, k, v and reads
     neither ``o`` nor ``lse``. Head dims the kernels do not take natively
     are zero-padded as the forward pads them (o and do too), with the
-    scale of the real head dim, and the gradients sliced. A causal call
-    needs Sq <= Skv on the card (every causal call the models make)."""
+    scale of the real head dim, and the gradients sliced. ``scale`` is the
+    forward's softmax scale (None: 1/sqrt(hd)). A causal call needs
+    Sq <= Skv on the card (every causal call the models make)."""
     if q.device.type == "cpu":
         if q.dim() == 3:  # Pallas layout as [1, S, BH, hd] views
             grads = attention_bwd(*(_to_bshd(t) for t in (q, k, v, do)),
-                                  causal)
+                                  causal, scale)
             return tuple(t[0].permute(1, 0, 2) for t in grads)
-        return attention_bwd(q, k, v, do, causal)
+        return attention_bwd(q, k, v, do, causal, scale)
     hd = q.shape[-1]
     pad = padded_head_dim(hd) - hd
     if pad:
@@ -231,7 +241,7 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
         rc = fn(*(t.data_ptr() for t in (q4, k4, v4, o4, do4)),
                 lse.data_ptr(), *(t.data_ptr() for t in ts[5:]),
                 work.data_ptr(), b, h, kv, sq, skv, hdp, int(causal),
-                1.0 / (hd ** 0.5), strides, sms, _build.stream_ptr(q))
+                softmax_scale(hd, scale), strides, sms, _build.stream_ptr(q))
     _build.check(lib, "flash_attn_bwd", rc)
     flash_attention.bwd_launches += 1
     if pad:
@@ -255,8 +265,9 @@ def _bmm_acc(a, b, acc):
     return torch.bmm(a.to(acc), b.to(acc))
 
 
-def attention_bwd(q, k, v, do, causal: bool = True):
-    """Gradients (dq, dk, dv) of ``attention_ref`` for model-layout
+def attention_bwd(q, k, v, do, causal: bool = True, scale=None):
+    """Gradients (dq, dk, dv) of ``attention_ref`` (at softmax scale
+    ``scale``, None: 1/sqrt(hd)) for model-layout
     q [B, Sq, H, hd], k/v [B, Skv, KV, hd] and the output's gradient do,
     in explicit torch, with native GQA (head h reads KV head h // (H/KV);
     dk and dv sum over the group) and the causal mask end-aligned as in
@@ -275,7 +286,7 @@ def attention_bwd(q, k, v, do, causal: bool = True):
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
-    scale = 1.0 / (hd ** 0.5)
+    scale = softmax_scale(hd, scale)
     mask = (torch.ones((sq, skv), dtype=torch.bool, device=q.device)
             .tril(diagonal=skv - sq) if causal else None)
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
@@ -323,12 +334,13 @@ class FlashAttention(torch.autograd.Function):
     gradient. It saves q, k, v, the output and the log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True):
+    def forward(ctx, q, k, v, causal=True, scale=None):
         with span("kernel.flash_attn.fwd"):
             out, lse = _attend(q, k, v, causal,
-                               with_lse=any(ctx.needs_input_grad[:3]))
+                               with_lse=any(ctx.needs_input_grad[:3]),
+                               scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
@@ -336,4 +348,5 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         with span("kernel.flash_attn.bwd"):
             return (*flash_attention_backward(q, k, v, o, lse, do,
-                                              ctx.causal), None)
+                                              ctx.causal, ctx.scale),
+                    None, None)

@@ -5,14 +5,15 @@ fp32 (float64 for float64 inputs)."""
 import torch
 
 
-def attention_ref(q, k, v, causal=True):
+def attention_ref(q, k, v, causal=True, scale=None):
     """Pallas layout q [BH, Sq, hd], k/v [BKV, Skv, hd] -> [BH, Sq, hd],
     or model layout q [B, Sq, H, hd], k/v [B, Skv, KV, hd] ->
-    [B, Sq, H, hd]; in q.dtype."""
+    [B, Sq, H, hd]; in q.dtype; the scores scaled by ``scale`` (None:
+    divided by sqrt(hd))."""
     if q.dim() == 4:
         b, sq, h, hd = q.shape
         o = attention_ref(*(t.permute(0, 2, 1, 3).flatten(0, 1)
-                            for t in (q, k, v)), causal)
+                            for t in (q, k, v)), causal, scale)
         return o.reshape(b, h, sq, hd).permute(0, 2, 1, 3)
     bh, sq, hd = q.shape
     bkv, skv, _ = k.shape
@@ -20,7 +21,8 @@ def attention_ref(q, k, v, causal=True):
     acc = torch.promote_types(q.dtype, torch.float32)
     kk = k.repeat_interleave(g, dim=0)
     vv = v.repeat_interleave(g, dim=0)
-    s = torch.einsum("bqd,bkd->bqk", q.to(acc), kk.to(acc)) / (hd ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), kk.to(acc))
+    s = s / (hd ** 0.5) if scale is None else s * scale
     if causal:
         mask = torch.ones((sq, skv), dtype=torch.bool,
                           device=q.device).tril(diagonal=skv - sq)

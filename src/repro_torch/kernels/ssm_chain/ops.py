@@ -7,7 +7,9 @@ and SiLU of the x, B and C projections, softplus(dt + dt_bias) and A =
 gate and the gated RMSNorm). On the card each is one launch, which reads
 its inputs once and writes its outputs once, sums in fp32 and rounds
 once; ``conv_silu.launches`` and ``gated_rmsnorm.launches`` count the
-calls that launched them.
+calls that launched them, and while spans are live (a profiler records)
+the span counter ``ssm_chain.launches_by_kind`` counts the same
+launches as [conv_silu, gated_rmsnorm].
 
 The kernels are forward-only: each op refuses inputs that autograd would
 record (``_build.refuse_grad``), on any device. ``models.ssm._block``
@@ -21,11 +23,13 @@ import ctypes
 
 import torch
 
+from ...launch import spans
 from .. import _build
 from .ref import conv_silu_ref, gated_rmsnorm_ref
 
 CONV_K = 4          # the conv width the kernel takes, every config's (csrc: K)
-MAX_WIDTH = 4096    # widest row the norm keeps in registers (csrc: MAX_VPT)
+MAX_WIDTH = 8192    # widest row the norm keeps in registers (csrc: MAX_VPT)
+COUNTER = "ssm_chain.launches_by_kind"   # [conv_silu, gated_rmsnorm]
 EPS = 1e-6          # common.rmsnorm's
 
 
@@ -114,6 +118,7 @@ def conv_silu(xin, bm, cm, wx, wb, wc, dt, dt_bias, a_log):
             b, s, w, gn, h, k, _build.stream_ptr(xin))
     _build.check(lib, "ssm_chain", rc)
     conv_silu.launches += 1
+    spans.count(COUNTER, [1, 0])
     return xc, bc, cc, dt_out, a
 
 
@@ -158,6 +163,7 @@ def gated_rmsnorm(y, xc, z, d, gn_scale):
                            h * p, p, EPS, _build.stream_ptr(y))
     _build.check(lib, "ssm_chain", rc)
     gated_rmsnorm.launches += 1
+    spans.count(COUNTER, [0, 1])
     return out
 
 

@@ -58,18 +58,20 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator,
 
 
 def flash_attention(q, k, v, causal: bool, q_offset: int = 0,
-                    chunk: int = KV_CHUNK):
+                    chunk: int = KV_CHUNK, scale: Optional[float] = None):
     """Online-softmax attention with native GQA (the model's own path).
 
     q [B, Sq, H, hd]; k/v [B, Skv, KV, hd] with H = KV * G; queries
-    start-aligned at ``q_offset``. Returns [B, Sq, H, hd]."""
+    start-aligned at ``q_offset``; the softmax scale ``scale``, by default
+    1/sqrt(hd). Returns [B, Sq, H, hd]."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
     chunk = min(chunk, skv)
     while skv % chunk:
         chunk -= 1  # largest divisor of skv below the target chunk
-    scale = torch.tensor(1.0 / (hd ** 0.5), dtype=q.dtype)
+    scale = torch.tensor(1.0 / (hd ** 0.5) if scale is None else scale,
+                         dtype=q.dtype)
     qf = (q * scale).reshape(b, sq, kv, g, hd).float()
     q_pos = q_offset + torch.arange(sq, device=q.device)
 
@@ -99,15 +101,15 @@ def flash_attention(q, k, v, causal: bool, q_offset: int = 0,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _attend_local(q, k, v, causal: bool):
+def _attend_local(q, k, v, causal: bool, scale: Optional[float] = None):
     """Kernel on CUDA (under autograd), the model's chunked flash on
-    CPU."""
+    CPU; softmax scale ``scale`` (None: 1/sqrt(hd))."""
     if q.is_cuda:
-        return flash_kernel.FlashAttention.apply(q, k, v, causal)
-    return flash_attention(q, k, v, causal=causal)
+        return flash_kernel.FlashAttention.apply(q, k, v, causal, scale)
+    return flash_attention(q, k, v, causal=causal, scale=scale)
 
 
-def _attend_sharded(q, k, v, causal: bool):
+def _attend_sharded(q, k, v, causal: bool, scale: Optional[float] = None):
     """``_attend_local`` on each rank's shard of DTensor q, k, v
     [B, S, heads, hd]: the batch as sharded, the heads over "model" when
     both H and KV divide its size. When only H divides and the model
@@ -129,16 +131,16 @@ def _attend_sharded(q, k, v, causal: bool):
         qp, kvp = heads, batch
         j = mesh.get_local_rank(md) // (m // kv)
 
-        def fn(q, k, v, causal):
+        def fn(q, k, v, causal, scale):
             return _attend_local(q, k[:, :, j:j + 1], v[:, :, j:j + 1],
-                                 causal)
+                                 causal, scale)
     else:
         qp = kvp = batch
-    return parallel.local_call(fn, qp, (qp, kvp, kvp, None), q, k, v,
-                               causal)
+    return parallel.local_call(fn, qp, (qp, kvp, kvp, None, None), q, k, v,
+                               causal, scale)
 
 
-def _prefill_attend(q, k, v, causal: bool):
+def _prefill_attend(q, k, v, causal: bool, scale: Optional[float] = None):
     """Prefill attention: ``_attend_local``, or ``_attend_sharded`` on
     DTensors. Raises ValueError on a causal call with Sq != Skv, where the
     kernel and the CPU path align the queries differently (module
@@ -148,8 +150,8 @@ def _prefill_attend(q, k, v, causal: bool):
                          f"{k.shape[1]} keys: the kernel end-aligns the "
                          "queries, the CPU path start-aligns them")
     if parallel.is_dtensor(q):
-        return _attend_sharded(q, k, v, causal)
-    return _attend_local(q, k, v, causal)
+        return _attend_sharded(q, k, v, causal, scale)
+    return _attend_local(q, k, v, causal, scale)
 
 
 def _qkv(cfg: ModelConfig, params, x, kv_x=None, n_heads=None, n_kv=None):
@@ -209,7 +211,7 @@ def attention(cfg: ModelConfig, params: Dict, x, *, causal=True,
     q, k, v = _qkv(cfg, params, x, kv_x, n_heads, n_kv)
     if kv_x is None and cfg.use_rope:
         q, k = _rope_qk(cfg, q, k, positions, kv_positions)
-    out = _prefill_attend(q, k, v, causal)
+    out = _prefill_attend(q, k, v, causal, cfg.softmax_scale())
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
 
 
@@ -243,7 +245,7 @@ def prefill_into_cache(cfg: ModelConfig, params, x, cache, *,
         q, k = _rope_qk(cfg, q, k)
     parallel.write(cache["k"], k, (slice(None), slice(0, s)))
     parallel.write(cache["v"], v, (slice(None), slice(0, s)))
-    out = _prefill_attend(q, k, v, True)
+    out = _prefill_attend(q, k, v, True, cfg.softmax_scale())
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
 
 
@@ -265,12 +267,13 @@ def decode_attention(cfg: ModelConfig, params, x, cache, pos, *,
         q, k, v = _qkv(cfg, params, x, n_heads=n_heads, n_kv=n_kv)
         if use_rope:
             q, k = _rope_qk(cfg, q, k, pos.view(1))
-        out = _decode_sharded(q, ck, cv, pos, k, v)
+        out = _decode_sharded(q, ck, cv, pos, k, v, cfg.softmax_scale())
         return out.to(x.dtype) @ params["wo"].to(x.dtype), cache
     q, k, v = _qkv_token(cfg, params, x, n_heads, n_kv)
     table = (decode_kernel.rope_table(cfg, ck.shape[1], ck.device)
              if use_rope else None)
-    out = decode_kernel.decode_attention(q, k, v, ck, cv, pos, table)
+    out = decode_kernel.decode_attention(q, k, v, ck, cv, pos, table,
+                                         cfg.softmax_scale())
     wo = params["wo"]
     wo = wo if wo.dtype == x.dtype else wo.to(x.dtype)
     y = torch.mm(out.view(out.shape[0], -1), wo)    # out is in x's dtype
@@ -286,13 +289,14 @@ def attend_cache(q, ck, cv, pos: int):
     return gqa_decode_attend(q, ck, cv, pos)
 
 
-def _decode_sharded(q, ck, cv, pos, k=None, v=None):
+def _decode_sharded(q, ck, cv, pos, k=None, v=None, scale=None):
     """Write k/v (when given) at ``pos`` (a plain 0-d integer tensor on
     the rank's device; an int for the cross cache's last frame) into
     DTensor caches [B, S, KV, hd] placed by ``launch.sharding.cache_specs``
     and attend, on each rank's shards: q, k and v take the cache's batch
     and kv-head sharding and are replicated over the mesh dims that shard
-    its sequence (split-KV decode). Every rank writes one slot of its
+    its sequence (split-KV decode), at softmax scale ``scale`` (None:
+    1/sqrt(hd)). Every rank writes one slot of its
     shard on the device: the new key where the shard holds ``pos``, else
     the slot's own value back; ``gqa_decode_attend`` reduces over the
     groups that split the sequence (none when it is whole)."""
@@ -313,7 +317,7 @@ def _decode_sharded(q, ck, cv, pos, k=None, v=None):
             for c, new in ((ck, k), (cv, v)):
                 c.index_copy_(1, slot, torch.where(mine, new,
                                                    c.index_select(1, slot)))
-        return gqa_decode_attend(q, ck, cv, at, groups)
+        return gqa_decode_attend(q, ck, cv, at, groups, scale)
 
     kvp = keep if k is not None else None
     return parallel.local_call(local, keep, (keep, ck.placements,

@@ -19,6 +19,25 @@ from .parallel import replicate_like
 PyTree = Any
 
 VOCAB_PAD = 512  # pad vocab so the unembed shards on any model axis <= 512
+RMS_EPS = 1e-6   # rmsnorm's epsilon, every config's
+
+# A published config.json key -> the field (or property) it equals in the
+# port, or the port's fixed choice: its RMSNorm epsilon, no projection or
+# conv bias; None: recorded only (a NoPE model's context has no table to
+# hold it to).
+PUBLISHED = {
+    "hidden_size": "d_model", "num_hidden_layers": "n_layers",
+    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
+    "intermediate_size": "d_ff", "shared_intermediate_size": "shared_width",
+    "num_local_experts": "n_experts", "num_experts_per_tok": "top_k",
+    "vocab_size": "vocab", "mamba_n_heads": "ssm_heads",
+    "mamba_d_head": "ssm_head_dim", "mamba_d_state": "ssm_state",
+    "mamba_expand": "ssm_expand", "mamba_n_groups": "ssm_groups",
+    "mamba_d_conv": "ssm_conv", "mamba_chunk_size": "ssm_chunk",
+    "tie_word_embeddings": "tie_embeddings", "rms_norm_eps": RMS_EPS,
+    "attention_bias": False, "mamba_proj_bias": False,
+    "mamba_conv_bias": False, "max_position_embeddings": None,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +87,43 @@ class ModelConfig:
     ssm_chunk: int = 256
     # hybrid (Zamba-2): one shared attention block applied every k layers
     attn_every: int = 0
+    # hybrid with typed layers (Granite 4.0-H, the port's own; the
+    # reference has none of these): ``layer_types`` gives each layer's
+    # mixer, "mamba" or "attention", each followed by the feed-forward
+    # (empty: the family's own layout); the µP multipliers of the
+    # embedding, of every residual branch and of the logits (divided by
+    # ``logits_scaling``); the softmax scale (0: 1/sqrt(hd))
+    layer_types: tuple = ()
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+    # the published config.json's keys under their own names, as a
+    # configuration file states them beside the fields above; each is held
+    # to what the port runs (``published_mismatches``, ``PUBLISHED``);
+    # 0 or None: not stated
+    hidden_size: int = 0
+    num_hidden_layers: int = 0
+    num_attention_heads: int = 0
+    num_key_value_heads: int = 0
+    intermediate_size: int = 0
+    shared_intermediate_size: int = 0
+    num_local_experts: int = 0
+    num_experts_per_tok: int = 0
+    vocab_size: int = 0
+    mamba_n_heads: int = 0
+    mamba_d_head: int = 0
+    mamba_d_state: int = 0
+    mamba_expand: int = 0
+    mamba_n_groups: int = 0
+    mamba_d_conv: int = 0
+    mamba_chunk_size: int = 0
+    max_position_embeddings: int = 0
+    rms_norm_eps: float = 0.0
+    tie_word_embeddings: Optional[bool] = None
+    attention_bias: Optional[bool] = None
+    mamba_proj_bias: Optional[bool] = None
+    mamba_conv_bias: Optional[bool] = None
     # encoder-decoder (Whisper backbone)
     enc_layers: int = 0
     enc_frames: int = 1500
@@ -104,6 +160,31 @@ class ModelConfig:
     @property
     def is_ssm_family(self) -> bool:
         return self.family in ("ssm", "hybrid")
+
+    @property
+    def shared_width(self) -> int:
+        """The shared expert's SwiGLU width."""
+        return self.n_shared_experts * self.d_ff
+
+    def softmax_scale(self) -> Optional[float]:
+        """The attention's softmax scale, ``attention_multiplier``; None
+        for the default 1/sqrt(hd), which every kernel and path computes
+        as it always has."""
+        return self.attention_multiplier or None
+
+    def published_mismatches(self) -> list:
+        """["key: published X, runs Y"] of every stated published key
+        (``PUBLISHED``) that disagrees with what the port runs."""
+        out = []
+        for key, runs in PUBLISHED.items():
+            stated = getattr(self, key)
+            if runs is None or stated is None or (
+                    stated is not False and stated == 0):
+                continue
+            want = getattr(self, runs) if isinstance(runs, str) else runs
+            if stated != want:
+                out.append(f"{key}: published {stated!r}, runs {want!r}")
+        return out
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -166,7 +247,7 @@ def tree_map(fn, tree: PyTree, path: str = "") -> PyTree:
 # Norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x, scale, eps=1e-6):
+def rmsnorm(x, scale, eps=RMS_EPS):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)

@@ -19,6 +19,21 @@ apart: ``layers`` holds every layer's attention and norms, ``dense_layers``
 the leading layers' ``mlp`` and ``moe_layers`` the others' ``moe``
 (``_per_layer`` puts each layer's tree together).
 
+A hybrid config with ``layer_types`` (Granite 4.0-H) runs a typed
+layout instead of Zamba-2's: layer i's mixer is a Mamba-2 layer or
+attention as ``layer_types[i]`` says, and every layer's feed-forward
+(the MoE, or the MLP where the config has no experts) follows it.
+``layers`` holds every layer's mixer norm, ``ffn_norm`` and
+feed-forward; ``mamba_layers`` the Mamba-2 layers' ``ssm`` and
+``attn_layers`` the attention layers' ``attn``; the cache holds Mamba-2
+state for the Mamba-2 layers alone and KV for the attention layers
+alone, under one ``pos``. Every family's walk dispatches on the layer's
+own tree (``_per_layer`` names a typed layer's mixer norm ``ssm_norm``
+or ``attn_norm``). The µP multipliers (``embedding_multiplier``,
+``residual_multiplier``, ``logits_scaling``) apply in ``_embed``, every
+residual branch (``_scaled``) and ``_unembed``; each is skipped at its
+default of 1, so the other configs compute what they always have.
+
 Training: ``loss_fn`` is the reference's next-token cross entropy.
 When autograd records, ``forward`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, non-reentrant), the counterpart of the
@@ -91,12 +106,28 @@ def _shared_fires(cfg: ModelConfig, shared, idx: int) -> bool:
 # ---------------------------------------------------------------------------
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+# the typed layout's layer types and their mixers' stacks (module
+# docstring)
+MIXER_STACKS = {"mamba": "mamba_layers", "attention": "attn_layers"}
+LAYER_TYPES = tuple(MIXER_STACKS)
 
 
 def _check_layout(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.arch_id}: family {cfg.family!r} is not a "
                          f"decoder-only LM ({FAMILIES})")
+    types = cfg.layer_types
+    if types and (cfg.family != "hybrid" or len(types) != cfg.n_layers
+                  or not set(types) <= set(LAYER_TYPES) or cfg.attn_every
+                  or cfg.first_dense_layers):
+        raise ValueError(f"{cfg.arch_id}: layer_types needs the hybrid "
+                         f"family, one of {LAYER_TYPES} for each of the "
+                         f"{cfg.n_layers} layers, and neither attn_every "
+                         f"nor first_dense_layers")
+    bad = cfg.published_mismatches()
+    if bad:
+        raise ValueError(f"{cfg.arch_id}: the published keys disagree with "
+                         f"what the port runs: {'; '.join(bad)}")
     nd = cfg.first_dense_layers
     if nd and (cfg.family != "moe" or not 0 < nd < cfg.n_layers
                or cfg.dense_d_ff <= 0):
@@ -116,13 +147,16 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype,
         return torch.ones((cfg.d_model,), dtype=torch.float32,
                           device=gen.device)
 
-    if cfg.is_ssm_family:
+    if cfg.layer_types:
+        p = {"mixer_norm": ones(), "ffn_norm": ones()}
+    elif cfg.is_ssm_family:
         return {"ssm_norm": ones(), "ssm": init_mamba2(cfg, gen, dtype=dtype)}
-    p = {"attn_norm": ones(), "attn": init_attn(cfg, gen, dtype=dtype),
-         "ffn_norm": ones()}
+    else:
+        p = {"attn_norm": ones(), "attn": init_attn(cfg, gen, dtype=dtype),
+             "ffn_norm": ones()}
     if not ffn:
         return p
-    if cfg.family == "moe":
+    if cfg.family == "moe" or (cfg.layer_types and cfg.n_experts):
         p["moe"] = init_moe(cfg, gen, dtype=dtype)
     else:
         p["mlp"] = init_mlp(cfg, gen, dtype=dtype)
@@ -133,14 +167,40 @@ def _per_layer(cfg: ModelConfig, params: PyTree,
                views: Callable[[PyTree, int], List[PyTree]]) -> List[PyTree]:
     """Each layer's tree, ``views(stack, n)`` giving the ``n`` layers of a
     layer-stacked tree; in the leading-dense layout (module docstring)
-    each layer's attention and norms joined with its ``mlp`` or ``moe``."""
+    each layer's attention and norms joined with its ``mlp`` or ``moe``;
+    in the typed layout each layer's norms and feed-forward joined with
+    its mixer, the mixer norm named as the mixer's family names it."""
     layers = views(params["layers"], cfg.n_layers)
+    if cfg.layer_types:
+        mixers = {t: iter(views(params[MIXER_STACKS[t]],
+                                cfg.layer_types.count(t)))
+                  for t in set(cfg.layer_types)}
+        out = []
+        for lp, t in zip(layers, cfg.layer_types):
+            norm = "ssm_norm" if t == "mamba" else "attn_norm"
+            out.append({**{k: v for k, v in lp.items() if k != "mixer_norm"},
+                        norm: lp["mixer_norm"], **next(mixers[t])})
+        return out
     nd = cfg.first_dense_layers
     if not nd:
         return layers
     ffns = (views(params["dense_layers"], nd)
             + views(params["moe_layers"], cfg.n_layers - nd))
     return [{**a, **f} for a, f in zip(layers, ffns)]
+
+
+def _cache_slots(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """(cache entry, index in it) of each layer's state: its own slot of
+    ``layers``; in the typed layout a Mamba-2 layer's slot of ``layers``
+    and an attention layer's of ``attn``, in layer order."""
+    if not cfg.layer_types:
+        return [("layers", i) for i in range(cfg.n_layers)]
+    seen = {t: 0 for t in LAYER_TYPES}
+    out = []
+    for t in cfg.layer_types:
+        out.append(("layers" if t == "mamba" else "attn", seen[t]))
+        seen[t] += 1
+    return out
 
 
 def _layer_views(stack: PyTree, n: int) -> List[PyTree]:
@@ -192,6 +252,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> PyTree:
             cfg, gen, d_ff=cfg.dense_d_ff, dtype=dtype)})
         params["moe_layers"] = draw_layers(
             cfg.n_layers - nd, lambda: {"moe": init_moe(cfg, gen, dtype)})
+    mixers = {"mamba": lambda: {"ssm": init_mamba2(cfg, gen, dtype=dtype)},
+              "attention": lambda: {"attn": init_attn(cfg, gen, dtype=dtype)}}
+    for t, stack in MIXER_STACKS.items():
+        if t in cfg.layer_types:
+            params[stack] = draw_layers(cfg.layer_types.count(t), mixers[t])
     if cfg.family == "hybrid" and cfg.attn_every:
         ones = torch.ones((cfg.d_model,), dtype=torch.float32,
                           device=gen.device)
@@ -223,14 +288,27 @@ def _embed(cfg: ModelConfig, params: PyTree, tokens):
     batch sharding, replicated over "model"."""
     x = parallel.to_batch(parallel.gather_rows(params["embed"],
                                                tokens.long()))
-    return x.to(torch_dtype(cfg.compute_dtype))
+    x = x.to(torch_dtype(cfg.compute_dtype))
+    if cfg.embedding_multiplier != 1:
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def _unembed(cfg: ModelConfig, params: PyTree, x):
     with span("model.unembed"):
         x = apply_norm(cfg, x, params["final_norm"])
         logits = x @ params["unembed"].to(x.dtype)
+        if cfg.logits_scaling != 1:
+            logits = logits / cfg.logits_scaling
         return _vocab_mask(cfg, logits)
+
+
+def _scaled(cfg: ModelConfig, y):
+    """A residual branch's output times ``residual_multiplier`` (as it is
+    at the default 1)."""
+    if cfg.residual_multiplier == 1:
+        return y
+    return y * cfg.residual_multiplier
 
 
 def _shared_attn_apply(cfg: ModelConfig, shared: Dict, x, attend):
@@ -239,10 +317,10 @@ def _shared_attn_apply(cfg: ModelConfig, shared: Dict, x, attend):
     prefill into a KV slot, or one decode step)."""
     with span("model.attention"):
         h = apply_norm(cfg, x, shared["norm"])
-        x = x + parallel.like(attend(h), x)
+        x = x + parallel.like(_scaled(cfg, attend(h)), x)
     with span("model.mlp"):
         h = apply_norm(cfg, x, shared["mlp_norm"])
-        return x + parallel.like(mlp(cfg, shared["mlp"], h), x)
+        return x + parallel.like(_scaled(cfg, mlp(cfg, shared["mlp"], h)), x)
 
 
 # A residual sublayer: (kind, fn). ``kind`` is "mlp" (a dense MLP), "moe"
@@ -259,14 +337,14 @@ def _moe_sublayer(cfg: ModelConfig, norm, p: Dict) -> Sublayer:
             h = apply_norm(cfg, x, norm)
             if not split:
                 y, aux = moe(cfg, p, h)
-                return x + y, aux
+                return x + _scaled(cfg, y), aux
             # "mlp" remat: the router and routed experts are recomputed,
             # the shared expert (an MLP) is not
             y, aux = checkpoint(_recomputed, functools.partial(
                 moe, cfg, routed), h, use_reentrant=False)
             if "shared" in p:
                 y = y + parallel.like(mlp(cfg, p["shared"], h), y)
-            return x + y, aux
+            return x + _scaled(cfg, y), aux
     return "moe", fn
 
 
@@ -275,14 +353,17 @@ def residual(cfg: ModelConfig, norm, fn, name: str) -> Callable:
     a mesh, fn's output is reduced to x's placements before the add."""
     def run(x):
         with span(name):
-            return x + parallel.like(fn(apply_norm(cfg, x, norm)), x)
+            y = _scaled(cfg, fn(apply_norm(cfg, x, norm)))
+            return x + parallel.like(y, x)
     return run
 
 
 def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
                ) -> List[Sublayer]:
-    """Layer ``idx`` of ``forward`` as its residual sublayers, in order."""
-    if cfg.is_ssm_family:
+    """Layer ``idx`` of ``forward`` as its residual sublayers, in order:
+    its mixer (Mamba-2, with the hybrid's shared block where it fires, or
+    attention), then its feed-forward, if it has one."""
+    if "ssm" in lp:
         subs = [("mix", residual(cfg, lp["ssm_norm"], lambda h: mamba2_block(
             cfg, lp["ssm"], h), "model.ssm"))]
         if _shared_fires(cfg, shared, idx):
@@ -290,13 +371,15 @@ def _sublayers(cfg: ModelConfig, lp: Dict, shared, idx: int
                 cfg, shared["attn"], h, causal=True), "model.attention")),
                 ("mlp", residual(cfg, shared["mlp_norm"], lambda h: mlp(
                     cfg, shared["mlp"], h), "model.mlp"))]
-        return subs
-    attn = ("mix", residual(cfg, lp["attn_norm"], lambda h: attention(
-        cfg, lp["attn"], h, causal=True), "model.attention"))
+    else:
+        subs = [("mix", residual(cfg, lp["attn_norm"], lambda h: attention(
+            cfg, lp["attn"], h, causal=True), "model.attention"))]
     if "moe" in lp:
-        return [attn, _moe_sublayer(cfg, lp["ffn_norm"], lp["moe"])]
-    return [attn, ("mlp", residual(cfg, lp["ffn_norm"], lambda h: mlp(
-        cfg, lp["mlp"], h), "model.mlp"))]
+        subs.append(_moe_sublayer(cfg, lp["ffn_norm"], lp["moe"]))
+    elif "mlp" in lp:
+        subs.append(("mlp", residual(cfg, lp["ffn_norm"], lambda h: mlp(
+            cfg, lp["mlp"], h), "model.mlp")))
+    return subs
 
 
 def _run(subs: List[Sublayer], x, mlp_policy: bool = False):
@@ -427,10 +510,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dense, moe and vlm: KV [L, B, max_seq, KV, hd]; ssm: the Mamba-2 cache
     [L, B, ...]; hybrid: the Mamba-2 cache per layer plus the shared
     block's KV with ONE slot per invocation, ceil(L / attn_every) slots,
-    as the reference lays it out. ``pos``, the next decode position, is a
-    0-d int32 on ``device`` (``init_pos``)."""
+    as the reference lays it out; typed hybrid: the Mamba-2 cache of each
+    Mamba-2 layer (``layers``) and KV of each attention layer (``attn``),
+    in layer order (``_cache_slots``). ``pos``, the next decode position,
+    is a 0-d int32 on ``device`` (``init_pos``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     L = cfg.n_layers
+    if cfg.layer_types:
+        nm = cfg.layer_types.count("mamba")
+        na = L - nm
+        cache = {"pos": init_pos(device)}
+        if nm:
+            cache["layers"] = _stacked(init_ssm_cache(cfg, nm * batch, cdt,
+                                                      device), nm, batch)
+        if na:
+            cache["attn"] = _stacked(init_kv_cache(
+                na * batch, max_seq, cfg.n_kv_heads, cfg.hd, cdt, device),
+                na, batch)
+        return cache
     if not cfg.is_ssm_family:
         kv = init_kv_cache(L * batch, max_seq, cfg.n_kv_heads, cfg.hd, cdt,
                            device)
@@ -474,26 +571,28 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
                             b, params["embed"])
     x = _embed(cfg, params, tokens)
     shared = params.get("shared_attn")
+    slots = _cache_slots(cfg)
     for i, lp in enumerate(_per_layer(cfg, params, _layer_views)):
-        lc = layer_params(cache["layers"], i)
-        if cfg.is_ssm_family:
+        lc = layer_params(cache[slots[i][0]], slots[i][1])
+        if "ssm" in lp:
             with span("model.ssm"):
                 h = apply_norm(cfg, x, lp["ssm_norm"])
                 # one scan gives the output and the decode cache
                 y, _ = mamba2_prefill(cfg, lp["ssm"], h, lc)
-                x = x + parallel.like(y, x)
+                x = x + parallel.like(_scaled(cfg, y), x)
             if _shared_fires(cfg, shared, i):
                 ac = layer_params(cache["attn"], i // cfg.attn_every)
                 x = _shared_attn_apply(cfg, shared, x, lambda h: (
                     prefill_into_cache(cfg, shared["attn"], h, ac)[0]))
-            continue
-        with span("model.attention"):
-            h = apply_norm(cfg, x, lp["attn_norm"])
-            y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
-            x = x + parallel.like(y, x)
-        with span(_ffn_span(lp)):
-            h = apply_norm(cfg, x, lp["ffn_norm"])
-            x = x + parallel.like(_ffn(cfg, lp, h), x)
+        else:
+            with span("model.attention"):
+                h = apply_norm(cfg, x, lp["attn_norm"])
+                y, _ = prefill_into_cache(cfg, lp["attn"], h, lc)
+                x = x + parallel.like(_scaled(cfg, y), x)
+        if "ffn_norm" in lp:
+            with span(_ffn_span(lp)):
+                h = apply_norm(cfg, x, lp["ffn_norm"])
+                x = x + parallel.like(_scaled(cfg, _ffn(cfg, lp, h)), x)
     cache["pos"].fill_(s)
     return _unembed(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
@@ -508,25 +607,27 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
     pos = cache["pos"]
     x = _embed(cfg, params, tokens)[:, None, :]
     shared = params.get("shared_attn")
+    slots = _cache_slots(cfg)
     for i, lp in enumerate(_per_layer(cfg, params, _layer_views)):
-        lc = layer_params(cache["layers"], i)
-        if cfg.is_ssm_family:
+        lc = layer_params(cache[slots[i][0]], slots[i][1])
+        if "ssm" in lp:
             with span("model.ssm"):
                 h = apply_norm(cfg, x, lp["ssm_norm"])
                 y, _ = mamba2_decode(cfg, lp["ssm"], h, lc)
-                x = x + parallel.like(y, x)
+                x = x + parallel.like(_scaled(cfg, y), x)
             if _shared_fires(cfg, shared, i):
                 ac = layer_params(cache["attn"], i // cfg.attn_every)
                 x = _shared_attn_apply(cfg, shared, x, lambda h: (
                     decode_attention(cfg, shared["attn"], h, ac, pos)[0]))
-            continue
-        with span("model.attention"):
-            h = apply_norm(cfg, x, lp["attn_norm"])
-            y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
-            x = x + parallel.like(y, x)
-        with span(_ffn_span(lp)):
-            h = apply_norm(cfg, x, lp["ffn_norm"])
-            x = x + parallel.like(_ffn(cfg, lp, h), x)
+        else:
+            with span("model.attention"):
+                h = apply_norm(cfg, x, lp["attn_norm"])
+                y, _ = decode_attention(cfg, lp["attn"], h, lc, pos)
+                x = x + parallel.like(_scaled(cfg, y), x)
+        if "ffn_norm" in lp:
+            with span(_ffn_span(lp)):
+                h = apply_norm(cfg, x, lp["ffn_norm"])
+                x = x + parallel.like(_scaled(cfg, _ffn(cfg, lp, h)), x)
     logits = _unembed(cfg, params, x)[:, 0, :]
     pos.add_(1)
     return logits, cache

@@ -15,7 +15,7 @@ from .common import ModelConfig, tree_leaves, tree_map
 
 PyTree = Any
 
-# families whose decode step makes no host read (``decode_graph_ok``)
+# families whose decode step may be captured (``decode_graph_ok``)
 GRAPH_FAMILIES = ("dense", "ssm", "hybrid")
 
 
@@ -77,13 +77,21 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens, max_seq: int,
     return lm.prefill(cfg, params, tokens, max_seq, cache)
 
 
+def reads_back(cfg: ModelConfig) -> bool:
+    """Whether a decode step of ``cfg`` waits on the card for a host read:
+    a feed-forward that is the dropless MoE, which reads its experts' row
+    counts (``mlp._moe_dropless``), in any family."""
+    return bool(cfg.n_experts) and cfg.moe_impl == "dropless"
+
+
 def decode_graph_ok(cfg: ModelConfig, params: PyTree) -> bool:
     """Whether ``decode_step`` of ``cfg`` on ``params`` can be captured as
     one CUDA graph and replayed: with grad off, on CUDA parameters of
-    which none is a DTensor, for a family whose step reads nothing back
-    to the host (``GRAPH_FAMILIES``; the dropless MoE reads its experts'
-    row counts, and the audio family is left eager)."""
-    if cfg.family not in GRAPH_FAMILIES or torch.is_grad_enabled():
+    which none is a DTensor, for a step that reads nothing back to the
+    host (``reads_back``) of a family in ``GRAPH_FAMILIES`` (the audio,
+    vlm and gather-MoE families are left eager)."""
+    if (cfg.family not in GRAPH_FAMILIES or reads_back(cfg)
+            or torch.is_grad_enabled()):
         return False
     return all(not parallel.is_dtensor(t) and t.is_cuda
                for t in tree_leaves(params))
@@ -99,7 +107,7 @@ def active_params_count(cfg: ModelConfig, params: PyTree) -> int:
     sizes = {}
     tree_map(lambda path, t: sizes.__setitem__(path, t.numel()), params)
     total = sum(sizes.values())
-    if cfg.family != "moe":
+    if not cfg.n_experts:
         return total
     expert = sum(n for path, n in sizes.items()
                  if path.split("/")[-2:] in (["moe", "w1"], ["moe", "w2"],

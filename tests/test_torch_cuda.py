@@ -44,7 +44,7 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.steps import value_and_grad  # noqa: E402
 from repro_torch.models import attention, mlp, model_zoo  # noqa: E402
-from repro_torch.models.common import rope_freqs  # noqa: E402
+from repro_torch.models.common import ModelConfig, rope_freqs  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.common import (tree_get, tree_leaves,  # noqa: E402
                                        tree_map)
@@ -108,6 +108,30 @@ def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd, causal):
     torch.testing.assert_close(y.float(),
                                attention_ref(q, k, v, causal).float(),
                                **BF16_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", [(2, 512, 32, 8, 128),
+                                         (1, 300, 8, 2, 64)])
+def test_flash_kernels_at_a_given_scale_match_plain(cuda, b, s, h, kv, hd):
+    """At granite_4_h_small's softmax scale 1/128, GQA 4:1 (hd 128): the
+    forward kernel and, through ``FlashAttention``, the backward kernels
+    against the plain versions at the same scale; the scale reaches both
+    (the default's output differs)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, b, s, h, hd)
+    k, v = _randn(gen, b, s, kv, hd), _randn(gen, b, s, kv, hd)
+    do = _randn(gen, b, s, h, hd)
+    y = flash_attention(q, k, v, True, 0.0078125)
+    torch.testing.assert_close(
+        y.float(), attention_ref(q, k, v, True, 0.0078125).float(),
+        **BF16_TOL)
+    assert float((y.float() - flash_attention(q, k, v, True).float())
+                 .abs().max()) > 0.05
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = FlashAttention.apply(*leaves, True, 0.0078125)
+    got = torch.autograd.grad(out, leaves, do)
+    _scaled_close(got, flash_ops.attention_bwd(q, k, v, do, True,
+                                               0.0078125))
 
 
 @pytest.mark.parametrize("sq,skv,hd", [(63, 63, 80), (129, 200, 96),
@@ -333,9 +357,11 @@ def test_ssd_kernel_pads_small_head_dims(cuda, b, s, h, g, n, p, chunk):
 # the Mamba-2 chain around the scan (kernels/ssm_chain)
 # ---------------------------------------------------------------------------
 
-# (b, s, W, G*N, H, P): mamba2_780m's and zamba2_1_2b's widths and the
-# smoke configs' (W 128, G*N 16, H 8, P 16); two or more sequences in a
-# batch, a prompt shorter than the conv (S 2), one of 256 and one of 2048
+# (b, s, W, G*N, H, P): mamba2_780m's, zamba2_1_2b's and
+# granite_4_h_small's (W 8192, H 128) widths, one between (W 4352: the
+# norm's first instance past 4096) and the smoke configs' (W 128, G*N 16,
+# H 8, P 16); two or more sequences in a batch, a prompt shorter than the
+# conv (S 2), one of 256 and one of 2048
 CHAIN_SHAPES = [
     (4, 2048, 3072, 128, 48, 64),
     (2, 256, 3072, 128, 48, 64),
@@ -345,6 +371,10 @@ CHAIN_SHAPES = [
     (4, 2, 4096, 64, 64, 64),
     (4, 16, 128, 16, 8, 16),
     (2, 256, 128, 16, 8, 16),
+    (1, 2048, 8192, 128, 128, 64),
+    (2, 256, 8192, 128, 128, 64),
+    (3, 2, 8192, 128, 128, 64),
+    (2, 64, 4352, 64, 68, 64),
 ]
 
 
@@ -517,6 +547,24 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, kv, hd, pos, rope):
     assert torch.equal(ck, want_ck) and torch.equal(cv, want_cv)
 
 
+@pytest.mark.parametrize("b,s,h,kv,hd,pos", [DECODE_SHAPES[3],
+                                             DECODE_SHAPES[0]])
+def test_decode_kernel_at_a_given_scale_matches_plain(cuda, b, s, h, kv, hd,
+                                                      pos):
+    """At granite_4_h_small's softmax scale 1/128 (its attention_multiplier)
+    and no RoPE, split and unsplit: the kernel against its plain version
+    at the same scale, and away from the default scale's output."""
+    q, k, v, ck, cv, _ = _decode_inputs(cuda, b, s, h, kv, hd, False)
+    pos = _at(cuda, pos)
+    want = decode_attention_ref(q, k, v, ck.clone(), cv.clone(), pos, None,
+                                0.0078125)
+    got = decode_attention(q, k, v, ck.clone(), cv.clone(), pos, None,
+                           0.0078125)
+    default = decode_attention(q, k, v, ck, cv, pos, None)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert float((got.float() - default.float()).abs().max()) > 0.1
+
+
 def test_decode_kernel_splits_at_granite_shape(cuda):
     """granite_8b's decode grid (4 rows x 8 KV heads) splits the keys
     of its 640-slot cache; olmo_1b's (32 x 16) does not."""
@@ -682,6 +730,56 @@ def test_mamba2_card_path_matches_cpu_path(cuda):
         assert float((g - w).norm() / w.norm()) < 3e-2
     out = eng.generate(toks.numpy()[:, :256])
     assert out.shape == (2, 4) and ((out >= 0) & (out < cfg.vocab)).all()
+
+
+def test_granite4_card_path_matches_cpu_path(cuda):
+    """Granite 4.0-H's typed layout at small widths (head dims 128 and 64,
+    as the kernels take them; 8 experts, 4 held; the published
+    multipliers): bf16 card path vs fp32 plain path on the CPU, same
+    weights; prefill and two decode steps within 3% relative RMS. The
+    chain kernels and the SSD scan run once a Mamba-2 layer in prefill,
+    flash once an attention layer; the decode step is never captured
+    (the dropless MoE reads its row counts back)."""
+    cfg = ModelConfig(
+        arch_id="granite_4_h_small", family="hybrid", n_layers=4,
+        d_model=512, vocab=1000, n_heads=4, n_kv_heads=1, d_ff=256,
+        n_experts=8, experts_held=4, top_k=3, n_shared_experts=2,
+        moe_impl="dropless", router_aux_coef=0.0, use_rope=False,
+        ssm_state=128, ssm_chunk=256,
+        layer_types=("mamba", "attention", "mamba", "mamba"),
+        embedding_multiplier=12.0, residual_multiplier=0.22,
+        attention_multiplier=0.0078125, logits_scaling=16.0)
+    params = model_zoo.init_params(cfg, torch.Generator().manual_seed(0))
+    cpu_cfg = cfg.with_(compute_dtype="float32")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 512)).astype(np.int32))
+    eng = Engine(cfg, params, ServeConfig(max_seq=520, max_new_tokens=3),
+                 device=cuda)
+    with torch.inference_mode():
+        assert not model_zoo.decode_graph_ok(cfg, eng.params)
+        want, cpu_cache = model_zoo.prefill(cpu_cfg, params, toks, 520)
+        ssd0, chain0 = ssd_scan.launches, _chain_counts()
+        flash0 = flash_attention.launches
+        got, cache = model_zoo.prefill(cfg, eng.params, toks.to(cuda), 520)
+        assert ssd_scan.launches - ssd0 == 3
+        assert _chain_counts() == tuple(n + 3 for n in chain0)
+        assert flash_attention.launches - flash0 == 1
+        pairs = [(got, want)]
+        nxt = torch.argmax(want, -1).to(torch.int32)
+        for _ in range(2):
+            want, cpu_cache = model_zoo.decode_step(cpu_cfg, params,
+                                                    cpu_cache, nxt)
+            got, cache = model_zoo.decode_step(cfg, eng.params, cache,
+                                               nxt.to(cuda))
+            pairs.append((got, want))
+            nxt = torch.argmax(want, -1).to(torch.int32)
+    for g, w in pairs:
+        g, w = g.float().cpu()[:, :cfg.vocab], w[:, :cfg.vocab]
+        assert torch.isfinite(g).all()
+        assert float((g - w).norm() / w.norm()) < 3e-2
+    out = eng.generate(toks.numpy()[:, :256])
+    assert out.shape == (2, 3) and ((out >= 0) & (out < cfg.vocab)).all()
+    assert eng._graphs == {(2, 520): None}
 
 
 # ---------------------------------------------------------------------------

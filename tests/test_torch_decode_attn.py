@@ -78,7 +78,9 @@ def test_decode_op_cpu_path_is_the_torch_path(b, s, h, kv, hd, pos, rope,
 def test_model_decode_attention_goes_through_the_op(monkeypatch):
     """``models.attention.decode_attention`` hands one card's cache to the
     op, with the position tensor as it is, the RoPE table of the cache's
-    length, and no table when ``rope`` is off (whisper's decoder)."""
+    length, no table when ``rope`` is off (whisper's decoder), and no
+    scale (the op's 1/sqrt(hd)) for a config without an
+    ``attention_multiplier``."""
     cfg = get_config("olmo_1b", smoke=True)
     params = attention.init_attn(cfg, torch.Generator().manual_seed(0),
                                  dtype=torch.bfloat16)
@@ -86,9 +88,10 @@ def test_model_decode_attention_goes_through_the_op(monkeypatch):
     x = torch.randn(2, 1, cfg.d_model).to(torch.bfloat16)
     seen = []
 
-    def spy(q, k, v, ck, cv, pos, rope=None):
+    def spy(q, k, v, ck, cv, pos, rope=None, scale=None):
+        assert scale is None
         seen.append((pos, rope))
-        return decode_attention_ref(q, k, v, ck, cv, pos, rope)
+        return decode_attention_ref(q, k, v, ck, cv, pos, rope, scale)
 
     monkeypatch.setattr(attention.decode_kernel, "decode_attention", spy)
     at = [torch.tensor(p, dtype=torch.int32) for p in (5, 6)]

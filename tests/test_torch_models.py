@@ -50,8 +50,9 @@ def _np(x):
 def test_config_registry_matches(arch, smoke):
     """Every field the reference's ModelConfig has is equal; the fields
     only the port has (the leading-dense layout, the held experts, the
-    top-k renormalisation and the balance loss's form) hold their
-    defaults in every registry config."""
+    top-k renormalisation and the balance loss's form; the typed hybrid
+    layout and its multipliers; the published config.json keys) hold
+    their defaults in every registry config."""
     want = jax_configs.get_config(arch, smoke=smoke)
     got = configs.get_config(arch, smoke=smoke)
     theirs = dataclasses.asdict(want)
@@ -61,7 +62,10 @@ def test_config_registry_matches(arch, smoke):
                 if f.name not in theirs}
     assert set(defaults) == {"first_dense_layers", "dense_d_ff",
                              "experts_held", "moe_norm_topk",
-                             "router_aux"}
+                             "router_aux", "layer_types",
+                             "embedding_multiplier", "residual_multiplier",
+                             "attention_multiplier", "logits_scaling",
+                             *common.PUBLISHED}
     assert {k: mine[k] for k in defaults} == defaults
     assert (got.hd, got.padded_vocab, got.d_inner, got.ssm_heads) == \
         (want.hd, want.padded_vocab, want.d_inner, want.ssm_heads)

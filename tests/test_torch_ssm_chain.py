@@ -272,7 +272,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(admit, args, fault,
     (ops.admit_conv_silu, _conv_args, dict(w=12), "multiples of 8"),
     (ops.admit_conv_silu, _conv_args, dict(k=3), "width 4"),
     (ops.admit_gated_rmsnorm, _norm_args, dict(p=12), "multiple of 8"),
-    (ops.admit_gated_rmsnorm, _norm_args, dict(h=513, p=8), "at most 4096"),
+    (ops.admit_gated_rmsnorm, _norm_args, dict(h=1025, p=8),
+     "at most 8192"),
 ])
 def test_wrappers_refuse_widths_the_kernels_do_not_take(admit, args, kw,
                                                         match):
